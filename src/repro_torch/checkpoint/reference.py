@@ -1,0 +1,70 @@
+"""Numpy-only reader of the reference checkpoint format, and the function
+that carries the reference's DT weights into the port.
+
+A reference checkpoint (``repro.checkpoint.save_pytree``) is a directory
+of ``leaf_<i>.npy`` files plus ``meta.json``: ``{"leaves": {path: {"file",
+"shape", "dtype"}}, "digest": sha256}``, keyed by the pytree path joined
+with ``/`` (``blocks/0/attn/q/w``).  The digest hashes, over the paths in
+sorted order, each path and the first MiB of its array's bytes.
+"""
+from __future__ import annotations
+
+import hashlib
+import json
+import pathlib
+
+import numpy as np
+import torch
+
+from .. import resolve_device
+from ..core.model import DT, DTConfig
+
+__all__ = ["load_reference", "dt_params_from_reference"]
+
+
+def load_reference(path, *, verify: bool = True) -> dict[str, np.ndarray]:
+    """``{path: ndarray}`` of a reference checkpoint directory; raises
+    ``IOError`` when ``verify`` and the digest does not match."""
+    path = pathlib.Path(path)
+    meta = json.loads((path / "meta.json").read_text())
+    arrays = {}
+    digest = hashlib.sha256()
+    for key in sorted(meta["leaves"]):
+        arr = np.load(path / meta["leaves"][key]["file"])
+        digest.update(key.encode())
+        digest.update(arr.tobytes()[: 1 << 20])
+        arrays[key] = arr
+    if verify and digest.hexdigest() != meta["digest"]:
+        raise IOError(f"checkpoint {path} failed digest verification")
+    return arrays
+
+
+def _port_name(key: str) -> str:
+    """Reference pytree path -> port ``state_dict`` key."""
+    parts = key.split("/")
+    if parts[0] == "type":
+        parts[0] = "type_"
+    return ".".join(parts)
+
+
+def dt_params_from_reference(flat: dict[str, np.ndarray], *,
+                             n_heads: int = DTConfig().n_heads,
+                             device=None) -> DT:
+    """Build the port's DT from the reference's DT parameters (``flat``, as
+    :func:`load_reference` returns them).  The shapes fix every width but
+    the head count, which is ``n_heads`` (the paper's 2 by default).
+    Weights keep the reference layout (``x @ w``), so nothing is
+    transposed.  Raises on a missing, extra or misshapen leaf."""
+    dev = resolve_device(device)
+    n_blocks = len({k.split("/")[1] for k in flat if k.startswith("blocks/")})
+    d_model = int(flat["emb_r/w"].shape[1])
+    cfg = DTConfig(
+        n_blocks=n_blocks, n_heads=n_heads, d_model=d_model,
+        max_steps=int(flat["time/emb"].shape[0]),
+        d_ff=int(flat["blocks/0/mlp/up/w"].shape[1]),
+        hw_dim=int(flat["emb_h/w"].shape[0]) if "emb_h/w" in flat else 0)
+    model = DT(cfg, generator=torch.Generator().manual_seed(0))
+    state = {_port_name(k): torch.as_tensor(np.asarray(v, np.float32))
+             for k, v in flat.items()}
+    model.load_state_dict(state, strict=True)
+    return model.to(dev).eval()

@@ -1,0 +1,26 @@
+"""LayerNorm, computed in f32 and cast back (port of ``repro.nn.norms``)."""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+__all__ = ["LayerNorm"]
+
+
+class LayerNorm(nn.Module):
+    """``(x - mean) * rsqrt(var + eps) * g + b`` over the last axis."""
+
+    def __init__(self, d: int, *, eps: float = 1e-5, device=None,
+                 dtype=torch.float32):
+        super().__init__()
+        self.eps = eps
+        self.g = nn.Parameter(torch.ones(d, device=device, dtype=dtype))
+        self.b = nn.Parameter(torch.zeros(d, device=device, dtype=dtype))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.to(torch.float32)
+        mu = xf.mean(-1, keepdim=True)
+        var = torch.square(xf - mu).mean(-1, keepdim=True)
+        y = (xf - mu) * torch.rsqrt(var + self.eps)
+        return (y * self.g.to(torch.float32)
+                + self.b.to(torch.float32)).to(x.dtype)

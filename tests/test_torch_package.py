@@ -1,0 +1,126 @@
+"""Hygiene of the PyTorch port: it imports neither JAX nor the reference
+package, its entry points refuse to run on the CPU unless asked, and the
+``fusion_eval`` wrapper raises on what the kernel does not take."""
+import ast
+import pathlib
+
+import numpy as np
+import pytest
+import torch
+
+from _torch_parity import CPU, MB
+import repro_torch
+from repro_torch.core import accel, cost_model as cm, env, gsampler, infer
+from repro_torch.core import model as dtm
+from repro_torch.kernels import _build, fusion_eval as fe
+from repro_torch.workloads import tiny_cnn
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
+    [ROOT / "chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _imported_roots(path):
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_no_jax_and_no_reference(path):
+    bad = [m for m in _imported_roots(path) if m in FORBIDDEN]
+    assert not bad, f"{path.name} imports {bad}"
+
+
+def test_tf32_is_off_after_import():
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.backends.cudnn.allow_tf32 is False
+
+
+def test_resolve_device():
+    assert repro_torch.resolve_device("cpu") == torch.device("cpu")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            repro_torch.resolve_device()
+
+
+_ENTRY_POINTS = {
+    "pack_workload": lambda: cm.pack_workload(tiny_cnn(), accel.PAPER_ACCEL),
+    "FusionEnv": lambda: env.FusionEnv(tiny_cnn(), accel.PAPER_ACCEL, 32,
+                                       8 * MB),
+    "dt_init": lambda: dtm.dt_init(dtm.DTConfig(n_blocks=1, d_model=8,
+                                                d_ff=8, max_steps=8)),
+    "gsampler_search_grid": lambda: gsampler.gsampler_search_grid(
+        [tiny_cnn()], accel.PAPER_ACCEL, [32], [8 * MB], nmax=8,
+        cfg=gsampler.GSamplerConfig(population=4, generations=1)),
+    "dnnfuser_infer_batch": lambda: infer.dnnfuser_infer_batch(
+        dtm.dt_init(dtm.DTConfig(n_blocks=1, d_model=8, d_ff=8,
+                                 max_steps=8), device=CPU),
+        cm.pack_workload(tiny_cnn(), accel.PAPER_ACCEL, 8, device=CPU),
+        [32], [8 * MB], accel.PAPER_ACCEL),
+    "compiled_backend_supported": fe.compiled_backend_supported,
+}
+
+
+@pytest.mark.parametrize("name", sorted(_ENTRY_POINTS))
+def test_entry_points_refuse_to_run_on_cpu_unasked(name):
+    """Without a card and without device="cpu", an entry point raises
+    instead of running on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    with pytest.raises(RuntimeError):
+        _ENTRY_POINTS[name]()
+
+
+def _small_args():
+    wl = cm.stack_workloads([cm.pack_workload(tiny_cnn(), accel.PAPER_ACCEL,
+                                              8, device=CPU)] * 2)
+    rng = np.random.default_rng(0)
+    s = torch.as_tensor(np.stack([np.stack([
+        cm.random_strategy(rng, 6, 8, 32) for _ in range(3)])] * 2))
+    return wl, s
+
+
+def test_wrapper_rejects_what_the_kernel_does_not_take():
+    wl, s = _small_args()
+    fe.kernel_args(wl, s, [32.0, 32.0], accel.PAPER_ACCEL)   # accepted
+    with pytest.raises(TypeError):
+        fe.kernel_args(wl, s.long(), [32.0, 32.0], accel.PAPER_ACCEL)
+    with pytest.raises(ValueError):
+        fe.kernel_args(wl, s.transpose(1, 2).contiguous().transpose(1, 2),
+                       [32.0, 32.0], accel.PAPER_ACCEL)
+    with pytest.raises(ValueError):
+        fe.kernel_args(wl, s, [32.0], accel.PAPER_ACCEL)
+    bad = dict(wl, A=wl["A"].double())
+    with pytest.raises(TypeError):
+        fe.kernel_args(bad, s, [32.0, 32.0], accel.PAPER_ACCEL)
+    with pytest.raises(KeyError):
+        fe.kernel_args({k: v for k, v in wl.items() if k != "BPE"}, s,
+                       [32.0, 32.0], accel.PAPER_ACCEL)
+
+
+def test_cpu_wrapper_runs_plain_twin_and_counts_no_launch():
+    wl, s = _small_args()
+    before = fe.STATS.launches
+    out, gid, M_g = fe.fusion_eval_grid_stats(wl, s, [32.0, 32.0],
+                                              [8 * MB, 8 * MB],
+                                              accel.PAPER_ACCEL)
+    assert fe.STATS.launches == before
+    assert out.latency.shape == (2, 3) and gid.dtype == torch.int32
+    raw = fe.fusion_eval_raw(*fe.kernel_args(wl, s, [32.0, 32.0],
+                                             accel.PAPER_ACCEL))
+    assert torch.equal(raw[3], M_g)
+
+
+def test_build_targets_hopper_without_fma_contraction():
+    flags = " ".join(_build.NVCC_FLAGS)
+    assert "arch=compute_90a,code=sm_90a" in flags
+    assert "-fmad=false" in flags
+    assert (_build.CSRC / "fusion_eval.cu").is_file()
+    assert _build.BUILD_DIR.parts[-2:] == ("build", "repro_torch_kernels")
