@@ -6,8 +6,9 @@
 Phases, each of which raises on failure (the script then exits non-zero):
 
 1. device: name, power limit, torch and CUDA versions;
-2. build: ``nvcc`` builds ``kernels/csrc/fusion_eval.cu`` for sm_90a from
-   this checkout, and a probe kernel launches;
+2. build: ``nvcc`` builds ``kernels/csrc/{fusion_eval,flash_attention,
+   flash_decode}.cu`` for sm_90a from this checkout, all three at once,
+   and a probe kernel launches;
 3. kernel against its plain version: ``fusion_eval`` and
    ``fusion_eval_grid_stats_plain`` on the same card inputs (every zoo part
    serving an edge packing, so the BPE rescale runs; the main path's
@@ -16,7 +17,23 @@ Phases, each of which raises on failure (the script then exits non-zero):
    x 5 parts x 4 budgets, batch 64, nmax 64), through the kernel;
 5. DT one shot on the card: a full-width, hw-conditioned DT with seeded
    random weights answers the same 120 conditions in one batched episode,
-   and its strategies are re-scored through the kernel.
+   and its strategies are re-scored through the kernel;
+6. attention kernels against their plain versions: ``flash_attention`` at
+   the JAX sweep's shapes (f32 and bf16; causal, non-causal, window 96),
+   at qwen3_8b's head shape and at a ragged S; ``flash_decode`` at the
+   sweep's shapes, the clamp and pad cases, a poisoned cache tail and the
+   served cache; within 2e-5 (f32) or 2e-2 (bf16), the JAX sweep's
+   tolerances; then each is timed against its plain version and one
+   ``scaled_dot_product_attention`` call;
+7. scoring: qwen3_8b at full width and depth (bf16, seeded random
+   weights) scores 2 x 4096 tokens through ``lm.forward``: exactly 36
+   ``flash_attention`` launches, finite logits;
+8. serving: ``serve_greedy("qwen3_8b", batch=4, prompt_len=1024,
+   gen_len=128)`` in f32: prefill (chunked, no kernel), then 127 greedy
+   decode steps, exactly 36 x 127 ``flash_decode`` launches;
+9. full-width self-check: an f32 ``forward`` over the prompt and the
+   generated tokens reproduces the served logits (within 1e-3 of the
+   logits' largest magnitude) and the greedy tokens (near-ties counted).
 
 The last lines are the card's ``nvidia-smi`` name and power limit, a JSON
 line with each kernel's launches, error and times, and
@@ -40,7 +57,12 @@ BATCH = 64
 BUDGETS_MB = (8, 16, 32, 64)
 H100_BYTES_PER_S = 3.35e12      # HBM3, H100 SXM data sheet
 H100_F32_OPS_PER_S = 67e12      # f32 outside the tensor cores
+H100_BF16_OPS_PER_S = 989e12    # bf16 on the tensor cores, dense
 FE_OPS_PER_POSITION = 48        # f32 operations of one live (candidate, pos)
+ARCH = "qwen3_8b"
+SCORE_B, SCORE_S = 2, 4096
+SERVE_B, PROMPT, GEN = 4, 1024, 128
+SELF_CHECK_REL = 1e-3           # served vs forward logits, x max |logit|
 
 
 def check(cond, msg: str) -> None:
@@ -86,6 +108,297 @@ def fe_bound_ms(C: int, POP: int, P: int, live_positions: int):
                                  "operations"), bytes_
 
 
+def visible_pairs(S: int, T: int, causal: bool, window: int) -> int:
+    """(query, key) pairs the attention mask leaves visible."""
+    total = 0
+    for i in range(S):
+        hi = min(T, i + 1) if causal else T
+        lo = max(0, i - window + 1) if window > 0 else 0
+        total += max(0, hi - lo)
+    return total
+
+
+def roofline_ms(nbytes: float, ops: float, ops_per_s: float):
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
+                                 "operations")
+
+
+def peak_ops(dtype) -> float:
+    import torch
+    return H100_BF16_OPS_PER_S if dtype == torch.bfloat16 else \
+        H100_F32_OPS_PER_S
+
+
+def fa_bound_ms(B, S, T, Hq, Hkv, hd, causal, window, dtype):
+    """Least time for one flash_attention call: 4 * hd operations per
+    visible (query, key) pair and head over the peak of the input type;
+    q, k, v read once and the output written once over HBM."""
+    import torch
+    size = torch.finfo(dtype).bits // 8
+    ops = 4 * hd * visible_pairs(S, T, causal, window) * B * Hq
+    nbytes = size * (2 * B * S * Hq * hd + 2 * B * T * Hkv * hd)
+    return roofline_ms(nbytes, ops, peak_ops(dtype))
+
+
+def fd_bound_ms(B, Hq, Hkv, hd, kv_len, dtype):
+    """Least time for one flash_decode call: the kv_len visible keys and
+    values read once, q read and the output written once."""
+    import torch
+    size = torch.finfo(dtype).bits // 8
+    nbytes = size * (2 * B * kv_len * Hkv * hd + 2 * B * Hq * hd)
+    return roofline_ms(nbytes, 4 * B * Hq * kv_len * hd, peak_ops(dtype))
+
+
+def sdpa_ms(q, k, v, causal: bool, reps: int) -> float:
+    """One ``scaled_dot_product_attention`` call on the same inputs (the
+    yardstick; the port never calls it)."""
+    import torch.nn.functional as F
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    return time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=causal, enable_gqa=True), reps)
+
+
+def attention_kernels(dev) -> dict:
+    """Phase 6: both attention kernels against their plain versions, then
+    timed at the main path's shapes.  Returns the JSON fields."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import flash_attention as fa, flash_decode as fd
+    # (rtol, atol).  f32: the JAX sweep's 2e-5.  bf16: both sides compute in
+    # f32 from the same bf16 inputs, so they may differ by one bf16 rounding
+    # of the output (2^-7 relative at most), not by the sweep's 2e-2.
+    tol = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (8e-3, 1e-3)}
+    worst = {}                           # max of |got - want| / limit
+    rng = np.random.default_rng(0)
+
+    def qkv(dtype, B, S, T, Hq, Hkv, hd):
+        mk = lambda *sh: torch.as_tensor(rng.normal(size=sh), dtype=dtype,
+                                         device=dev)
+        return mk(B, S, Hq, hd), mk(B, T, Hkv, hd), mk(B, T, Hkv, hd)
+
+    def held(label, got, want, dtype):
+        torch.cuda.synchronize()
+        g, w = got.float(), want.float()
+        rtol, atol = tol[dtype]
+        err = float((g - w).abs().max())
+        ratio = float(((g - w).abs() / (atol + rtol * w.abs())).max())
+        worst[dtype] = max(worst.get(dtype, 0.0), ratio)
+        check(ratio <= 1 and torch.isfinite(g).all(), f"{label}: kernel "
+              f"differs from its plain version (max abs err {err}, "
+              f"{ratio:.3g} x the limit)")
+        return err
+
+    fa_cases = [(B, S, S, Hq, Hkv, hd, dt, c, w)
+                for B, S, Hq, Hkv, hd in ((1, 128, 2, 2, 64),
+                                          (2, 256, 4, 2, 64),
+                                          (1, 256, 8, 1, 128))
+                for dt in (torch.float32, torch.bfloat16)
+                for c, w in ((True, -1), (False, -1), (True, 96))]
+    fa_cases += [(SCORE_B, SCORE_S, SCORE_S, 32, 8, 128, torch.bfloat16,
+                  True, -1),
+                 (1, SCORE_S, SCORE_S, 32, 8, 128, torch.float32, True, -1),
+                 (SERVE_B, PROMPT + GEN - 1, PROMPT + GEN - 1, 32, 8, 128,
+                  torch.float32, True, -1)]
+    fa_err = {}
+    for B, S, T, Hq, Hkv, hd, dt, c, w in fa_cases:
+        q, k, v = qkv(dt, B, S, T, Hq, Hkv, hd)
+        label = (f"flash_attention B{B} S{S} Hq{Hq}/{Hkv} hd{hd} "
+                 f"{str(dt)[6:]} causal={c} window={w}")
+        err = held(label, fa.flash_attention(q, k, v, causal=c, window=w),
+                   fa.flash_attention_plain(q, k, v, causal=c, window=w), dt)
+        fa_err[dt] = max(fa_err.get(dt, 0.0), err)
+        del q, k, v
+    print(f"[6/9] flash_attention == plain on {len(fa_cases)} shapes (JAX "
+          f"sweep x f32/bf16 x causal/non-causal/window 96, qwen3_8b heads "
+          f"at S {SCORE_S}, ragged S {PROMPT + GEN - 1}): max abs err f32 "
+          f"{fa_err[torch.float32]:.3g}, bf16 {fa_err[torch.bfloat16]:.3g}")
+
+    T_srv = PROMPT + GEN + 8
+    fd_cases = [(B, T, Hq, Hkv, hd, kl, 256, dt, False)
+                for B, T, Hq, Hkv, hd, kl in ((1, 1024, 4, 4, 64, 800),
+                                              (2, 2048, 8, 2, 64, 2048),
+                                              (1, 1024, 8, 1, 128, 513))
+                for dt in (torch.float32, torch.bfloat16)]
+    fd_cases += [(1, 72, 4, 2, 64, kl, bk, torch.float32, False)
+                 for kl, bk in ((72, 512), (50, 32), (7, 16))]
+    fd_cases += [(SERVE_B, T_srv, 32, 8, 128, kl, fd.BK, dt, False)
+                 for kl in (PROMPT + 1, PROMPT + GEN - 1)
+                 for dt in (torch.float32, torch.bfloat16)]
+    fd_cases += [(SERVE_B, T_srv, 32, 8, 128, PROMPT // 2 + 1, 256,
+                  torch.float32, True)]
+    fd_err = {}
+    for B, T, Hq, Hkv, hd, kl, bk, dt, poison in fd_cases:
+        q, k, v = qkv(dt, B, 1, T, Hq, Hkv, hd)
+        want = fd.flash_decode_plain(q, k, v, kl, bk=bk)
+        if poison:                       # the unwritten tail, as in JAX's
+            k[:, kl:], v[:, kl:] = 1e6, -1e6      # test_kernels.py:213
+        label = (f"flash_decode B{B} T{T} Hq{Hq}/{Hkv} hd{hd} kv_len {kl} "
+                 f"bk {bk} {str(dt)[6:]} poisoned={poison}")
+        err = held(label, fd.flash_decode(q, k, v, kl, bk=bk), want, dt)
+        fd_err[dt] = max(fd_err.get(dt, 0.0), err)
+    print(f"      flash_decode == plain on {len(fd_cases)} shapes (JAX sweep "
+          f"x f32/bf16 at bk 256, clamp/pad T 72, poisoned tail, served "
+          f"cache T {T_srv}): max abs err f32 {fd_err[torch.float32]:.3g}, "
+          f"bf16 {fd_err[torch.bfloat16]:.3g}")
+    print(f"      worst |got - want| / (atol + rtol |want|): f32 "
+          f"{worst[torch.float32]:.3g} (2e-5, 2e-5), bf16 "
+          f"{worst[torch.bfloat16]:.3g} (8e-3, 1e-3)")
+
+    # times at the main path's shapes
+    q, k, v = qkv(torch.bfloat16, SCORE_B, SCORE_S, SCORE_S, 32, 8, 128)
+    fa_ms = time_ms(lambda: fa.flash_attention(q, k, v), 5)
+    fa_plain = time_ms(lambda: fa.flash_attention_plain(q, k, v), 3)
+    fa_lib = sdpa_ms(q, k, v, True, 5)
+    fa_main_err = held("flash_attention at the scoring shape",
+                       fa.flash_attention(q, k, v),
+                       fa.flash_attention_plain(q, k, v), torch.bfloat16)
+    fa_bound, fa_by = fa_bound_ms(SCORE_B, SCORE_S, SCORE_S, 32, 8, 128,
+                                  True, -1, torch.bfloat16)
+    del q, k, v
+    torch.cuda.empty_cache()
+    kl = PROMPT + GEN // 2               # mean kv_len of the 127 steps
+    q, k, v = qkv(torch.float32, SERVE_B, 1, T_srv, 32, 8, 128)
+    fd_ms = time_ms(lambda: fd.flash_decode(q, k, v, kl), 200)
+    fd_plain = time_ms(lambda: fd.flash_decode_plain(q, k, v, kl), 50)
+    fd_lib = sdpa_ms(q, k[:, :kl], v[:, :kl], False, 200)
+    fd_main_err = held("flash_decode at the serving shape",
+                       fd.flash_decode(q, k, v, kl),
+                       fd.flash_decode_plain(q, k, v, kl), torch.float32)
+    fd_bound, fd_by = fd_bound_ms(SERVE_B, 32, 8, 128, kl, torch.float32)
+    print(f"      flash_attention bf16 [B{SCORE_B} S{SCORE_S} Hq32/8 hd128 "
+          f"causal]: kernel {fa_ms:.4f} ms, plain {fa_plain:.4f} ms, sdpa "
+          f"{fa_lib:.4f} ms, bound {fa_bound:.4f} ms ({fa_by})")
+    print(f"      flash_decode f32 [B{SERVE_B} T{T_srv} kv_len {kl} Hq32/8 "
+          f"hd128]: kernel {fd_ms:.4f} ms, plain {fd_plain:.4f} ms, sdpa "
+          f"{fd_lib:.4f} ms, bound {fd_bound:.5f} ms ({fd_by})")
+    return {"flash_attention": dict(max_abs_err=fa_main_err, ms=fa_ms,
+                                    plain_ms=fa_plain, bound_ms=fa_bound,
+                                    bound_by=fa_by, library_ms=fa_lib),
+            "flash_decode": dict(max_abs_err=fd_main_err, ms=fd_ms,
+                                 plain_ms=fd_plain, bound_ms=fd_bound,
+                                 bound_by=fd_by, library_ms=fd_lib)}
+
+
+def reset_counts() -> None:
+    from repro_torch.kernels import flash_attention as fa, flash_decode as fd
+    from repro_torch.kernels import fusion_eval as fe
+    for mod in (fe, fa, fd):
+        mod.reset_launches()
+
+
+def counts() -> dict:
+    from repro_torch.kernels import flash_attention as fa, flash_decode as fd
+    from repro_torch.kernels import fusion_eval as fe
+    return {"fusion_eval": fe.STATS.launches,
+            "flash_attention": fa.STATS.launches,
+            "flash_decode": fd.STATS.launches}
+
+
+def scoring(dev) -> int:
+    """Phase 7: qwen3_8b (bf16) scores SCORE_B x SCORE_S random tokens."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    cfg = get_config(ARCH)
+    t0 = time.perf_counter()
+    model = lm.init(cfg, seed=0, dtype=torch.bfloat16, device=dev)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    toks = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab, (SCORE_B, SCORE_S)), device=dev)
+    lm.forward(model, {"tokens": toks[:, :128]})          # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    logits = lm.forward(model, {"tokens": toks})
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n = counts()
+    check(n == {"fusion_eval": 0, "flash_attention": cfg.n_layers,
+                "flash_decode": 0}, f"scoring launched {n}, expected "
+          f"{cfg.n_layers} flash_attention and nothing else")
+    check(tuple(logits.shape) == (SCORE_B, SCORE_S, cfg.vocab_padded)
+          and bool(torch.isfinite(logits).all()), "scoring logits malformed "
+          "or not finite")
+    print(f"[7/9] scoring {ARCH} ({cfg.n_layers} layers, d {cfg.d_model}, "
+          f"{cfg.param_count() / 1e9:.2f}e9 params, bf16, seeded random "
+          f"weights; init {t_init:.2f} s) over {SCORE_B}x{SCORE_S} tokens: "
+          f"wall {wall:.4f} s, flash_attention launches "
+          f"{n['flash_attention']}, logits {tuple(logits.shape)} finite")
+    del model, logits
+    torch.cuda.empty_cache()
+    return n["flash_attention"]
+
+
+def serving(dev) -> dict:
+    """Phase 8: greedy serving of qwen3_8b in f32."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve_greedy
+    cfg = get_config(ARCH)
+    reset_counts()
+    t0 = time.perf_counter()
+    out = serve_greedy(ARCH, batch=SERVE_B, prompt_len=PROMPT, gen_len=GEN,
+                       reduced=False, seed=0, device=dev, keep_logits=True)
+    wall = time.perf_counter() - t0
+    n = counts()
+    steps = cfg.n_layers * (GEN - 1)
+    check(n == {"fusion_eval": 0, "flash_attention": 0,
+                "flash_decode": steps}, f"serving launched {n}, expected "
+          f"0 flash_attention (prefill is the chunked math) and {steps} "
+          f"flash_decode")
+    toks = out["tokens"]
+    check(toks.shape == (SERVE_B, GEN) and (toks >= 0).all()
+          and (toks < cfg.vocab_padded).all(), "served tokens malformed")
+    print(f"[8/9] serving {ARCH} f32, batch {SERVE_B}, prompt {PROMPT}, "
+          f"gen {GEN} (cache T {PROMPT + GEN + 8}): prefill "
+          f"{out['t_prefill_s']:.4f} s, decode {out['t_decode_s']:.4f} s, "
+          f"{out['tok_per_s']:.2f} tok/s; wall with init {wall:.2f} s; "
+          f"flash_decode launches {n['flash_decode']}, flash_attention "
+          f"{n['flash_attention']}")
+    out["flash_decode"] = n["flash_decode"]
+    torch.cuda.empty_cache()
+    return out
+
+
+def self_check(dev, served: dict) -> None:
+    """Phase 9: an f32 forward over prompt + generated tokens reproduces
+    the served logits and the greedy tokens."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    cfg = get_config(ARCH)
+    model = lm.init(cfg, seed=0, dtype=torch.float32, device=dev)
+    seq = torch.as_tensor(
+        np.concatenate([served["prompt"], served["tokens"][:, :-1]], 1),
+        device=dev)
+    logits = lm.forward(model, {"tokens": seq})[:, PROMPT - 1:]
+    del model
+    got = served["logits"]
+    scale = float(logits.abs().max())
+    err = float((logits - got).abs().max())
+    check(err <= SELF_CHECK_REL * scale, f"served logits differ from the "
+          f"forward's by {err} (limit {SELF_CHECK_REL} x {scale})")
+    arg = logits.argmax(-1).cpu().numpy()
+    top2 = logits.topk(2, dim=-1).values
+    gap = (top2[..., 0] - top2[..., 1]).cpu().numpy()
+    diff = arg != served["tokens"]
+    ties = int((diff & (gap <= 2 * err)).sum())
+    check(int(diff.sum()) == ties, f"{int(diff.sum()) - ties} greedy tokens "
+          f"differ from the forward's argmax beyond a near-tie")
+    print(f"[9/9] self-check: f32 forward over {seq.shape[0]}x{seq.shape[1]} "
+          f"tokens (ragged S) reproduces the served logits at positions "
+          f"{PROMPT - 1}..{PROMPT + GEN - 2}: max abs err {err:.4g} vs max "
+          f"|logit| {scale:.4g} (limit {SELF_CHECK_REL} relative); argmax == "
+          f"greedy tokens except {ties} near-ties (top-2 gap <= 2 x err)")
+    del logits, got
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -95,6 +408,7 @@ def main() -> int:
     from repro_torch.core import accel, cost_model as cm, gsampler as gs
     from repro_torch.core import infer, model as dtm
     from repro_torch.kernels import _build, fusion_eval as fe
+    from repro_torch.kernels import flash_attention as fa, flash_decode as fd
     from repro_torch.workloads import CNN_ZOO
     from repro_torch.workloads.grid import paper_grid
 
@@ -104,21 +418,24 @@ def main() -> int:
     # -- 1. device ----------------------------------------------------------
     kind = torch.cuda.get_device_name(0)
     smi = smi_line()
-    print(f"[1/5] device: {kind} | nvidia-smi: {smi} | torch "
+    print(f"[1/9] device: {kind} | nvidia-smi: {smi} | torch "
           f"{torch.__version__} CUDA {torch.version.cuda} | devices "
           f"{torch.cuda.device_count()}")
 
     # -- 2. build -----------------------------------------------------------
     t0 = time.perf_counter()
-    _build.build(fe.SOURCE)
+    sources = (fe.SOURCE, fa.SOURCE, fd.SOURCE)
+    _build.build(*sources)
     fe.compiled_backend_supported()
-    info = _build.build_info(fe.SOURCE)
-    print(f"[2/5] build: fusion_eval.cu in {info['build_s']:.2f} s "
-          f"(cached={info['cached']}), probe ok, phase "
-          f"{time.perf_counter() - t0:.2f} s")
-    for line in info["log"].splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"      ptxas: {line.strip()}")
+    infos = {src: _build.build_info(src) for src in sources}
+    print(f"[2/9] build: " + ", ".join(
+        f"{src}.cu {infos[src]['build_s']:.2f} s" for src in sources) +
+        f" (in parallel; cached={infos[fe.SOURCE]['cached']}), probe ok, "
+        f"phase {time.perf_counter() - t0:.2f} s")
+    for src in sources:
+        for line in infos[src]["log"].splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"      ptxas {src}: {line.strip()}")
 
     # -- conditions ---------------------------------------------------------
     parts = sorted(accel.ACCEL_ZOO)
@@ -168,7 +485,7 @@ def main() -> int:
         for nm, g, w in zip(("C_g", "T_g", "O_g", "M_g", "wave_g"), got, want):
             check(torch.equal(g, w), f"{label}: {nm} not bit-equal to the "
                   f"plain version (max abs err {float((g - w).abs().max())})")
-        print(f"[3/5] kernel == plain on {label} [{Cc}x{pop}x{NMAX}]: "
+        print(f"[3/9] kernel == plain on {label} [{Cc}x{pop}x{NMAX}]: "
               f"bit-equal (max abs err {max(errs)})")
         if label.startswith("main-path"):
             main_args = args
@@ -200,7 +517,7 @@ def main() -> int:
           (C, 4, NMAX), "G-Sampler result malformed")
     check(res.valid[:, 0].mean() > 0.5, "G-Sampler found too few valid "
           "strategies")
-    print(f"[4/5] G-Sampler pop {cfg.population} x {cfg.generations} gens "
+    print(f"[4/9] G-Sampler pop {cfg.population} x {cfg.generations} gens "
           f"over {C} conditions: wall {gs_wall:.3f} s, fusion_eval launches "
           f"{gs_launches}, mean best speedup {best.mean():.4f}, valid share "
           f"{res.valid[:, 0].mean():.4f}")
@@ -238,21 +555,37 @@ def main() -> int:
           "DT n_groups differs")
     dt_valid = out["valid"].float().mean().item()
     dt_speed = out["speedup"][out["valid"]].mean().item() if dt_valid else 0.0
-    print(f"[5/5] DT one shot (3x2x128, hw_dim 10, seeded random weights) "
+    print(f"[5/9] DT one shot (3x2x128, hw_dim 10, seeded random weights) "
           f"over {C} conditions: wall {dt_wall:.4f} s, valid share "
           f"{dt_valid:.4f}, mean valid speedup {dt_speed:.4f}; re-score "
           f"matches (rtol 1e-5); G-Sampler/DT wall ratio "
           f"{gs_wall / dt_wall:.1f} (informative)")
+
+    # -- 6.-9. the LM substrate: kernels, scoring, serving, self-check ------
+    attn = attention_kernels(dev)
+    torch.cuda.empty_cache()
+    fa_launches = scoring(dev)
+    served = serving(dev)
+    self_check(dev, served)
     print(f"      total {time.perf_counter() - t_all:.1f} s")
 
     print(smi)
-    print(json.dumps({"kernels": [{
-        "name": "fusion_eval", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/fusion_eval.cu",
-        "replaces": "src/repro/kernels/fusion_eval.py:57",
-        "launches": gs_launches + dt_launches, "max_abs_err": max_err,
-        "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms,
-        "bound_by": bound_by, "library_ms": None}]}))
+    csrc = "src/repro_torch/kernels/csrc"
+    print(json.dumps({"kernels": [
+        {"name": "fusion_eval", "route": "cuda",
+         "source": f"{csrc}/fusion_eval.cu",
+         "replaces": "src/repro/kernels/fusion_eval.py:57",
+         "launches": gs_launches + dt_launches, "max_abs_err": max_err,
+         "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms,
+         "bound_by": bound_by, "library_ms": None},
+        {"name": "flash_attention", "route": "cuda",
+         "source": f"{csrc}/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:27",
+         "launches": fa_launches, **attn["flash_attention"]},
+        {"name": "flash_decode", "route": "cuda",
+         "source": f"{csrc}/flash_decode.cu",
+         "replaces": "src/repro/kernels/flash_decode.py:24",
+         "launches": served["flash_decode"], **attn["flash_decode"]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -1,5 +1,5 @@
-"""Numpy-only reader of the reference checkpoint format, and the function
-that carries the reference's DT weights into the port.
+"""Numpy-only reader of the reference checkpoint format, and the functions
+that carry the reference's DT and LM weights into the port.
 
 A reference checkpoint (``repro.checkpoint.save_pytree``) is a directory
 of ``leaf_<i>.npy`` files plus ``meta.json``: ``{"leaves": {path: {"file",
@@ -17,9 +17,11 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..configs import ArchConfig
 from ..core.model import DT, DTConfig
 
-__all__ = ["load_reference", "dt_params_from_reference"]
+__all__ = ["load_reference", "dt_params_from_reference",
+           "lm_params_from_reference"]
 
 
 def load_reference(path, *, verify: bool = True) -> dict[str, np.ndarray]:
@@ -67,4 +69,31 @@ def dt_params_from_reference(flat: dict[str, np.ndarray], *,
     state = {_port_name(k): torch.as_tensor(np.asarray(v, np.float32))
              for k, v in flat.items()}
     model.load_state_dict(state, strict=True)
+    return model.to(dev).eval()
+
+
+def lm_params_from_reference(flat: dict[str, np.ndarray], cfg: ArchConfig,
+                             *, device=None):
+    """Build the port's LM (``models.lm.LM``), in f32, for ``cfg`` from the
+    reference LM's parameters (``flat``, as :func:`load_reference` returns
+    them).  The reference stacks each block leaf on a leading layer axis
+    (``blocks/attn/q/w`` is [L, d, Hq*hd]); it is split into the per-layer
+    ``blocks.<i>.attn.q.w``.  Raises on a missing, extra or misshapen
+    leaf."""
+    from ..models.lm import LM
+    dev = resolve_device(device)
+    state = {}
+    for key, arr in flat.items():
+        t = torch.as_tensor(np.asarray(arr, np.float32))
+        if key.startswith("blocks/"):
+            if t.dim() == 0 or t.shape[0] != cfg.n_layers:
+                raise ValueError(f"{key}: leading axis {tuple(t.shape)[:1]} "
+                                 f"is not the {cfg.n_layers} layers")
+            rest = _port_name(key[len("blocks/"):])
+            for i in range(cfg.n_layers):
+                state[f"blocks.{i}.{rest}"] = t[i]
+        else:
+            state[_port_name(key)] = t
+    model = LM(cfg, device="meta", dtype=torch.float32)
+    model.load_state_dict(state, strict=True, assign=True)
     return model.to(dev).eval()

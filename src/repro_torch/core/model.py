@@ -60,7 +60,8 @@ class DT(nn.Module):
         self.emb_h = Dense(cfg.hw_dim, d, **kw) if cfg.hw_dim else None
         self.blocks = nn.ModuleList(
             Block(d, n_heads=cfg.n_heads, head_dim=cfg.head_dim,
-                  d_ff=cfg.d_ff, **kw) for _ in range(cfg.n_blocks))
+                  d_ff=cfg.d_ff, mlp_kind="gelu", norm="layer", **kw)
+            for _ in range(cfg.n_blocks))
 
     def hw_emb(self, hw: torch.Tensor | None, batch: int):
         """[B, d] additive hw-condition embedding, or None when the model is

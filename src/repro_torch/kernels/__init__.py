@@ -1,12 +1,19 @@
 """Hand-written CUDA kernels of the port, each with its plain PyTorch twin.
 
-``fusion_eval`` (``csrc/fusion_eval.cu``) replaces the reference's Pallas
-``_fe_kernel``.  Sources are built with ``nvcc`` at first use
-(``_build``); importing this package builds nothing."""
-from .fusion_eval import (backend_stats, compiled_backend_supported,
-                          fusion_eval_grid, fusion_eval_grid_stats,
-                          fusion_eval_grid_stats_plain, reset_launches)
+One module per kernel, each holding its wrapper, its plain twin and its
+launch count:
 
-__all__ = ["fusion_eval_grid", "fusion_eval_grid_stats",
-           "fusion_eval_grid_stats_plain", "compiled_backend_supported",
-           "backend_stats", "reset_launches"]
+- ``fusion_eval`` (``csrc/fusion_eval.cu``) replaces the reference's
+  Pallas ``_fe_kernel``;
+- ``flash_attention`` (``csrc/flash_attention.cu``) its ``_fa_kernel``;
+- ``flash_decode`` (``csrc/flash_decode.cu``) its ``_fd_kernel`` and the
+  merge after it.
+
+``dense_attention`` is the masked softmax math that the attention twins
+and ``nn.attention``'s dense route share.  Sources are built with ``nvcc``
+at first use (``_build``).  Importing this package imports none of its
+modules and builds nothing, so ``nn`` can import the attention kernels
+while ``fusion_eval`` imports ``core``."""
+
+__all__ = ["fusion_eval", "flash_attention", "flash_decode",
+           "dense_attention"]

@@ -1,8 +1,11 @@
-"""Neural-network building blocks of the DT mapper (port of ``repro.nn``)."""
+"""Neural-network building blocks of the DT mapper and the LM substrate
+(port of ``repro.nn``)."""
 from .linear import Dense, Embedding
-from .norms import LayerNorm
+from .norms import LayerNorm, RMSNorm
+from .rope import apply_rope, rope_freqs
 from .attention import MHA, attend, init_kv_cache
-from .transformer import MLP, Block
+from .transformer import MLP, Block, make_norm
 
-__all__ = ["Dense", "Embedding", "LayerNorm", "MHA", "attend",
-           "init_kv_cache", "MLP", "Block"]
+__all__ = ["Dense", "Embedding", "LayerNorm", "RMSNorm", "apply_rope",
+           "rope_freqs", "MHA", "attend", "init_kv_cache", "MLP", "Block",
+           "make_norm"]

@@ -1,10 +1,11 @@
-"""LayerNorm, computed in f32 and cast back (port of ``repro.nn.norms``)."""
+"""LayerNorm and RMSNorm, computed in f32 and cast back (port of
+``repro.nn.norms``)."""
 from __future__ import annotations
 
 import torch
 from torch import nn
 
-__all__ = ["LayerNorm"]
+__all__ = ["LayerNorm", "RMSNorm"]
 
 
 class LayerNorm(nn.Module):
@@ -24,3 +25,19 @@ class LayerNorm(nn.Module):
         y = (xf - mu) * torch.rsqrt(var + self.eps)
         return (y * self.g.to(torch.float32)
                 + self.b.to(torch.float32)).to(x.dtype)
+
+
+class RMSNorm(nn.Module):
+    """``x * rsqrt(mean(x^2) + eps) * g`` over the last axis."""
+
+    def __init__(self, d: int, *, eps: float = 1e-6, device=None,
+                 dtype=torch.float32):
+        super().__init__()
+        self.eps = eps
+        self.g = nn.Parameter(torch.ones(d, device=device, dtype=dtype))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.to(torch.float32)
+        y = xf * torch.rsqrt(torch.square(xf).mean(-1, keepdim=True)
+                             + self.eps)
+        return (y * self.g.to(torch.float32)).to(x.dtype)

@@ -1,8 +1,10 @@
-"""Pre-norm transformer block with a GELU MLP (port of the parts of
-``repro.nn.transformer`` the DT mapper uses).
+"""Pre-norm transformer block (port of ``repro.nn.transformer``).
 
-``jax.nn.gelu`` is the tanh approximation, so the MLP uses
-``F.gelu(..., approximate="tanh")``.
+The MLP is SwiGLU (``down(silu(gate(x)) * up(x))``, no biases) or GELU
+(``down(gelu(up(x)))`` with biases).  ``jax.nn.gelu`` is the tanh
+approximation, so the GELU MLP uses ``F.gelu(..., approximate="tanh")``.
+The norm is RMSNorm or LayerNorm.  The reference's scanned stack becomes a
+Python loop over per-layer blocks in the models that use them.
 """
 from __future__ import annotations
 
@@ -12,38 +14,65 @@ from torch import nn
 
 from .attention import MHA
 from .linear import Dense
-from .norms import LayerNorm
+from .norms import LayerNorm, RMSNorm
 
-__all__ = ["MLP", "Block"]
+__all__ = ["MLP", "Block", "make_norm"]
+
+
+def make_norm(kind: str, d: int, *, device=None, dtype=torch.float32):
+    """``RMSNorm`` for ``"rms"``, ``LayerNorm`` for ``"layer"``."""
+    if kind == "rms":
+        return RMSNorm(d, device=device, dtype=dtype)
+    if kind == "layer":
+        return LayerNorm(d, device=device, dtype=dtype)
+    raise ValueError(f"unknown norm {kind!r}")
 
 
 class MLP(nn.Module):
-    def __init__(self, d: int, d_ff: int, *, generator=None, device=None,
-                 dtype=torch.float32):
+    def __init__(self, d: int, d_ff: int, *, kind: str = "swiglu",
+                 generator=None, device=None, dtype=torch.float32):
         super().__init__()
         kw = dict(generator=generator, device=device, dtype=dtype)
-        self.up = Dense(d, d_ff, bias=True, **kw)
-        self.down = Dense(d_ff, d, bias=True, **kw)
+        self.kind = kind
+        if kind == "swiglu":
+            self.gate = Dense(d, d_ff, bias=False, **kw)
+            self.up = Dense(d, d_ff, bias=False, **kw)
+            self.down = Dense(d_ff, d, bias=False, **kw)
+        elif kind == "gelu":
+            self.up = Dense(d, d_ff, bias=True, **kw)
+            self.down = Dense(d_ff, d, bias=True, **kw)
+        else:
+            raise ValueError(f"unknown mlp kind {kind!r}")
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.kind == "swiglu":
+            return self.down(F.silu(self.gate(x)) * self.up(x))
         return self.down(F.gelu(self.up(x), approximate="tanh"))
 
 
 class Block(nn.Module):
-    """``x + attn(ln1(x))``, then ``+ mlp(ln2(x))``."""
+    """``x + attn(norm1(x))``, then ``+ mlp(norm2(x))``."""
 
     def __init__(self, d_model: int, *, n_heads: int, head_dim: int,
-                 d_ff: int, generator=None, device=None, dtype=torch.float32):
+                 d_ff: int, kv_heads: int | None = None,
+                 mlp_kind: str = "swiglu", norm: str = "rms",
+                 qkv_bias: bool = False, qk_norm: bool = False,
+                 generator=None, device=None, dtype=torch.float32):
         super().__init__()
         kw = dict(generator=generator, device=device, dtype=dtype)
-        self.ln1 = LayerNorm(d_model, device=device, dtype=dtype)
-        self.attn = MHA(d_model, n_heads=n_heads, head_dim=head_dim, **kw)
-        self.ln2 = LayerNorm(d_model, device=device, dtype=dtype)
-        self.mlp = MLP(d_model, d_ff, **kw)
+        self.ln1 = make_norm(norm, d_model, device=device, dtype=dtype)
+        self.attn = MHA(d_model, n_heads=n_heads, head_dim=head_dim,
+                        kv_heads=kv_heads, qkv_bias=qkv_bias,
+                        qk_norm=qk_norm, **kw)
+        self.ln2 = make_norm(norm, d_model, device=device, dtype=dtype)
+        self.mlp = MLP(d_model, d_ff, kind=mlp_kind, **kw)
 
-    def forward(self, x: torch.Tensor, *, cache: dict | None = None):
+    def forward(self, x: torch.Tensor, *, cos=None, sin=None,
+                window: int = -1, cache: dict | None = None,
+                impl: str = "dense"):
         """Returns ``(x, cache)``."""
-        h, cache = self.attn(self.ln1(x), cache=cache)
+        h, cache = self.attn(self.ln1(x), cos=cos, sin=sin, window=window,
+                             cache=cache, impl=impl)
         x = x + h
         x = x + self.mlp(self.ln2(x))
         return x, cache

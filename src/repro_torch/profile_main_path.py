@@ -2,14 +2,18 @@
 
     PYTHONPATH=src python -m repro_torch.profile_main_path [--out DIR]
 
-Answers the smoke grid (6 CNNs x 5 parts x 4 budgets, batch 64, nmax 64)
-with the G-Sampler (paper config) and with the DT one-shot episode
-(full width, hw-conditioned, seeded random weights), each once to warm up
-and once under ``torch.profiler``.  Prints one JSON line per phase: host
-wall time, device busy time (the sum of kernel times; everything runs on
-one stream, so kernels do not overlap), the device's idle share, the
-number of kernel launches, and the kernels that take the most device
-time.  Chrome traces go to ``DIR`` (default ``chiprun_out/profile``).
+Slice 1: answers the smoke grid (6 CNNs x 5 parts x 4 budgets, batch 64,
+nmax 64) with the G-Sampler (paper config) and with the DT one-shot
+episode (full width, hw-conditioned, seeded random weights).  Slice 2:
+qwen3_8b at full width and depth (seeded random weights) scores 2 x 4096
+tokens in bf16 (``lm.forward``), and, in f32 after a 1024-token prefill
+of batch 4, runs 8 greedy decode steps (``lm.decode_step``).  Each phase
+runs once to warm up and once under ``torch.profiler``.  Prints one JSON
+line per phase: host wall time, device busy time (the sum of kernel
+times; everything runs on one stream, so kernels do not overlap), the
+device's idle share, the number of kernel launches, the launches of the
+port's own kernels, and the kernels that take the most device time.
+Chrome traces go to ``DIR`` (see ``--help`` for the default).
 """
 from __future__ import annotations
 
@@ -20,10 +24,18 @@ import time
 
 import torch
 
+import numpy as np
+
+from .configs import get_config
 from .core import accel, cost_model as cm, gsampler as gs, infer
 from .core import model as dtm
+from .kernels import flash_attention as fa, flash_decode as fd
 from .kernels import fusion_eval as fe
+from .models import lm
 from .workloads.grid import paper_grid
+
+PORT_KERNELS = {"fusion_eval": fe, "flash_attention": fa,
+                "flash_decode": fd}
 
 __all__ = ["profile_phase", "main"]
 
@@ -34,13 +46,14 @@ def profile_phase(name: str, fn, out_dir: pathlib.Path, top: int = 8) -> dict:
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    fe.reset_launches()
+    for mod in PORT_KERNELS.values():
+        mod.reset_launches()
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    launches_fe = fe.STATS.launches
+    port = {k: mod.STATS.launches for k, mod in PORT_KERNELS.items()}
     out_dir.mkdir(parents=True, exist_ok=True)
     prof.export_chrome_trace(str(out_dir / f"{name}.json.gz"))
     kernels = [e for e in prof.events()
@@ -57,7 +70,7 @@ def profile_phase(name: str, fn, out_dir: pathlib.Path, top: int = 8) -> dict:
             "device_busy_ms": busy_us / 1e3,
             "idle_share": 1.0 - busy_us / 1e3 / (wall * 1e3),
             "kernel_launches": len(kernels),
-            "fusion_eval_launches": launches_fe,
+            "port_kernel_launches": port,
             "host_us_per_launch": wall * 1e6 / max(len(kernels), 1),
             "top": [{"kernel": k[:80], "n": v[0], "ms": v[1] / 1e3}
                     for k, v in ranked]}
@@ -90,6 +103,30 @@ def main(argv=None) -> int:
                       "conditions": len(conds)}))
     for name, fn in phases.items():
         print(json.dumps(profile_phase(name, fn, out_dir)))
+    del model, packed
+
+    cfg = get_config("qwen3_8b")
+    rng = np.random.default_rng(1)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab, (2, 4096)), device=dev)
+    net = lm.init(cfg, seed=0, dtype=torch.bfloat16, device=dev)
+    print(json.dumps(profile_phase(
+        "lm_scoring", lambda: lm.forward(net, {"tokens": toks}), out_dir)))
+    del net
+    torch.cuda.empty_cache()
+    net = lm.init(cfg, seed=0, dtype=torch.float32, device=dev)
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab, (4, 1024)),
+                             device=dev)
+    _, state = lm.prefill(net, {"tokens": prompt}, 1160,
+                          cache_dtype=torch.float32)
+    tok = prompt[:, -1:]
+
+    def decode8():
+        nonlocal tok
+        for _ in range(8):
+            logits, _ = lm.decode_step(net, state, {"tokens": tok})
+            tok = logits[:, -1].argmax(-1)[:, None]
+
+    print(json.dumps(profile_phase("lm_decode_8_steps", decode8, out_dir)))
     return 0
 
 

@@ -1,19 +1,27 @@
-"""Checks of the port that need a CUDA card: the ``fusion_eval`` kernel
-against its plain twin, and the main path through it.  Each skips without
-a card (decided inside the fixture, never at import); on the card run
+"""Checks of the port that need a CUDA card: each kernel (``fusion_eval``,
+``flash_attention``, ``flash_decode``) against its plain twin, and the
+paths through them.  Each skips without a card (decided inside the
+fixture, never at import).  The file imports nothing of JAX, of the
+reference package or of the CPU parity helpers, so it runs on a machine
+that has only PyTorch.  On the card run
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
-from _torch_parity import MB
+from repro_torch.configs import get_config
 from repro_torch.core import accel, cost_model as cm, gsampler as gs
+from repro_torch.kernels import flash_attention as fa, flash_decode as fd
 from repro_torch.kernels import fusion_eval as fe
+from repro_torch.models import lm
 from repro_torch.workloads import resnet18, tiny_cnn
 
 pytestmark = pytest.mark.cuda
+MB = 2.0 ** 20
 
 
 @pytest.fixture
@@ -66,3 +74,117 @@ def test_gsampler_on_card_is_deterministic_and_uses_kernel(dev):
                                 device=dev)
     np.testing.assert_array_equal(a.strategies, b.strategies)
     assert a.valid[:, 0].all()
+
+
+# -- attention kernels: f32 at the JAX sweep's 2e-5 (tests/test_kernels.py);
+# bf16 at one bf16 rounding of the output (2^-7 relative at most), since
+# both sides compute in f32 from the same bf16 inputs --
+TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5),
+       torch.bfloat16: dict(rtol=8e-3, atol=1e-3)}
+
+
+def _qkv(dev, dtype, B, S, T, Hq, Hkv, hd, seed=0):
+    rng = np.random.default_rng(seed)
+    mk = lambda *sh: torch.as_tensor(rng.normal(size=sh), dtype=dtype,
+                                     device=dev)
+    return mk(B, S, Hq, hd), mk(B, T, Hkv, hd), mk(B, T, Hkv, hd)
+
+
+def _close(got, want, dtype):
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal,window", [(True, -1), (False, -1),
+                                           (True, 96)])
+@pytest.mark.parametrize("B,S,T,Hq,Hkv,hd", [
+    (1, 128, 128, 2, 2, 64), (2, 256, 256, 4, 2, 64),
+    (1, 256, 256, 8, 1, 128), (1, 200, 200, 4, 2, 128),
+    (2, 77, 150, 4, 4, 64)])
+def test_flash_attention_kernel_matches_plain(dev, dtype, causal, window,
+                                              B, S, T, Hq, Hkv, hd):
+    q, k, v = _qkv(dev, dtype, B, S, T, Hq, Hkv, hd)
+    before = fa.STATS.launches
+    got = fa.flash_attention(q, k, v, causal=causal, window=window)
+    assert fa.STATS.launches == before + 1
+    _close(got, fa.flash_attention_plain(q, k, v, causal=causal,
+                                         window=window), dtype)
+
+
+def test_flash_attention_reads_strided_inputs(dev):
+    qkv = torch.randn(2, 130, 3, 4, 64, device=dev,
+                      generator=torch.Generator(dev).manual_seed(0))
+    q, k, v = qkv.unbind(2)                      # non-contiguous views
+    _close(fa.flash_attention(q, k, v),
+           fa.flash_attention_plain(q, k, v), torch.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,Hq,Hkv,hd,kv_len,bk", [
+    (1, 1024, 4, 4, 64, 800, 256), (2, 2048, 8, 2, 64, 2048, 256),
+    (1, 1024, 8, 1, 128, 513, 256), (1, 72, 4, 2, 64, 72, 512),
+    (1, 72, 4, 2, 64, 50, 32), (1, 72, 4, 2, 64, 7, 16),
+    (4, 1160, 32, 8, 128, 1025, 512)])
+def test_flash_decode_kernel_matches_plain(dev, dtype, B, T, Hq, Hkv, hd,
+                                           kv_len, bk):
+    q, k, v = _qkv(dev, dtype, B, 1, T, Hq, Hkv, hd)
+    before = fd.STATS.launches
+    got = fd.flash_decode(q, k, v, kv_len, bk=bk)
+    assert fd.STATS.launches == before + 1
+    _close(got, fd.flash_decode_plain(q, k, v, kv_len, bk=bk), dtype)
+
+
+def test_flash_decode_masks_a_poisoned_tail(dev):
+    q, k, v = _qkv(dev, torch.float32, 2, 1, 1160, 32, 8, 128)
+    want = fd.flash_decode_plain(q, k, v, 513, bk=256)
+    k[:, 513:], v[:, 513:] = 1e6, -1e6
+    got = fd.flash_decode(q, k, v, 513, bk=256)
+    _close(got, want, torch.float32)
+    assert torch.isfinite(got).all()
+
+
+def test_kernels_raise_on_what_they_do_not_take(dev):
+    q, k, v = _qkv(dev, torch.float32, 1, 8, 8, 2, 2, 32)
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_attention(q, k, v)
+    with pytest.raises(ValueError, match="head dim"):
+        fd.flash_decode(q[:, :1], k, v, 8)
+    q, k, v = _qkv(dev, torch.float32, 1, 1, 8, 16, 1, 64)
+    with pytest.raises(ValueError, match="at most"):
+        fd.flash_decode(q, k, v, 8)
+    with pytest.raises(TypeError):
+        fa.flash_attention(q.half(), k.half(), v.half())
+
+
+def test_lm_kernel_path_matches_dense_path_on_card(dev):
+    """A reduced qwen3 with the kernels' head dim: forward through
+    flash_attention and decode through flash_decode agree with the dense
+    path (f32; 2e-4 relative to the logits' scale, the reference's own
+    model tolerance)."""
+    cfg = dataclasses.replace(get_config("qwen3_8b", reduced=True),
+                              head_dim=64)
+    model = lm.init(cfg, seed=0, dtype=torch.float32, device=dev)
+    toks = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 130)), device=dev)
+    fa.reset_launches()
+    got = lm.forward(model, {"tokens": toks}, impl="kernel")
+    assert fa.STATS.launches == cfg.n_layers
+    want = lm.forward(model, {"tokens": toks}, impl="dense")
+    tol = 2e-4 * float(want.abs().max())
+    torch.testing.assert_close(got, want, rtol=0, atol=tol)
+    fd.reset_launches()
+    outs = {}
+    for impl in ("kernel", "dense"):
+        lg, st = lm.prefill(model, {"tokens": toks[:, :120]}, 140, impl=impl,
+                            cache_dtype=torch.float32)
+        seq = [lg]
+        for t in range(120, 130):
+            lg, st = lm.decode_step(model, st, {"tokens": toks[:, t:t + 1]},
+                                    impl=impl)
+            seq.append(lg)
+        outs[impl] = torch.cat(seq, 1)
+    assert fd.STATS.launches == 10 * cfg.n_layers
+    torch.testing.assert_close(outs["kernel"], outs["dense"], rtol=0,
+                               atol=tol)
+    torch.testing.assert_close(outs["kernel"], got[:, 119:], rtol=0,
+                               atol=tol)

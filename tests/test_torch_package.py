@@ -1,8 +1,11 @@
 """Hygiene of the PyTorch port: it imports neither JAX nor the reference
 package, its entry points refuse to run on the CPU unless asked, and the
-``fusion_eval`` wrapper raises on what the kernel does not take."""
+kernel wrappers raise on what the kernels do not take."""
 import ast
+import os
 import pathlib
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -12,13 +15,16 @@ from _torch_parity import CPU, MB
 import repro_torch
 from repro_torch.core import accel, cost_model as cm, env, gsampler, infer
 from repro_torch.core import model as dtm
+from repro_torch.configs import get_config
 from repro_torch.kernels import _build, fusion_eval as fe
+from repro_torch.launch import serve_greedy
+from repro_torch.models import lm
 from repro_torch.workloads import tiny_cnn
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
-    [ROOT / "chip_smoke.py"]
-FORBIDDEN = ("jax", "jaxlib", "repro")
+    [ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_cuda.py"]
+FORBIDDEN = ("jax", "jaxlib", "repro", "_torch_parity")
 
 
 def _imported_roots(path):
@@ -36,6 +42,19 @@ def _imported_roots(path):
 def test_port_imports_no_jax_and_no_reference(path):
     bad = [m for m in _imported_roots(path) if m in FORBIDDEN]
     assert not bad, f"{path.name} imports {bad}"
+
+
+@pytest.mark.parametrize("module", ["nn", "models.lm", "kernels.flash_attention",
+                                    "kernels.fusion_eval", "core", "launch"])
+def test_each_layer_imports_first(module):
+    """``nn`` imports the attention kernels, and ``kernels.fusion_eval``
+    imports ``core``, whose DT imports ``nn``: each must import first in a
+    fresh interpreter."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src"), os.environ.get("PYTHONPATH", "")]))
+    r = subprocess.run([sys.executable, "-c", f"import repro_torch.{module}"],
+                       env=env, capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-2000:]
 
 
 def test_tf32_is_off_after_import():
@@ -65,6 +84,11 @@ _ENTRY_POINTS = {
         cm.pack_workload(tiny_cnn(), accel.PAPER_ACCEL, 8, device=CPU),
         [32], [8 * MB], accel.PAPER_ACCEL),
     "compiled_backend_supported": fe.compiled_backend_supported,
+    "lm.init": lambda: lm.init(get_config("qwen3_8b", reduced=True)),
+    "lm.init_decode_state": lambda: lm.init_decode_state(
+        get_config("qwen3_8b", reduced=True), 1, 8),
+    "serve_greedy": lambda: serve_greedy("qwen3_8b", batch=1, prompt_len=4,
+                                         gen_len=2),
 }
 
 
@@ -122,5 +146,6 @@ def test_build_targets_hopper_without_fma_contraction():
     flags = " ".join(_build.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in flags
     assert "-fmad=false" in flags
-    assert (_build.CSRC / "fusion_eval.cu").is_file()
+    for src in ("fusion_eval", "flash_attention", "flash_decode"):
+        assert (_build.CSRC / f"{src}.cu").is_file()
     assert _build.BUILD_DIR.parts[-2:] == ("build", "repro_torch_kernels")
