@@ -7,8 +7,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
 
 1. device: name, power limit, torch and CUDA versions;
 2. build: ``nvcc`` builds ``kernels/csrc/{fusion_eval,flash_attention,
-   flash_decode}.cu`` for sm_90a from this checkout, all three at once,
-   and a probe kernel launches;
+   flash_decode,wkv6}.cu`` for sm_90a from this checkout, all four at
+   once, and a probe kernel launches;
 3. kernel against its plain version: ``fusion_eval`` and
    ``fusion_eval_grid_stats_plain`` on the same card inputs (every zoo part
    serving an edge packing, so the BPE rescale runs; the main path's
@@ -22,8 +22,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
    the JAX sweep's shapes (f32 and bf16; causal, non-causal, window 96),
    at qwen3_8b's head shape and at a ragged S; ``flash_decode`` at the
    sweep's shapes, the clamp and pad cases, a poisoned cache tail and the
-   served cache; within 2e-5 (f32) or 2e-2 (bf16), the JAX sweep's
-   tolerances; then each is timed against its plain version and one
+   served cache; within ``atol + rtol |plain|`` of 2e-5 + 2e-5 (f32, the
+   JAX sweep's) or 1e-3 + 8e-3 (bf16: one bf16 rounding of the output);
+   then each is timed against its plain version and one
    ``scaled_dot_product_attention`` call;
 7. scoring: qwen3_8b at full width and depth (bf16, seeded random
    weights) scores 2 x 4096 tokens through ``lm.forward``: exactly 36
@@ -33,7 +34,22 @@ Phases, each of which raises on failure (the script then exits non-zero):
    decode steps, exactly 36 x 127 ``flash_decode`` launches;
 9. full-width self-check: an f32 ``forward`` over the prompt and the
    generated tokens reproduces the served logits (within 1e-3 of the
-   logits' largest magnitude) and the greedy tokens (near-ties counted).
+   logits' largest magnitude) and the greedy tokens (near-ties counted);
+10. ``wkv6`` against ``wkv6_plain``, the sequential recurrence, in f32 at
+   the JAX sweep's shapes, under strong decay, at a T that is not a whole
+   number of chunks, on strided inputs and at rwkv6_3b's scoring shape
+   (within 5e-5 + 5e-5 |plain|, the sweep's; see ``WKV_LONG_ATOL`` for
+   the 4096-step shape); then timed against its plain version;
+11. scoring: rwkv6_3b at full width and depth (bf16, seeded random
+   weights) scores 2 x 4096 tokens through ``rwkv_lm.forward``: exactly
+   32 ``wkv6`` launches, finite logits;
+12. serving: ``serve_greedy("rwkv6_3b", batch=4, prompt_len=1024,
+   gen_len=128)`` in f32: exactly 32 ``wkv6`` launches, all in the
+   prefill;
+13. RWKV self-check: an f32 ``forward`` through ``wkv6`` over the prompt
+   and the generated tokens reproduces the served logits and greedy
+   tokens as in phase 9, and one prefill launches ``wkv6`` once per layer
+   while one decode step launches it never.
 
 The last lines are the card's ``nvidia-smi`` name and power limit, a JSON
 line with each kernel's launches, error and times, and
@@ -60,9 +76,20 @@ H100_F32_OPS_PER_S = 67e12      # f32 outside the tensor cores
 H100_BF16_OPS_PER_S = 989e12    # bf16 on the tensor cores, dense
 FE_OPS_PER_POSITION = 48        # f32 operations of one live (candidate, pos)
 ARCH = "qwen3_8b"
+RWKV = "rwkv6_3b"
 SCORE_B, SCORE_S = 2, 4096
 SERVE_B, PROMPT, GEN = 4, 1024, 128
 SELF_CHECK_REL = 1e-3           # served vs forward logits, x max |logit|
+WKV_TOL = (5e-5, 5e-5)          # (rtol, atol): the JAX sweep's
+WKV_OPS_PER_CELL = 6            # f32 operations per state cell and step
+# At 4096 steps the kernel and its twin still share every state rounding
+# (the kernel is written so), and differ only in the order of y's sum over
+# i: 64 terms r_i (u_i k_i v_j + S_ij) with |S| ~ 14 under the model's
+# decays.  One such f32 sum already errs by up to 0.62 x the sweep's limit
+# against an f64 sum over 1e6 outputs (B1 x T4096 x H4, CPU), and the
+# kernel-vs-twin difference holds two such errors over 2.1e7 outputs, so
+# the absolute part of the limit is doubled at that shape only.
+WKV_LONG_ATOL = 1e-4
 
 
 def check(cond, msg: str) -> None:
@@ -210,7 +237,7 @@ def attention_kernels(dev) -> dict:
                    fa.flash_attention_plain(q, k, v, causal=c, window=w), dt)
         fa_err[dt] = max(fa_err.get(dt, 0.0), err)
         del q, k, v
-    print(f"[6/9] flash_attention == plain on {len(fa_cases)} shapes (JAX "
+    print(f"[6/13] flash_attention == plain on {len(fa_cases)} shapes (JAX "
           f"sweep x f32/bf16 x causal/non-causal/window 96, qwen3_8b heads "
           f"at S {SCORE_S}, ragged S {PROMPT + GEN - 1}): max abs err f32 "
           f"{fa_err[torch.float32]:.3g}, bf16 {fa_err[torch.bfloat16]:.3g}")
@@ -283,104 +310,134 @@ def attention_kernels(dev) -> dict:
 
 def reset_counts() -> None:
     from repro_torch.kernels import flash_attention as fa, flash_decode as fd
-    from repro_torch.kernels import fusion_eval as fe
-    for mod in (fe, fa, fd):
+    from repro_torch.kernels import fusion_eval as fe, rwkv6_scan as rk
+    for mod in (fe, fa, fd, rk):
         mod.reset_launches()
 
 
 def counts() -> dict:
     from repro_torch.kernels import flash_attention as fa, flash_decode as fd
-    from repro_torch.kernels import fusion_eval as fe
+    from repro_torch.kernels import fusion_eval as fe, rwkv6_scan as rk
     return {"fusion_eval": fe.STATS.launches,
             "flash_attention": fa.STATS.launches,
-            "flash_decode": fd.STATS.launches}
+            "flash_decode": fd.STATS.launches,
+            "wkv6": rk.STATS.launches}
 
 
-def scoring(dev) -> int:
-    """Phase 7: qwen3_8b (bf16) scores SCORE_B x SCORE_S random tokens."""
+def launched(n: dict) -> str:
+    return ", ".join(f"{k} {v}" for k, v in n.items() if v) or "none"
+
+
+def expect_counts(label: str, n: dict, **want) -> None:
+    """The counts are ``want`` for the named kernels and 0 for the rest."""
+    full = {k: want.get(k, 0) for k in n}
+    check(n == full, f"{label} launched {n}, expected {full}")
+
+
+def scoring(dev, arch: str, phase: int, **want) -> dict:
+    """Phases 7 and 11: ``arch`` (bf16, seeded random weights) scores
+    SCORE_B x SCORE_S random tokens; the launches are ``want``."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.models import lm
-    cfg = get_config(ARCH)
+    from repro_torch.models import get_model
+    cfg = get_config(arch)
+    mod = get_model(cfg)
     t0 = time.perf_counter()
-    model = lm.init(cfg, seed=0, dtype=torch.bfloat16, device=dev)
+    model = mod.init(cfg, seed=0, dtype=torch.bfloat16, device=dev)
     torch.cuda.synchronize()
     t_init = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
     toks = torch.as_tensor(np.random.default_rng(1).integers(
         0, cfg.vocab, (SCORE_B, SCORE_S)), device=dev)
-    lm.forward(model, {"tokens": toks[:, :128]})          # warm-up
+    mod.forward(model, {"tokens": toks[:, :128]})         # warm-up
     torch.cuda.synchronize()
     reset_counts()
     t0 = time.perf_counter()
-    logits = lm.forward(model, {"tokens": toks})
+    logits = mod.forward(model, {"tokens": toks})
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     n = counts()
-    check(n == {"fusion_eval": 0, "flash_attention": cfg.n_layers,
-                "flash_decode": 0}, f"scoring launched {n}, expected "
-          f"{cfg.n_layers} flash_attention and nothing else")
+    expect_counts(f"scoring {arch}", n, **want)
     check(tuple(logits.shape) == (SCORE_B, SCORE_S, cfg.vocab_padded)
           and bool(torch.isfinite(logits).all()), "scoring logits malformed "
           "or not finite")
-    print(f"[7/9] scoring {ARCH} ({cfg.n_layers} layers, d {cfg.d_model}, "
-          f"{cfg.param_count() / 1e9:.2f}e9 params, bf16, seeded random "
-          f"weights; init {t_init:.2f} s) over {SCORE_B}x{SCORE_S} tokens: "
-          f"wall {wall:.4f} s, flash_attention launches "
-          f"{n['flash_attention']}, logits {tuple(logits.shape)} finite")
+    print(f"[{phase}/13] scoring {arch} ({cfg.n_layers} layers, d "
+          f"{cfg.d_model}, {n_params / 1e9:.2f}e9 params, bf16, "
+          f"seeded random weights; init {t_init:.2f} s) over "
+          f"{SCORE_B}x{SCORE_S} tokens: wall {wall:.4f} s, launches "
+          f"{launched(n)}, logits {tuple(logits.shape)} finite")
     del model, logits
     torch.cuda.empty_cache()
-    return n["flash_attention"]
+    return n
 
 
-def serving(dev) -> dict:
-    """Phase 8: greedy serving of qwen3_8b in f32."""
+def serving(dev, arch: str, phase: int, **want) -> dict:
+    """Phases 8 and 12: greedy serving of ``arch`` in f32; the launches are
+    ``want``."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.launch import serve_greedy
-    cfg = get_config(ARCH)
+    cfg = get_config(arch)
     reset_counts()
     t0 = time.perf_counter()
-    out = serve_greedy(ARCH, batch=SERVE_B, prompt_len=PROMPT, gen_len=GEN,
+    out = serve_greedy(arch, batch=SERVE_B, prompt_len=PROMPT, gen_len=GEN,
                        reduced=False, seed=0, device=dev, keep_logits=True)
     wall = time.perf_counter() - t0
     n = counts()
-    steps = cfg.n_layers * (GEN - 1)
-    check(n == {"fusion_eval": 0, "flash_attention": 0,
-                "flash_decode": steps}, f"serving launched {n}, expected "
-          f"0 flash_attention (prefill is the chunked math) and {steps} "
-          f"flash_decode")
+    expect_counts(f"serving {arch}", n, **want)
     toks = out["tokens"]
     check(toks.shape == (SERVE_B, GEN) and (toks >= 0).all()
           and (toks < cfg.vocab_padded).all(), "served tokens malformed")
-    print(f"[8/9] serving {ARCH} f32, batch {SERVE_B}, prompt {PROMPT}, "
-          f"gen {GEN} (cache T {PROMPT + GEN + 8}): prefill "
-          f"{out['t_prefill_s']:.4f} s, decode {out['t_decode_s']:.4f} s, "
-          f"{out['tok_per_s']:.2f} tok/s; wall with init {wall:.2f} s; "
-          f"flash_decode launches {n['flash_decode']}, flash_attention "
-          f"{n['flash_attention']}")
-    out["flash_decode"] = n["flash_decode"]
+    print(f"[{phase}/13] serving {arch} f32, batch {SERVE_B}, prompt "
+          f"{PROMPT}, gen {GEN}: prefill {out['t_prefill_s']:.4f} s, decode "
+          f"{out['t_decode_s']:.4f} s, {out['tok_per_s']:.2f} tok/s; wall "
+          f"with init {wall:.2f} s; launches {launched(n)}")
+    out["launches"] = n
     torch.cuda.empty_cache()
     return out
 
 
-def self_check(dev, served: dict) -> None:
-    """Phase 9: an f32 forward over prompt + generated tokens reproduces
-    the served logits and the greedy tokens."""
+def self_check(dev, arch: str, served: dict, phase: int, *, want_fwd=None,
+               want_prefill=None, want_step=None) -> None:
+    """Phases 9 and 13: an f32 forward over prompt + generated tokens
+    reproduces the served logits and the greedy tokens.  With ``want_*``,
+    the forward, one prefill of the prompt and one decode step after it
+    launch exactly those kernels."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.models import lm
-    cfg = get_config(ARCH)
-    model = lm.init(cfg, seed=0, dtype=torch.float32, device=dev)
+    from repro_torch.models import get_model
+    cfg = get_config(arch)
+    mod = get_model(cfg)
+    model = mod.init(cfg, seed=0, dtype=torch.float32, device=dev)
     seq = torch.as_tensor(
         np.concatenate([served["prompt"], served["tokens"][:, :-1]], 1),
         device=dev)
-    logits = lm.forward(model, {"tokens": seq})[:, PROMPT - 1:]
+    reset_counts()
+    logits = mod.forward(model, {"tokens": seq})[:, PROMPT - 1:]
+    n_fwd = counts()
+    if want_fwd is not None:
+        expect_counts(f"{arch} f32 forward", n_fwd, **want_fwd)
+    note = ""
+    if want_prefill is not None:
+        reset_counts()
+        lg, state = mod.prefill(model, {"tokens": seq[:, :PROMPT]},
+                                PROMPT + 8, cache_dtype=torch.float32)
+        n_pre = counts()
+        reset_counts()
+        mod.decode_step(model, state, {"tokens": seq[:, PROMPT:PROMPT + 1]})
+        n_step = counts()
+        expect_counts(f"{arch} prefill", n_pre, **want_prefill)
+        expect_counts(f"{arch} decode step", n_step, **want_step)
+        note = (f"; one prefill launches {launched(n_pre)}, one decode step "
+                f"{launched(n_step)}")
+        del lg, state
     del model
     got = served["logits"]
     scale = float(logits.abs().max())
     err = float((logits - got).abs().max())
+    err_pre = float((logits[:, 0] - got[:, 0]).abs().max())
     check(err <= SELF_CHECK_REL * scale, f"served logits differ from the "
           f"forward's by {err} (limit {SELF_CHECK_REL} x {scale})")
     arg = logits.argmax(-1).cpu().numpy()
@@ -390,13 +447,112 @@ def self_check(dev, served: dict) -> None:
     ties = int((diff & (gap <= 2 * err)).sum())
     check(int(diff.sum()) == ties, f"{int(diff.sum()) - ties} greedy tokens "
           f"differ from the forward's argmax beyond a near-tie")
-    print(f"[9/9] self-check: f32 forward over {seq.shape[0]}x{seq.shape[1]} "
-          f"tokens (ragged S) reproduces the served logits at positions "
-          f"{PROMPT - 1}..{PROMPT + GEN - 2}: max abs err {err:.4g} vs max "
-          f"|logit| {scale:.4g} (limit {SELF_CHECK_REL} relative); argmax == "
-          f"greedy tokens except {ties} near-ties (top-2 gap <= 2 x err)")
+    print(f"[{phase}/13] self-check {arch}: f32 forward over {seq.shape[0]}x"
+          f"{seq.shape[1]} tokens (launches {launched(n_fwd)}) reproduces "
+          f"the served logits at positions {PROMPT - 1}..{PROMPT + GEN - 2}: "
+          f"max abs err {err:.4g} ({err_pre:.4g} at the prefill's position "
+          f"{PROMPT - 1}) vs max |logit| {scale:.4g} (limit "
+          f"{SELF_CHECK_REL} relative); argmax == greedy tokens except "
+          f"{ties} near-ties (top-2 gap <= 2 x err){note}")
     del logits, got
     torch.cuda.empty_cache()
+
+
+def wkv_bound_ms(B, T, H, n, dtype):
+    """Least time for one wkv6 call: r, k, v (``dtype``), w and y (f32)
+    read or written once, s0 and sT once; WKV_OPS_PER_CELL f32 operations
+    per state cell and step."""
+    import torch
+    size = torch.finfo(dtype).bits // 8
+    nbytes = B * T * H * n * (3 * size + 2 * 4) + 2 * B * H * n * n * 4 \
+        + H * n * 4
+    return roofline_ms(nbytes, WKV_OPS_PER_CELL * B * T * H * n * n,
+                       H100_F32_OPS_PER_S)
+
+
+def wkv_kernel(dev) -> dict:
+    """Phase 10: ``wkv6`` against its plain twin, then timed at the scoring
+    shape.  Returns the JSON fields."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import rwkv6_scan as rk
+    cfg = get_config(RWKV)
+    H, n = cfg.n_heads, cfg.hd
+    rng = np.random.default_rng(0)
+
+    def inputs(B, T, Hh, nn_, decay, dtype=torch.float32, strided=False):
+        mk = lambda *sh: torch.as_tensor(rng.normal(size=sh),
+                                         dtype=torch.float32, device=dev)
+        if decay == "model":       # w0 = -6 plus a LoRA term within +-1
+            w = np.exp(-np.exp(-6.0 + rng.uniform(-1, 1, (B, T, Hh, nn_))))
+        else:
+            w = rng.uniform(*decay, size=(B, T, Hh, nn_))
+        w = torch.as_tensor(w, dtype=torch.float32, device=dev)
+        r, k, v = (mk(B, T, Hh, nn_).to(dtype) for _ in range(3))
+        u, s0 = mk(Hh, nn_), mk(B, Hh, nn_, nn_)
+        if strided:                # views into one [B, T, H, 4, n] buffer
+            r, k, v, w = torch.stack([r, k, v, w], 3).unbind(3)
+        return r, k, v, w, u, s0
+
+    mild, strong = (0.75, 0.9995), (0.05, 0.3)
+    cases = [(1, 64, 2, 32, 32, mild, torch.float32, False),
+             (2, 130, 3, 64, 64, mild, torch.float32, False),
+             (1, 256, 1, 16, 64, mild, torch.float32, False),
+             (1, 512, 4, 64, 64, strong, torch.float32, False),
+             (2, 300, 3, 64, 64, strong, torch.float32, False),
+             (2, 130, 3, 64, 64, mild, torch.float32, True),
+             (2, 130, 3, 64, 64, mild, torch.bfloat16, False),
+             (SCORE_B, SCORE_S, H, n, 64, "model", torch.float32, False)]
+    worst, worst_long, gated, y_err, s_err = 0.0, 0.0, 0.0, 0.0, 0.0
+    rtol, atol = WKV_TOL
+    for B, T, Hh, nn_, chunk, decay, dt, strided in cases:
+        ins = inputs(B, T, Hh, nn_, decay, dt, strided)
+        got = rk.wkv6(*ins, chunk=chunk)
+        want = rk.wkv6_plain(*ins)
+        torch.cuda.synchronize()
+        long_ = T == SCORE_S
+        label = (f"wkv6 B{B} T{T} H{Hh} n{nn_} chunk {chunk} decay {decay} "
+                 f"{str(dt)[6:]} strided={strided}")
+        for nm, g, w_ in zip(("y", "sT"), got, want):
+            diff = (g - w_).abs()
+            strict = float((diff / (atol + rtol * w_.abs())).max())
+            limit = WKV_LONG_ATOL if long_ else atol
+            ratio = float((diff / (limit + rtol * w_.abs())).max())
+            check(ratio <= 1 and bool(torch.isfinite(g).all()),
+                  f"{label}: {nm} differs from the plain twin (max abs err "
+                  f"{float(diff.max())}, {ratio:.3g} x the limit)")
+            gated = max(gated, ratio)
+            if long_:
+                worst_long = max(worst_long, strict)
+            else:
+                worst = max(worst, strict)
+            if nm == "y":
+                y_err = max(y_err, float(diff.max()))
+            else:
+                s_err = max(s_err, float(diff.max()))
+        del ins, got, want
+    print(f"[10/13] wkv6 == plain on {len(cases)} shapes (JAX sweep, strong "
+          f"decay U{strong} at T 512 and T 300 (not whole chunks), strided, "
+          f"bf16 r/k/v, {RWKV} scoring shape): max abs err y {y_err:.3g}, "
+          f"sT {s_err:.3g}; worst |got - want| / ({atol:g} + {rtol:g} "
+          f"|want|) {worst:.3g}, at T {SCORE_S} {worst_long:.3g} (limit "
+          f"there {WKV_LONG_ATOL:g} + {rtol:g} |want|)")
+
+    ins = inputs(SCORE_B, SCORE_S, H, n, "model")
+    ms = time_ms(lambda: rk.wkv6(*ins), 20)
+    plain = time_ms(lambda: rk.wkv6_plain(*ins), 1)
+    got, want = rk.wkv6(*ins), rk.wkv6_plain(*ins)
+    main_err = float((got[0] - want[0]).abs().max())
+    bound, by = wkv_bound_ms(SCORE_B, SCORE_S, H, n, torch.float32)
+    print(f"      wkv6 f32 [B{SCORE_B} T{SCORE_S} H{H} n{n}]: kernel "
+          f"{ms:.4f} ms, plain {plain:.1f} ms, bound {bound:.4f} ms ({by}); "
+          f"no single PyTorch call computes it")
+    del ins, got, want
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=main_err, worst_err_ratio=gated,
+                ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
+                library_ms=None)
 
 
 def main() -> int:
@@ -409,6 +565,8 @@ def main() -> int:
     from repro_torch.core import infer, model as dtm
     from repro_torch.kernels import _build, fusion_eval as fe
     from repro_torch.kernels import flash_attention as fa, flash_decode as fd
+    from repro_torch.kernels import rwkv6_scan as rk
+    from repro_torch.configs import get_config
     from repro_torch.workloads import CNN_ZOO
     from repro_torch.workloads.grid import paper_grid
 
@@ -418,17 +576,17 @@ def main() -> int:
     # -- 1. device ----------------------------------------------------------
     kind = torch.cuda.get_device_name(0)
     smi = smi_line()
-    print(f"[1/9] device: {kind} | nvidia-smi: {smi} | torch "
+    print(f"[1/13] device: {kind} | nvidia-smi: {smi} | torch "
           f"{torch.__version__} CUDA {torch.version.cuda} | devices "
           f"{torch.cuda.device_count()}")
 
     # -- 2. build -----------------------------------------------------------
     t0 = time.perf_counter()
-    sources = (fe.SOURCE, fa.SOURCE, fd.SOURCE)
+    sources = (fe.SOURCE, fa.SOURCE, fd.SOURCE, rk.SOURCE)
     _build.build(*sources)
     fe.compiled_backend_supported()
     infos = {src: _build.build_info(src) for src in sources}
-    print(f"[2/9] build: " + ", ".join(
+    print(f"[2/13] build: " + ", ".join(
         f"{src}.cu {infos[src]['build_s']:.2f} s" for src in sources) +
         f" (in parallel; cached={infos[fe.SOURCE]['cached']}), probe ok, "
         f"phase {time.perf_counter() - t0:.2f} s")
@@ -485,7 +643,7 @@ def main() -> int:
         for nm, g, w in zip(("C_g", "T_g", "O_g", "M_g", "wave_g"), got, want):
             check(torch.equal(g, w), f"{label}: {nm} not bit-equal to the "
                   f"plain version (max abs err {float((g - w).abs().max())})")
-        print(f"[3/9] kernel == plain on {label} [{Cc}x{pop}x{NMAX}]: "
+        print(f"[3/13] kernel == plain on {label} [{Cc}x{pop}x{NMAX}]: "
               f"bit-equal (max abs err {max(errs)})")
         if label.startswith("main-path"):
             main_args = args
@@ -517,7 +675,7 @@ def main() -> int:
           (C, 4, NMAX), "G-Sampler result malformed")
     check(res.valid[:, 0].mean() > 0.5, "G-Sampler found too few valid "
           "strategies")
-    print(f"[4/9] G-Sampler pop {cfg.population} x {cfg.generations} gens "
+    print(f"[4/13] G-Sampler pop {cfg.population} x {cfg.generations} gens "
           f"over {C} conditions: wall {gs_wall:.3f} s, fusion_eval launches "
           f"{gs_launches}, mean best speedup {best.mean():.4f}, valid share "
           f"{res.valid[:, 0].mean():.4f}")
@@ -555,18 +713,31 @@ def main() -> int:
           "DT n_groups differs")
     dt_valid = out["valid"].float().mean().item()
     dt_speed = out["speedup"][out["valid"]].mean().item() if dt_valid else 0.0
-    print(f"[5/9] DT one shot (3x2x128, hw_dim 10, seeded random weights) "
+    print(f"[5/13] DT one shot (3x2x128, hw_dim 10, seeded random weights) "
           f"over {C} conditions: wall {dt_wall:.4f} s, valid share "
           f"{dt_valid:.4f}, mean valid speedup {dt_speed:.4f}; re-score "
           f"matches (rtol 1e-5); G-Sampler/DT wall ratio "
           f"{gs_wall / dt_wall:.1f} (informative)")
 
-    # -- 6.-9. the LM substrate: kernels, scoring, serving, self-check ------
+    # -- 6.-9. the dense LM: kernels, scoring, serving, self-check ---------
+    L = get_config(ARCH).n_layers
     attn = attention_kernels(dev)
     torch.cuda.empty_cache()
-    fa_launches = scoring(dev)
-    served = serving(dev)
-    self_check(dev, served)
+    fa_launches = scoring(dev, ARCH, 7, flash_attention=L)["flash_attention"]
+    served = serving(dev, ARCH, 8, flash_decode=L * (GEN - 1))
+    self_check(dev, ARCH, served, 9, want_fwd={"flash_attention": L})
+    fd_launches = served["launches"]["flash_decode"]
+    del served                          # qwen3_8b is gone before rwkv6_3b
+
+    # -- 10.-13. the RWKV6 LM: kernel, scoring, serving, self-check ---------
+    L = get_config(RWKV).n_layers
+    wkv = wkv_kernel(dev)
+    wkv_launches = scoring(dev, RWKV, 11, wkv6=L)["wkv6"]
+    served = serving(dev, RWKV, 12, wkv6=L)
+    self_check(dev, RWKV, served, 13, want_fwd={"wkv6": L},
+               want_prefill={"wkv6": L}, want_step={})
+    wkv_served = served["launches"]["wkv6"]
+    del served
     print(f"      total {time.perf_counter() - t_all:.1f} s")
 
     print(smi)
@@ -585,7 +756,10 @@ def main() -> int:
         {"name": "flash_decode", "route": "cuda",
          "source": f"{csrc}/flash_decode.cu",
          "replaces": "src/repro/kernels/flash_decode.py:24",
-         "launches": served["flash_decode"], **attn["flash_decode"]}]}))
+         "launches": fd_launches, **attn["flash_decode"]},
+        {"name": "wkv6", "route": "cuda", "source": f"{csrc}/wkv6.cu",
+         "replaces": "src/repro/kernels/rwkv6_scan.py:26",
+         "launches": wkv_launches + wkv_served, **wkv}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -74,13 +74,17 @@ def dt_params_from_reference(flat: dict[str, np.ndarray], *,
 
 def lm_params_from_reference(flat: dict[str, np.ndarray], cfg: ArchConfig,
                              *, device=None):
-    """Build the port's LM (``models.lm.LM``), in f32, for ``cfg`` from the
-    reference LM's parameters (``flat``, as :func:`load_reference` returns
-    them).  The reference stacks each block leaf on a leading layer axis
+    """Build the port's LM for ``cfg``, in f32, from the reference LM's
+    parameters (``flat``, as :func:`load_reference` returns them).  The
+    model class is the ``MODEL`` of ``cfg``'s family in the registry
+    (``models.lm.LM``, or ``models.rwkv_lm.RWKVLM`` for ``rwkv6_3b``).  The
+    reference stacks each block leaf on a leading layer axis
     (``blocks/attn/q/w`` is [L, d, Hq*hd]); it is split into the per-layer
-    ``blocks.<i>.attn.q.w``.  Raises on a missing, extra or misshapen
+    ``blocks.<i>.attn.q.w``, and a nested leaf such as ``blocks/mu/r``
+    becomes ``blocks.<i>.mu.r``.  Raises on a missing, extra or misshapen
     leaf."""
-    from ..models.lm import LM
+    from ..models.registry import get_model
+    model_cls = get_model(cfg).MODEL
     dev = resolve_device(device)
     state = {}
     for key, arr in flat.items():
@@ -94,6 +98,6 @@ def lm_params_from_reference(flat: dict[str, np.ndarray], cfg: ArchConfig,
                 state[f"blocks.{i}.{rest}"] = t[i]
         else:
             state[_port_name(key)] = t
-    model = LM(cfg, device="meta", dtype=torch.float32)
+    model = model_cls(cfg, device="meta", dtype=torch.float32)
     model.load_state_dict(state, strict=True, assign=True)
     return model.to(dev).eval()

@@ -33,7 +33,7 @@ from .. import resolve_device
 from ..configs import ArchConfig
 from ..nn import Block, Dense, Embedding, make_norm, rope_freqs
 
-__all__ = ["LM", "init", "forward", "init_decode_state", "prefill",
+__all__ = ["LM", "MODEL", "init", "forward", "init_decode_state", "prefill",
            "decode_step"]
 
 
@@ -73,6 +73,9 @@ class LM(nn.Module):
         """[d_model, vocab_padded]: ``head.w``, or ``embed.emb.T`` when
         tied."""
         return self.embed.emb.T if self.head is None else self.head.w
+
+
+MODEL = LM                        # the class a reference checkpoint fills
 
 
 def init(cfg: ArchConfig, *, seed: int = 0, dtype=torch.bfloat16,

@@ -4,10 +4,11 @@
 
 Slice 1: answers the smoke grid (6 CNNs x 5 parts x 4 budgets, batch 64,
 nmax 64) with the G-Sampler (paper config) and with the DT one-shot
-episode (full width, hw-conditioned, seeded random weights).  Slice 2:
-qwen3_8b at full width and depth (seeded random weights) scores 2 x 4096
-tokens in bf16 (``lm.forward``), and, in f32 after a 1024-token prefill
-of batch 4, runs 8 greedy decode steps (``lm.decode_step``).  Each phase
+episode (full width, hw-conditioned, seeded random weights).  Slices 2
+and 3: qwen3_8b and rwkv6_3b at full width and depth (seeded random
+weights) each score 2 x 4096 tokens in bf16 (``forward``), and, in f32
+after a 1024-token prefill of batch 4, run 8 greedy decode steps
+(``decode_step``).  Each phase
 runs once to warm up and once under ``torch.profiler``.  Prints one JSON
 line per phase: host wall time, device busy time (the sum of kernel
 times; everything runs on one stream, so kernels do not overlap), the
@@ -30,12 +31,12 @@ from .configs import get_config
 from .core import accel, cost_model as cm, gsampler as gs, infer
 from .core import model as dtm
 from .kernels import flash_attention as fa, flash_decode as fd
-from .kernels import fusion_eval as fe
-from .models import lm
+from .kernels import fusion_eval as fe, rwkv6_scan as rk
+from .models import lm, rwkv_lm
 from .workloads.grid import paper_grid
 
 PORT_KERNELS = {"fusion_eval": fe, "flash_attention": fa,
-                "flash_decode": fd}
+                "flash_decode": fd, "wkv6": rk}
 
 __all__ = ["profile_phase", "main"]
 
@@ -76,6 +77,36 @@ def profile_phase(name: str, fn, out_dir: pathlib.Path, top: int = 8) -> dict:
                     for k, v in ranked]}
 
 
+def lm_phases(arch: str, mod, rng, dev, out_dir: pathlib.Path) -> None:
+    """``arch`` scores 2 x 4096 tokens in bf16, then decodes 8 greedy steps
+    in f32 after a 1024-token prefill of batch 4."""
+    cfg = get_config(arch)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab, (2, 4096)), device=dev)
+    net = mod.init(cfg, seed=0, dtype=torch.bfloat16, device=dev)
+    print(json.dumps(profile_phase(
+        f"{arch}_scoring", lambda: mod.forward(net, {"tokens": toks}),
+        out_dir)))
+    del net
+    torch.cuda.empty_cache()
+    net = mod.init(cfg, seed=0, dtype=torch.float32, device=dev)
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab, (4, 1024)),
+                             device=dev)
+    _, state = mod.prefill(net, {"tokens": prompt}, 1160,
+                           cache_dtype=torch.float32)
+    tok = prompt[:, -1:]
+
+    def decode8():
+        nonlocal tok
+        for _ in range(8):
+            logits, _ = mod.decode_step(net, state, {"tokens": tok})
+            tok = logits[:, -1].argmax(-1)[:, None]
+
+    print(json.dumps(profile_phase(f"{arch}_decode_8_steps", decode8,
+                                   out_dir)))
+    del net, state
+    torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="chiprun_out/profile",
@@ -105,28 +136,9 @@ def main(argv=None) -> int:
         print(json.dumps(profile_phase(name, fn, out_dir)))
     del model, packed
 
-    cfg = get_config("qwen3_8b")
     rng = np.random.default_rng(1)
-    toks = torch.as_tensor(rng.integers(0, cfg.vocab, (2, 4096)), device=dev)
-    net = lm.init(cfg, seed=0, dtype=torch.bfloat16, device=dev)
-    print(json.dumps(profile_phase(
-        "lm_scoring", lambda: lm.forward(net, {"tokens": toks}), out_dir)))
-    del net
-    torch.cuda.empty_cache()
-    net = lm.init(cfg, seed=0, dtype=torch.float32, device=dev)
-    prompt = torch.as_tensor(rng.integers(0, cfg.vocab, (4, 1024)),
-                             device=dev)
-    _, state = lm.prefill(net, {"tokens": prompt}, 1160,
-                          cache_dtype=torch.float32)
-    tok = prompt[:, -1:]
-
-    def decode8():
-        nonlocal tok
-        for _ in range(8):
-            logits, _ = lm.decode_step(net, state, {"tokens": tok})
-            tok = logits[:, -1].argmax(-1)[:, None]
-
-    print(json.dumps(profile_phase("lm_decode_8_steps", decode8, out_dir)))
+    for arch, mod in (("qwen3_8b", lm), ("rwkv6_3b", rwkv_lm)):
+        lm_phases(arch, mod, rng, dev, out_dir)
     return 0
 
 

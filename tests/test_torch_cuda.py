@@ -1,6 +1,6 @@
 """Checks of the port that need a CUDA card: each kernel (``fusion_eval``,
-``flash_attention``, ``flash_decode``) against its plain twin, and the
-paths through them.  Each skips without a card (decided inside the
+``flash_attention``, ``flash_decode``, ``wkv6``) against its plain twin,
+and the paths through them.  Each skips without a card (decided inside the
 fixture, never at import).  The file imports nothing of JAX, of the
 reference package or of the CPU parity helpers, so it runs on a machine
 that has only PyTorch.  On the card run
@@ -16,8 +16,8 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.core import accel, cost_model as cm, gsampler as gs
 from repro_torch.kernels import flash_attention as fa, flash_decode as fd
-from repro_torch.kernels import fusion_eval as fe
-from repro_torch.models import lm
+from repro_torch.kernels import fusion_eval as fe, rwkv6_scan as rk
+from repro_torch.models import lm, rwkv_lm
 from repro_torch.workloads import resnet18, tiny_cnn
 
 pytestmark = pytest.mark.cuda
@@ -184,6 +184,102 @@ def test_lm_kernel_path_matches_dense_path_on_card(dev):
             seq.append(lg)
         outs[impl] = torch.cat(seq, 1)
     assert fd.STATS.launches == 10 * cfg.n_layers
+    torch.testing.assert_close(outs["kernel"], outs["dense"], rtol=0,
+                               atol=tol)
+    torch.testing.assert_close(outs["kernel"], got[:, 119:], rtol=0,
+                               atol=tol)
+
+
+# -- wkv6: f32 at the JAX sweep's 5e-5 (tests/test_kernels.py:67-70),
+# relative and absolute.  The kernel updates the state with the plain
+# twin's roundings, so only the order of the sum over i differs --
+WKV_TOL = dict(rtol=5e-5, atol=5e-5)
+DECAYS = {"mild": (0.75, 0.9995), "strong": (0.05, 0.3)}
+
+
+def _wkv(dev, B, T, H, n, decay="mild", dtype=torch.float32, seed=0):
+    rng = np.random.default_rng(seed)
+    mk = lambda *sh: torch.as_tensor(rng.normal(size=sh), dtype=torch.float32,
+                                     device=dev)
+    r, k, v = (mk(B, T, H, n).to(dtype) for _ in range(3))
+    w = torch.as_tensor(rng.uniform(*DECAYS[decay], size=(B, T, H, n)),
+                        dtype=torch.float32, device=dev)
+    return r, k, v, w, mk(H, n), mk(B, H, n, n)
+
+
+@pytest.mark.parametrize("B,T,H,n,chunk,decay,dtype", [
+    (1, 64, 2, 32, 32, "mild", torch.float32),
+    (2, 130, 3, 64, 64, "mild", torch.float32),
+    (1, 256, 1, 16, 64, "mild", torch.float32),
+    (1, 256, 2, 64, 64, "strong", torch.float32),
+    (2, 300, 2, 16, 64, "strong", torch.float32),
+    (1, 77, 2, 64, 17, "mild", torch.float32),
+    (2, 130, 3, 64, 256, "mild", torch.float32),
+    (2, 130, 3, 64, 64, "mild", torch.bfloat16)])
+def test_wkv6_kernel_matches_plain(dev, B, T, H, n, chunk, decay, dtype):
+    ins = _wkv(dev, B, T, H, n, decay, dtype)
+    before = rk.STATS.launches
+    y, s = rk.wkv6(*ins, chunk=chunk)
+    assert rk.STATS.launches == before + 1
+    want_y, want_s = rk.wkv6_plain(*ins)
+    torch.testing.assert_close(y, want_y, **WKV_TOL)
+    torch.testing.assert_close(s, want_s, **WKV_TOL)
+
+
+def test_wkv6_reads_strided_inputs(dev):
+    r, k, v, w, u, s0 = _wkv(dev, 2, 130, 3, 64)
+    rkvw = torch.stack([r, k, v, w], 3)           # [B,T,H,4,n]
+    sv = torch.stack([s0, s0], 2)[:, :, 1]        # non-contiguous s0
+    uv = torch.stack([u, u], 1)[:, 0]             # non-contiguous u
+    got = rk.wkv6(*rkvw.unbind(3), uv, sv)
+    want = rk.wkv6_plain(r, k, v, w, u, s0)
+    for g, want_t in zip(got, want):
+        torch.testing.assert_close(g, want_t, **WKV_TOL)
+
+
+def test_wkv6_raises_on_what_it_does_not_take(dev):
+    r, k, v, w, u, s0 = _wkv(dev, 1, 8, 2, 32)
+    with pytest.raises(ValueError, match="head dim"):
+        rk.wkv6(r[..., :24], k[..., :24], v[..., :24], w[..., :24],
+                u[..., :24], s0[..., :24, :24])
+    with pytest.raises(TypeError):
+        rk.wkv6(r.half(), k.half(), v.half(), w, u, s0)
+    with pytest.raises(TypeError):
+        rk.wkv6(r, k, v, w.bfloat16(), u, s0)
+    with pytest.raises(ValueError, match="on"):
+        rk.wkv6(r, k, v.cpu(), w, u, s0)
+    with pytest.raises(ValueError, match="chunk"):
+        rk.wkv6(r, k, v, w, u, s0, chunk=rk.MAX_CHUNK + 1)
+
+
+def test_rwkv_kernel_path_matches_dense_path_on_card(dev):
+    """The reduced rwkv6_3b: forward through wkv6 and prefill through it
+    then decode by the sequential step agree with the dense (chunked) path
+    and with the forward (f32; 2e-4 relative to the logits' scale, the
+    reference's own model tolerance)."""
+    cfg = get_config("rwkv6_3b", reduced=True)
+    model = rwkv_lm.init(cfg, seed=0, dtype=torch.float32, device=dev)
+    toks = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 130)), device=dev)
+    rk.reset_launches()
+    got = rwkv_lm.forward(model, {"tokens": toks}, impl="kernel")
+    assert rk.STATS.launches == cfg.n_layers
+    want = rwkv_lm.forward(model, {"tokens": toks}, impl="dense")
+    tol = 2e-4 * float(want.abs().max())
+    torch.testing.assert_close(got, want, rtol=0, atol=tol)
+    rk.reset_launches()
+    outs = {}
+    for impl in ("kernel", "dense"):
+        lg, st = rwkv_lm.prefill(model, {"tokens": toks[:, :120]}, 130,
+                                 impl=impl, cache_dtype=torch.float32)
+        seq = [lg]
+        for t in range(120, 130):
+            lg, st = rwkv_lm.decode_step(model, st,
+                                         {"tokens": toks[:, t:t + 1]},
+                                         impl=impl)
+            seq.append(lg)
+        outs[impl] = torch.cat(seq, 1)
+    assert rk.STATS.launches == cfg.n_layers        # the kernel's prefill
     torch.testing.assert_close(outs["kernel"], outs["dense"], rtol=0,
                                atol=tol)
     torch.testing.assert_close(outs["kernel"], got[:, 119:], rtol=0,

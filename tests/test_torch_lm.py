@@ -27,7 +27,7 @@ from repro.nn import norms as jnorms, rope as jrope, transformer as jtf
 from repro_torch import configs as tconfigs
 from repro_torch.checkpoint import load_reference, lm_params_from_reference
 from repro_torch.launch import serve_greedy
-from repro_torch.models import get_model, lm as tlm
+from repro_torch.models import get_model, lm as tlm, rwkv_lm as trwkv_lm
 from repro_torch.nn import MLP, RMSNorm, apply_rope, rope_freqs
 
 TOL = dict(rtol=2e-4, atol=2e-4)
@@ -221,8 +221,7 @@ def test_serve_greedy_is_seeded_and_consistent():
 
 
 @pytest.mark.parametrize("name", ["qwen3_moe_235b", "qwen2_vl_72b",
-                                  "rwkv6_3b", "hymba_15b", "whisper_base",
-                                  "grok1_314b"])
+                                  "hymba_15b", "whisper_base", "grok1_314b"])
 def test_families_of_later_slices_raise(name):
     cfg = tconfigs.get_config(name, reduced=True)
     with pytest.raises(NotImplementedError, match="slice"):
@@ -235,3 +234,8 @@ def test_families_of_later_slices_raise(name):
 def test_dense_family_maps_to_lm():
     assert get_model(tconfigs.get_config("qwen3_8b")) is tlm
     assert get_model(tconfigs.get_config("gemma3_1b")) is tlm
+
+
+def test_ssm_family_maps_to_rwkv_lm():
+    assert get_model(tconfigs.get_config("rwkv6_3b")) is trwkv_lm
+    assert trwkv_lm.MODEL is trwkv_lm.RWKVLM

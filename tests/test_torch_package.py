@@ -18,7 +18,7 @@ from repro_torch.core import model as dtm
 from repro_torch.configs import get_config
 from repro_torch.kernels import _build, fusion_eval as fe
 from repro_torch.launch import serve_greedy
-from repro_torch.models import lm
+from repro_torch.models import lm, rwkv_lm
 from repro_torch.workloads import tiny_cnn
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
@@ -45,7 +45,8 @@ def test_port_imports_no_jax_and_no_reference(path):
 
 
 @pytest.mark.parametrize("module", ["nn", "models.lm", "kernels.flash_attention",
-                                    "kernels.fusion_eval", "core", "launch"])
+                                    "kernels.fusion_eval", "core", "launch",
+                                    "models.rwkv_lm", "kernels.rwkv6_scan"])
 def test_each_layer_imports_first(module):
     """``nn`` imports the attention kernels, and ``kernels.fusion_eval``
     imports ``core``, whose DT imports ``nn``: each must import first in a
@@ -89,6 +90,11 @@ _ENTRY_POINTS = {
         get_config("qwen3_8b", reduced=True), 1, 8),
     "serve_greedy": lambda: serve_greedy("qwen3_8b", batch=1, prompt_len=4,
                                          gen_len=2),
+    "rwkv_lm.init": lambda: rwkv_lm.init(get_config("rwkv6_3b", reduced=True)),
+    "rwkv_lm.init_decode_state": lambda: rwkv_lm.init_decode_state(
+        get_config("rwkv6_3b", reduced=True), 1, 8),
+    "serve_greedy rwkv6_3b": lambda: serve_greedy("rwkv6_3b", batch=1,
+                                                  prompt_len=4, gen_len=2),
 }
 
 
@@ -146,6 +152,6 @@ def test_build_targets_hopper_without_fma_contraction():
     flags = " ".join(_build.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in flags
     assert "-fmad=false" in flags
-    for src in ("fusion_eval", "flash_attention", "flash_decode"):
+    for src in ("fusion_eval", "flash_attention", "flash_decode", "wkv6"):
         assert (_build.CSRC / f"{src}.cu").is_file()
     assert _build.BUILD_DIR.parts[-2:] == ("build", "repro_torch_kernels")
