@@ -8,7 +8,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
 1. device: name, power limit, torch and CUDA versions;
 2. build: ``nvcc`` builds ``kernels/csrc/{fusion_eval,flash_attention,
    flash_decode,wkv6}.cu`` for sm_90a from this checkout, all four at
-   once, and a probe kernel launches;
+   once, each with its own flags (printed beside its ptxas lines, with the
+   tensor-core attention kernel's setmaxnreg split), and a probe kernel
+   launches;
 3. kernel against its plain version: ``fusion_eval`` and
    ``fusion_eval_grid_stats_plain`` on the same card inputs (every zoo part
    serving an edge packing, so the BPE rescale runs; the main path's
@@ -23,23 +25,30 @@ Phases, each of which raises on failure (the script then exits non-zero):
    at qwen3_8b's head shape and at a ragged S; ``flash_decode`` at the
    sweep's shapes, the clamp and pad cases, a poisoned cache tail and the
    served cache; within ``atol + rtol |plain|`` of 2e-5 + 2e-5 (f32, the
-   JAX sweep's) or 1e-3 + 8e-3 (bf16: one bf16 rounding of the output);
-   then each is timed against its plain version and one
-   ``scaled_dot_product_attention`` call;
+   JAX sweep's) or 1e-3 + 8e-3 (bf16 ``flash_decode``: one bf16 rounding
+   of the output); bf16 ``flash_attention`` (the tensor-core path, which
+   rounds P to bf16 before P V) within ``fa.bf16_limit``, 1e-3 + 8e-3
+   |plain| + 2^-8 plain(q, k, |v|), its worst ratio also printed against
+   the old limit; then each is timed against its plain version and one
+   ``scaled_dot_product_attention`` call, ``flash_attention`` on both
+   paths (bf16 at the scoring shape, f32 at the self-check's);
 7. scoring: qwen3_8b at full width and depth (bf16, seeded random
    weights) scores 2 x 4096 tokens through ``lm.forward``: exactly 36
-   ``flash_attention`` launches, finite logits;
+   ``flash_attention`` launches, all on the tensor-core path, finite
+   logits;
 8. serving: ``serve_greedy("qwen3_8b", batch=4, prompt_len=1024,
    gen_len=128)`` in f32: prefill (chunked, no kernel), then 127 greedy
    decode steps, exactly 36 x 127 ``flash_decode`` launches;
 9. full-width self-check: an f32 ``forward`` over the prompt and the
-   generated tokens reproduces the served logits (within 1e-3 of the
+   generated tokens (36 ``flash_attention`` launches, all on the
+   CUDA-core path) reproduces the served logits (within 1e-3 of the
    logits' largest magnitude) and the greedy tokens (near-ties counted);
 10. ``wkv6`` against ``wkv6_plain``, the sequential recurrence, in f32 at
    the JAX sweep's shapes, under strong decay, at a T that is not a whole
    number of chunks, on strided inputs and at rwkv6_3b's scoring shape
    (within 5e-5 + 5e-5 |plain|, the sweep's; see ``WKV_LONG_ATOL`` for
-   the 4096-step shape); then timed against its plain version;
+   the 4096-step shape); then timed against its plain version at the
+   scoring shape and at the serving prefill's;
 11. scoring: rwkv6_3b at full width and depth (bf16, seeded random
    weights) scores 2 x 4096 tokens through ``rwkv_lm.forward``: exactly
    32 ``wkv6`` launches, finite logits;
@@ -195,9 +204,11 @@ def attention_kernels(dev) -> dict:
     from repro_torch.kernels import flash_attention as fa, flash_decode as fd
     # (rtol, atol).  f32: the JAX sweep's 2e-5.  bf16: both sides compute in
     # f32 from the same bf16 inputs, so they may differ by one bf16 rounding
-    # of the output (2^-7 relative at most), not by the sweep's 2e-2.
+    # of the output (2^-7 relative at most), not by the sweep's 2e-2; bf16
+    # flash_attention also rounds P, and is held to fa.bf16_limit instead.
     tol = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (8e-3, 1e-3)}
     worst = {}                           # max of |got - want| / limit
+    fa_strict = fa_gated = 0.0           # bf16 flash_attention, old / new
     rng = np.random.default_rng(0)
 
     def qkv(dtype, B, S, T, Hq, Hkv, hd):
@@ -205,17 +216,23 @@ def attention_kernels(dev) -> dict:
                                          device=dev)
         return mk(B, S, Hq, hd), mk(B, T, Hkv, hd), mk(B, T, Hkv, hd)
 
-    def held(label, got, want, dtype):
+    def held(label, got, want, dtype, limit=None):
+        """Check got against want within atol + rtol |want|, or within the
+        elementwise ``limit`` where given; return the max abs error and
+        the worst ratio against the atol + rtol limit."""
         torch.cuda.synchronize()
         g, w = got.float(), want.float()
         rtol, atol = tol[dtype]
-        err = float((g - w).abs().max())
-        ratio = float(((g - w).abs() / (atol + rtol * w.abs())).max())
-        worst[dtype] = max(worst.get(dtype, 0.0), ratio)
+        diff = (g - w).abs()
+        err = float(diff.max())
+        strict = float((diff / (atol + rtol * w.abs())).max())
+        ratio = strict if limit is None else float((diff / limit).max())
+        if limit is None:
+            worst[dtype] = max(worst.get(dtype, 0.0), ratio)
         check(ratio <= 1 and torch.isfinite(g).all(), f"{label}: kernel "
               f"differs from its plain version (max abs err {err}, "
               f"{ratio:.3g} x the limit)")
-        return err
+        return err, strict, ratio
 
     fa_cases = [(B, S, S, Hq, Hkv, hd, dt, c, w)
                 for B, S, Hq, Hkv, hd in ((1, 128, 2, 2, 64),
@@ -223,24 +240,40 @@ def attention_kernels(dev) -> dict:
                                           (1, 256, 8, 1, 128))
                 for dt in (torch.float32, torch.bfloat16)
                 for c, w in ((True, -1), (False, -1), (True, 96))]
-    fa_cases += [(SCORE_B, SCORE_S, SCORE_S, 32, 8, 128, torch.bfloat16,
+    fa_cases += [(1, S, S, 1, 1, hd, torch.bfloat16, True, -1)
+                 for S in (64, 128) for hd in (64, 128)]      # one tile
+    fa_cases += [(2, 384, 384, 8, 2, 64, torch.bfloat16, True, 96),
+                 (2, 77, 150, 4, 4, 64, torch.bfloat16, False, -1),
+                 (SCORE_B, SCORE_S, SCORE_S, 32, 8, 128, torch.bfloat16,
                   True, -1),
-                 (1, SCORE_S, SCORE_S, 32, 8, 128, torch.float32, True, -1),
-                 (SERVE_B, PROMPT + GEN - 1, PROMPT + GEN - 1, 32, 8, 128,
-                  torch.float32, True, -1)]
+                 (1, SCORE_S, SCORE_S, 32, 8, 128, torch.float32, True, -1)]
+    fa_cases += [(SERVE_B, PROMPT + GEN - 1, PROMPT + GEN - 1, 32, 8, 128,
+                  dt, True, -1) for dt in (torch.float32, torch.bfloat16)]
     fa_err = {}
     for B, S, T, Hq, Hkv, hd, dt, c, w in fa_cases:
         q, k, v = qkv(dt, B, S, T, Hq, Hkv, hd)
-        label = (f"flash_attention B{B} S{S} Hq{Hq}/{Hkv} hd{hd} "
+        label = (f"flash_attention B{B} S{S} T{T} Hq{Hq}/{Hkv} hd{hd} "
                  f"{str(dt)[6:]} causal={c} window={w}")
-        err = held(label, fa.flash_attention(q, k, v, causal=c, window=w),
-                   fa.flash_attention_plain(q, k, v, causal=c, window=w), dt)
+        want = fa.flash_attention_plain(q, k, v, causal=c, window=w)
+        limit = None
+        if dt == torch.bfloat16:
+            limit = fa.bf16_limit(q, k, v, causal=c, window=w, want=want)
+        err, strict, ratio = held(
+            label, fa.flash_attention(q, k, v, causal=c, window=w), want,
+            dt, limit)
+        if limit is not None:
+            fa_strict, fa_gated = max(fa_strict, strict), max(fa_gated, ratio)
         fa_err[dt] = max(fa_err.get(dt, 0.0), err)
-        del q, k, v
+        del q, k, v, want, limit
     print(f"[6/13] flash_attention == plain on {len(fa_cases)} shapes (JAX "
-          f"sweep x f32/bf16 x causal/non-causal/window 96, qwen3_8b heads "
-          f"at S {SCORE_S}, ragged S {PROMPT + GEN - 1}): max abs err f32 "
-          f"{fa_err[torch.float32]:.3g}, bf16 {fa_err[torch.bfloat16]:.3g}")
+          f"sweep x f32/bf16 x causal/non-causal/window 96, one tile of 64 "
+          f"and 128 rows at hd 64 and 128, GQA 4:1 and 8:1, ragged S/T "
+          f"77/150, qwen3_8b heads at S {SCORE_S} and at ragged S "
+          f"{PROMPT + GEN - 1}): max abs err f32 {fa_err[torch.float32]:.3g}"
+          f", bf16 {fa_err[torch.bfloat16]:.3g}; bf16 (tensor-core path) "
+          f"worst |got - want| / limit {fa_gated:.3g} against 1e-3 + 8e-3 "
+          f"|plain| + 2^-8 plain(q, k, |v|), {fa_strict:.3g} against the "
+          f"old 1e-3 + 8e-3 |plain|")
 
     T_srv = PROMPT + GEN + 8
     fd_cases = [(B, T, Hq, Hkv, hd, kl, 256, dt, False)
@@ -263,26 +296,36 @@ def attention_kernels(dev) -> dict:
             k[:, kl:], v[:, kl:] = 1e6, -1e6      # test_kernels.py:213
         label = (f"flash_decode B{B} T{T} Hq{Hq}/{Hkv} hd{hd} kv_len {kl} "
                  f"bk {bk} {str(dt)[6:]} poisoned={poison}")
-        err = held(label, fd.flash_decode(q, k, v, kl, bk=bk), want, dt)
+        err = held(label, fd.flash_decode(q, k, v, kl, bk=bk), want, dt)[0]
         fd_err[dt] = max(fd_err.get(dt, 0.0), err)
     print(f"      flash_decode == plain on {len(fd_cases)} shapes (JAX sweep "
           f"x f32/bf16 at bk 256, clamp/pad T 72, poisoned tail, served "
           f"cache T {T_srv}): max abs err f32 {fd_err[torch.float32]:.3g}, "
           f"bf16 {fd_err[torch.bfloat16]:.3g}")
-    print(f"      worst |got - want| / (atol + rtol |want|): f32 "
-          f"{worst[torch.float32]:.3g} (2e-5, 2e-5), bf16 "
-          f"{worst[torch.bfloat16]:.3g} (8e-3, 1e-3)")
+    print(f"      worst |got - want| / (atol + rtol |want|) outside bf16 "
+          f"flash_attention: f32 {worst[torch.float32]:.3g} (2e-5, 2e-5), "
+          f"bf16 {worst[torch.bfloat16]:.3g} (8e-3, 1e-3)")
 
-    # times at the main path's shapes
+    # times at the main path's shapes: bf16 (tensor-core path) at the
+    # scoring shape, f32 (CUDA-core path) at the self-check's
     q, k, v = qkv(torch.bfloat16, SCORE_B, SCORE_S, SCORE_S, 32, 8, 128)
-    fa_ms = time_ms(lambda: fa.flash_attention(q, k, v), 5)
+    fa_ms = time_ms(lambda: fa.flash_attention(q, k, v), 20)
     fa_plain = time_ms(lambda: fa.flash_attention_plain(q, k, v), 3)
-    fa_lib = sdpa_ms(q, k, v, True, 5)
+    fa_lib = sdpa_ms(q, k, v, True, 20)
+    want = fa.flash_attention_plain(q, k, v)
     fa_main_err = held("flash_attention at the scoring shape",
-                       fa.flash_attention(q, k, v),
-                       fa.flash_attention_plain(q, k, v), torch.bfloat16)
+                       fa.flash_attention(q, k, v), want, torch.bfloat16,
+                       fa.bf16_limit(q, k, v, want=want))[0]
     fa_bound, fa_by = fa_bound_ms(SCORE_B, SCORE_S, SCORE_S, 32, 8, 128,
                                   True, -1, torch.bfloat16)
+    del q, k, v, want
+    S32 = PROMPT + GEN - 1
+    q, k, v = qkv(torch.float32, SERVE_B, S32, S32, 32, 8, 128)
+    f32_ms = time_ms(lambda: fa.flash_attention(q, k, v), 5)
+    f32_plain = time_ms(lambda: fa.flash_attention_plain(q, k, v), 3)
+    f32_lib = sdpa_ms(q, k, v, True, 5)
+    f32_bound, f32_by = fa_bound_ms(SERVE_B, S32, S32, 32, 8, 128, True, -1,
+                                    torch.float32)
     del q, k, v
     torch.cuda.empty_cache()
     kl = PROMPT + GEN // 2               # mean kv_len of the 127 steps
@@ -292,17 +335,28 @@ def attention_kernels(dev) -> dict:
     fd_lib = sdpa_ms(q, k[:, :kl], v[:, :kl], False, 200)
     fd_main_err = held("flash_decode at the serving shape",
                        fd.flash_decode(q, k, v, kl),
-                       fd.flash_decode_plain(q, k, v, kl), torch.float32)
+                       fd.flash_decode_plain(q, k, v, kl), torch.float32)[0]
     fd_bound, fd_by = fd_bound_ms(SERVE_B, 32, 8, 128, kl, torch.float32)
-    print(f"      flash_attention bf16 [B{SCORE_B} S{SCORE_S} Hq32/8 hd128 "
-          f"causal]: kernel {fa_ms:.4f} ms, plain {fa_plain:.4f} ms, sdpa "
+    tflops = 4 * 128 * visible_pairs(SCORE_S, SCORE_S, True, -1) \
+        * SCORE_B * 32 / fa_ms / 1e9
+    print(f"      flash_attention bf16, tensor-core path [B{SCORE_B} "
+          f"S{SCORE_S} Hq32/8 hd128 causal]: kernel {fa_ms:.4f} ms "
+          f"({tflops:.1f} TFLOP/s), plain {fa_plain:.4f} ms, sdpa "
           f"{fa_lib:.4f} ms, bound {fa_bound:.4f} ms ({fa_by})")
+    print(f"      flash_attention f32, CUDA-core path [B{SERVE_B} S{S32} "
+          f"Hq32/8 hd128 causal]: kernel {f32_ms:.4f} ms, plain "
+          f"{f32_plain:.4f} ms, sdpa {f32_lib:.4f} ms, bound "
+          f"{f32_bound:.4f} ms ({f32_by})")
     print(f"      flash_decode f32 [B{SERVE_B} T{T_srv} kv_len {kl} Hq32/8 "
           f"hd128]: kernel {fd_ms:.4f} ms, plain {fd_plain:.4f} ms, sdpa "
           f"{fd_lib:.4f} ms, bound {fd_bound:.5f} ms ({fd_by})")
-    return {"flash_attention": dict(max_abs_err=fa_main_err, ms=fa_ms,
-                                    plain_ms=fa_plain, bound_ms=fa_bound,
-                                    bound_by=fa_by, library_ms=fa_lib),
+    return {"flash_attention": dict(
+                max_abs_err=fa_main_err, ms=fa_ms, plain_ms=fa_plain,
+                bound_ms=fa_bound, bound_by=fa_by, library_ms=fa_lib,
+                path={"bfloat16": "tensor_core", "float32": "cuda_core"},
+                worst_err_ratio_strict=fa_strict, worst_err_ratio=fa_gated,
+                f32_ms=f32_ms, f32_plain_ms=f32_plain,
+                f32_bound_ms=f32_bound, f32_library_ms=f32_lib),
             "flash_decode": dict(max_abs_err=fd_main_err, ms=fd_ms,
                                  plain_ms=fd_plain, bound_ms=fd_bound,
                                  bound_by=fd_by, library_ms=fd_lib)}
@@ -316,10 +370,13 @@ def reset_counts() -> None:
 
 
 def counts() -> dict:
+    """Launches per kernel, and per path of ``flash_attention``."""
     from repro_torch.kernels import flash_attention as fa, flash_decode as fd
     from repro_torch.kernels import fusion_eval as fe, rwkv6_scan as rk
     return {"fusion_eval": fe.STATS.launches,
             "flash_attention": fa.STATS.launches,
+            "fa_tensor_core": fa.STATS.tensor_core,
+            "fa_cuda_core": fa.STATS.cuda_core,
             "flash_decode": fd.STATS.launches,
             "wkv6": rk.STATS.launches}
 
@@ -549,10 +606,18 @@ def wkv_kernel(dev) -> dict:
           f"{ms:.4f} ms, plain {plain:.1f} ms, bound {bound:.4f} ms ({by}); "
           f"no single PyTorch call computes it")
     del ins, got, want
+    ins = inputs(SERVE_B, PROMPT, H, n, "model")      # the serving prefill
+    pre_ms = time_ms(lambda: rk.wkv6(*ins), 20)
+    pre_bound, pre_by = wkv_bound_ms(SERVE_B, PROMPT, H, n, torch.float32)
+    print(f"      wkv6 f32 [B{SERVE_B} T{PROMPT} H{H} n{n}] (serving "
+          f"prefill): kernel {pre_ms:.4f} ms, bound {pre_bound:.4f} ms "
+          f"({pre_by})")
+    del ins
     torch.cuda.empty_cache()
     return dict(max_abs_err=main_err, worst_err_ratio=gated,
                 ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
-                library_ms=None)
+                library_ms=None, prefill_ms=pre_ms,
+                prefill_bound_ms=pre_bound)
 
 
 def main() -> int:
@@ -591,9 +656,18 @@ def main() -> int:
         f" (in parallel; cached={infos[fe.SOURCE]['cached']}), probe ok, "
         f"phase {time.perf_counter() - t0:.2f} s")
     for src in sources:
+        print(f"      {src}.cu flags: {' '.join(_build.flags(src))}")
         for line in infos[src]["log"].splitlines():
-            if "registers" in line or "spill" in line:
+            if any(w in line for w in ("registers", "spill", "setmaxnreg",
+                                       "warning")):
                 print(f"      ptxas {src}: {line.strip()}")
+    for hd in fa.HEAD_DIMS:
+        info = fa.tc_info(hd)
+        print(f"      flash_attention tensor-core kernel at hd {hd}: "
+              f"{info['threads']} threads, setmaxnreg producer "
+              f"{info['producer_regs']} / consumers {info['consumer_regs']} "
+              f"registers, {info['stages']} K/V stages, "
+              f"{info['smem_bytes']} bytes of shared memory")
 
     # -- conditions ---------------------------------------------------------
     parts = sorted(accel.ACCEL_ZOO)
@@ -723,9 +797,11 @@ def main() -> int:
     L = get_config(ARCH).n_layers
     attn = attention_kernels(dev)
     torch.cuda.empty_cache()
-    fa_launches = scoring(dev, ARCH, 7, flash_attention=L)["flash_attention"]
+    fa_launches = scoring(dev, ARCH, 7, flash_attention=L,
+                          fa_tensor_core=L)["flash_attention"]
     served = serving(dev, ARCH, 8, flash_decode=L * (GEN - 1))
-    self_check(dev, ARCH, served, 9, want_fwd={"flash_attention": L})
+    self_check(dev, ARCH, served, 9,
+               want_fwd={"flash_attention": L, "fa_cuda_core": L})
     fd_launches = served["launches"]["flash_decode"]
     del served                          # qwen3_8b is gone before rwkv6_3b
 

@@ -5,6 +5,13 @@ Each ``kernels/csrc/<name>.cu`` has a plain C interface and is compiled by
 the root of the checkout, at first use, then loaded with ``ctypes``.  A
 library newer than its source is reused.  Only the sources in this
 package are read, so a bare checkout builds on its own.
+
+Flags are per source (:func:`flags`): ``fusion_eval``, ``flash_decode``
+and ``wkv6`` are built with ``-fmad=false``, since their agreement with
+their plain twins (bit for bit, or within the f32 gate) rests on the twins'
+roundings; ``flash_attention`` is built without it, so the softmax's
+scale-and-subtract is one FMA, and its TMA maps need no ``-lcuda`` (the
+encoder is reached through ``cudaGetDriverEntryPoint``).
 """
 from __future__ import annotations
 
@@ -16,14 +23,23 @@ import subprocess
 import threading
 import time
 
-__all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "build", "load", "build_info"]
+__all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "SOURCE_FLAGS", "flags",
+           "build", "load", "build_info"]
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / \
     "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+SOURCE_FLAGS = {"fusion_eval": ("-fmad=false",),
+                "flash_decode": ("-fmad=false",),
+                "wkv6": ("-fmad=false",),
+                "flash_attention": ()}
+
+
+def flags(name: str) -> tuple:
+    """The nvcc flags that ``csrc/<name>.cu`` is built with."""
+    return NVCC_FLAGS + SOURCE_FLAGS[name]
 
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -52,7 +68,7 @@ def _start(name: str):
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+    cmd = [_nvcc(), *flags(name), "-o", str(tmp), str(src)]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return proc, tmp, out, time.perf_counter()

@@ -2,17 +2,26 @@
 window + GQA, for uncached full sequences (scoring, training).
 
 Port of ``repro.kernels.flash_attention`` (the Pallas ``_fa_kernel``).
-The kernel is ``csrc/flash_attention.cu``: one CUDA block per (tile of 64
-query rows, q-head, batch) sweeping the 64-key K/V tiles of its kv-head
-that the causal and window rules leave, with the running max, sum and
-accumulator in registers (see the source's note).  It reads the JAX layout
-``[B, S, H, hd]`` through strides and masks a ragged S or T edge, so unlike
-the reference it needs no padding and writes every row.
+The kernels are in ``csrc/flash_attention.cu`` (see the source's note), one
+per input type:
+
+- bf16 takes the **tensor-core** path: one CTA per (128 query rows,
+  q-head, batch), a producer warpgroup feeding a TMA ring of K/V tiles and
+  two consumer warpgroups running both products on ``wgmma``, P in bf16
+  registers.  TMA needs 16-byte-aligned base addresses and strides, which
+  :func:`check_tma` checks; a bf16 input that fails raises.
+- f32 takes the **CUDA-core** path: one block per (64 query rows, q-head,
+  batch), every product in f32.
+
+Both read the JAX layout ``[B, S, H, hd]`` through strides and mask a
+ragged S or T edge, so unlike the reference they need no padding and write
+every row.  ``STATS.launches`` counts every launch, ``STATS.tensor_core``
+and ``STATS.cuda_core`` each path's.
 
 :func:`flash_attention_plain` is the same function in plain PyTorch
-(masked dense softmax in f32): the kernel's oracle on the card and its
+(masked dense softmax in f32): the kernels' oracle on the card and their
 path on the CPU.  :func:`flash_attention` takes the plain path only for
-tensors on the CPU; for CUDA tensors it launches the kernel or raises.
+tensors on the CPU; for CUDA tensors it launches a kernel or raises.
 """
 from __future__ import annotations
 
@@ -24,36 +33,91 @@ from . import _build
 from .dense_attention import attend_dense
 
 __all__ = ["flash_attention", "flash_attention_plain", "check_qkv",
-           "reset_launches", "STATS", "SOURCE", "HEAD_DIMS", "DTYPES"]
+           "check_tma", "route", "tc_info", "bf16_limit", "reset_launches",
+           "STATS", "SOURCE", "HEAD_DIMS", "DTYPES", "PATHS"]
 
 SOURCE = "flash_attention"        # csrc/flash_attention.cu
 HEAD_DIMS = (64, 128)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+PATHS = {torch.bfloat16: "tensor_core", torch.float32: "cuda_core"}
+TMA_ALIGN = 16                    # bytes: TMA's base address and strides
+# flash_attention_tc_launch's return codes past CUDA's own
+_NO_ENTRY_POINT, _MAP_ERROR = 10000, 20000
 
 
 class _Stats:
-    """Launch count of the kernel."""
+    """Launch counts: all launches, and each path's."""
 
     def __init__(self):
         self.launches = 0
+        self.tensor_core = 0
+        self.cuda_core = 0
 
 
 STATS = _Stats()
 
 
 def reset_launches() -> None:
-    STATS.launches = 0
+    STATS.launches = STATS.tensor_core = STATS.cuda_core = 0
 
 
 def _lib() -> ctypes.CDLL:
     lib = _build.load(SOURCE)
     if not getattr(lib, "_argtypes_set", False):
         vp, ci, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.flash_attention_launch.argtypes = ([vp] * 4 + [ci] * 7 +
-                                               [ll] * 9 + [ci] * 2 + [vp])
-        lib.flash_attention_launch.restype = ci
+        for fn in (lib.flash_attention_cc_launch,
+                   lib.flash_attention_tc_launch):
+            fn.argtypes = [vp] * 4 + [ci] * 6 + [ll] * 9 + [ci] * 2 + [vp]
+            fn.restype = ci
+        lib.flash_attention_tc_info.argtypes = [ci, ctypes.POINTER(ci)]
+        lib.flash_attention_tc_info.restype = ci
         lib._argtypes_set = True
     return lib
+
+
+def tc_info(hd: int) -> dict:
+    """The tensor-core kernel's launch shape at head dim ``hd``, as the
+    built library reports it."""
+    buf = (ctypes.c_int * 5)()
+    rc = _lib().flash_attention_tc_info(hd, buf)
+    if rc != 0:
+        raise ValueError(f"flash_attention: head dim {hd} not in {HEAD_DIMS}")
+    return dict(zip(("threads", "producer_regs", "consumer_regs", "stages",
+                     "smem_bytes"), buf))
+
+
+def route(q: torch.Tensor) -> str:
+    """The kernel path a CUDA tensor of q's type takes: ``"tensor_core"``
+    for bf16, ``"cuda_core"`` for f32."""
+    if q.dtype not in PATHS:
+        raise TypeError(f"flash_attention: no kernel for dtype {q.dtype}")
+    return PATHS[q.dtype]
+
+
+def _tma_strides(t: torch.Tensor) -> tuple:
+    """t's (batch, row, head) strides in elements, with the stride of a
+    size-1 dim (never stepped over) replaced by its contiguous value."""
+    B, L, H, hd = t.shape
+    dense = (L * H * hd, H * hd, hd)
+    return tuple(t.stride(i) if t.shape[i] > 1 else dense[i]
+                 for i in range(3))
+
+
+def check_tma(name: str, q, k, v) -> None:
+    """Raise unless q, k and v can be read by TMA: each base address and
+    each stride that is stepped over a multiple of 16 bytes."""
+    for nm, t in (("q", q), ("k", k), ("v", v)):
+        size = t.element_size()
+        if t.data_ptr() % TMA_ALIGN:
+            raise ValueError(f"{name}: {nm}'s base address is not "
+                             f"{TMA_ALIGN}-byte aligned, which the "
+                             f"tensor-core kernel's TMA loads need")
+        bad = [s for s in _tma_strides(t) if (s * size) % TMA_ALIGN]
+        if bad:
+            raise ValueError(f"{name}: {nm}'s strides {tuple(t.stride())} "
+                             f"are not all multiples of {TMA_ALIGN} bytes, "
+                             f"which the tensor-core kernel's TMA loads "
+                             f"need")
 
 
 def check_qkv(name: str, q, k, v, *, q_len: int | None = None) -> None:
@@ -93,8 +157,25 @@ def flash_attention_plain(q, k, v, *, causal: bool = True,
     return attend_dense(q, k, v, causal=causal, window=window)
 
 
+def bf16_limit(q, k, v, *, causal: bool = True, window: int = -1,
+               want: torch.Tensor | None = None) -> torch.Tensor:
+    """The elementwise limit on |kernel - plain| for bf16 inputs, in f32:
+    ``1e-3 + 8e-3 |plain| + 2^-8 plain(q, k, |v|)``.  The first two terms
+    allow one bf16 rounding of each side's output; the last is the bound
+    u * sum_j p_j |v_j| / l on rounding P to bf16 (unit roundoff u = 2^-8)
+    before P V, which the tensor-core kernel does and the plain twin does
+    not.  ``want`` is the plain output, if already computed."""
+    if want is None:
+        want = flash_attention_plain(q, k, v, causal=causal, window=window)
+    pv = flash_attention_plain(q, k, v.abs(), causal=causal, window=window)
+    return 1e-3 + 8e-3 * want.float().abs() + 2.0 ** -8 * pv.float()
+
+
 def _launch(q, k, v, causal: bool, window: int) -> torch.Tensor:
     check_qkv("flash_attention", q, k, v)
+    path = route(q)
+    if path == "tensor_core":
+        check_tma("flash_attention", q, k, v)
     B, S, Hq, hd = q.shape
     T, Hkv = k.shape[1], k.shape[2]
     out = torch.empty((B, S, Hq * hd), dtype=q.dtype, device=q.device)
@@ -103,19 +184,24 @@ def _launch(q, k, v, causal: bool, window: int) -> torch.Tensor:
     if T == 0:
         raise ValueError("flash_attention: no keys to attend over")
     lib = _lib()
+    fn = (lib.flash_attention_tc_launch if path == "tensor_core"
+          else lib.flash_attention_cc_launch)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.flash_attention_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            DTYPES[q.dtype], B, S, T, Hq, Hkv, hd,
-            q.stride(0), q.stride(1), q.stride(2),
-            k.stride(0), k.stride(1), k.stride(2),
-            v.stride(0), v.stride(1), v.stride(2),
-            int(causal), int(window), stream)
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                B, S, T, Hq, Hkv, hd, *_tma_strides(q), *_tma_strides(k),
+                *_tma_strides(v), int(causal), int(window), stream)
     if rc != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
-                           f"error {rc}")
+        if rc == _NO_ENTRY_POINT:
+            why = "cudaGetDriverEntryPoint found no cuTensorMapEncodeTiled"
+        elif rc >= _MAP_ERROR:
+            why = f"cuTensorMapEncodeTiled gave CUresult {rc - _MAP_ERROR}"
+        else:
+            why = f"CUDA error {rc}"
+        raise RuntimeError(f"flash_attention {path} kernel launch failed: "
+                           f"{why}")
     STATS.launches += 1
+    setattr(STATS, path, getattr(STATS, path) + 1)
     return out
 
 

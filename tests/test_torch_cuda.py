@@ -77,8 +77,10 @@ def test_gsampler_on_card_is_deterministic_and_uses_kernel(dev):
 
 
 # -- attention kernels: f32 at the JAX sweep's 2e-5 (tests/test_kernels.py);
-# bf16 at one bf16 rounding of the output (2^-7 relative at most), since
-# both sides compute in f32 from the same bf16 inputs --
+# bf16 flash_decode at one bf16 rounding of the output (2^-7 relative at
+# most), since both sides compute in f32 from the same bf16 inputs; bf16
+# flash_attention at fa.bf16_limit, which adds the rounding of P to bf16
+# that its tensor-core kernel makes before P V --
 TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5),
        torch.bfloat16: dict(rtol=8e-3, atol=1e-3)}
 
@@ -94,6 +96,25 @@ def _close(got, want, dtype):
     torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
 
 
+def _fa_held(q, k, v, causal=True, window=-1):
+    """flash_attention on the card against its plain twin: 2e-5 + 2e-5
+    |plain| in f32, fa.bf16_limit in bf16; one launch, on q's path."""
+    before = (fa.STATS.launches, fa.STATS.tensor_core, fa.STATS.cuda_core)
+    got = fa.flash_attention(q, k, v, causal=causal, window=window)
+    tc = q.dtype == torch.bfloat16
+    assert (fa.STATS.launches, fa.STATS.tensor_core, fa.STATS.cuda_core) \
+        == (before[0] + 1, before[1] + tc, before[2] + (not tc))
+    want = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
+    assert got.shape == want.shape and got.dtype == want.dtype
+    if not tc:
+        _close(got, want, q.dtype)
+        return
+    diff = (got.float() - want.float()).abs()
+    lim = fa.bf16_limit(q, k, v, causal=causal, window=window, want=want)
+    assert torch.isfinite(got).all()
+    assert float((diff / lim).max()) <= 1, float((diff / lim).max())
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal,window", [(True, -1), (False, -1),
                                            (True, 96)])
@@ -103,20 +124,66 @@ def _close(got, want, dtype):
     (2, 77, 150, 4, 4, 64)])
 def test_flash_attention_kernel_matches_plain(dev, dtype, causal, window,
                                               B, S, T, Hq, Hkv, hd):
-    q, k, v = _qkv(dev, dtype, B, S, T, Hq, Hkv, hd)
-    before = fa.STATS.launches
-    got = fa.flash_attention(q, k, v, causal=causal, window=window)
-    assert fa.STATS.launches == before + 1
-    _close(got, fa.flash_attention_plain(q, k, v, causal=causal,
-                                         window=window), dtype)
+    _fa_held(*_qkv(dev, dtype, B, S, T, Hq, Hkv, hd), causal, window)
 
 
-def test_flash_attention_reads_strided_inputs(dev):
+@pytest.mark.parametrize("causal,window", [(True, -1), (False, -1)])
+@pytest.mark.parametrize("B,S,T,Hq,Hkv,hd", [
+    (1, 64, 64, 1, 1, 64), (1, 64, 64, 1, 1, 128),       # one tile
+    (1, 128, 128, 1, 1, 64), (1, 128, 128, 1, 1, 128),
+    (2, 384, 384, 8, 1, 64), (2, 384, 384, 8, 1, 128),   # GQA 8:1
+    (1, 300, 300, 8, 2, 128),                            # GQA 4:1
+    (4, 1151, 1151, 32, 8, 128),                         # qwen3_8b ragged
+    (2, 4096, 4096, 32, 8, 128)])                        # scoring shape
+def test_flash_attention_tensor_core_shapes(dev, causal, window, B, S, T, Hq,
+                                            Hkv, hd):
+    _fa_held(*_qkv(dev, torch.bfloat16, B, S, T, Hq, Hkv, hd), causal,
+             window)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_reads_strided_inputs(dev, dtype):
     qkv = torch.randn(2, 130, 3, 4, 64, device=dev,
                       generator=torch.Generator(dev).manual_seed(0))
-    q, k, v = qkv.unbind(2)                      # non-contiguous views
-    _close(fa.flash_attention(q, k, v),
-           fa.flash_attention_plain(q, k, v), torch.float32)
+    q, k, v = qkv.to(dtype).unbind(2)            # non-contiguous views
+    fa.check_tma("test", q, k, v)                # aligned for TMA
+    _fa_held(q, k, v)
+
+
+def test_flash_attention_raises_on_a_misaligned_bf16_view(dev):
+    q, k, v = _qkv(dev, torch.bfloat16, 1, 128, 128, 2, 2, 64)
+    flat = torch.zeros(q.numel() + 1, dtype=q.dtype, device=dev)
+    qm = flat[1:].view(q.shape)                  # base 2 bytes off
+    qm.copy_(q)
+    before = (fa.STATS.launches, fa.STATS.tensor_core)
+    with pytest.raises(ValueError, match="aligned"):
+        fa.flash_attention(qm, k, v)
+    wide = torch.zeros(1, 128, 2, 68, dtype=q.dtype, device=dev)
+    wide[..., :64] = q                           # row stride 136 bytes
+    with pytest.raises(ValueError, match="multiples of 16"):
+        fa.flash_attention(wide[..., :64], k, v)
+    assert (fa.STATS.launches, fa.STATS.tensor_core) == before
+    # the f32 path reads through plain loads and takes such views
+    q32 = torch.zeros(q.numel() + 1, device=dev)[1:].view(q.shape)
+    q32.copy_(q)                                 # base 4 bytes off
+    _fa_held(q32, k.float(), v.float())
+    w32 = torch.zeros(1, 128, 2, 66, device=dev)
+    w32[..., :64] = q                            # row stride 264 bytes
+    _fa_held(w32[..., :64], k.float(), v.float())
+
+
+def test_flash_attention_counts_each_path(dev):
+    fa.reset_launches()
+    for dtype, n in ((torch.bfloat16, 3), (torch.float32, 2)):
+        q, k, v = _qkv(dev, dtype, 1, 100, 100, 2, 1, 64)
+        for _ in range(n):
+            fa.flash_attention(q, k, v)
+    assert (fa.STATS.launches, fa.STATS.tensor_core, fa.STATS.cuda_core) \
+        == (5, 3, 2)
+    info = fa.tc_info(128)
+    assert info["threads"] == 384 and info["stages"] >= 2
+    assert 128 * info["producer_regs"] + 256 * info["consumer_regs"] \
+        <= 65536
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
