@@ -23,15 +23,20 @@ Phases, each of which raises on failure (the script then exits non-zero):
 6. attention kernels against their plain versions: ``flash_attention`` at
    the JAX sweep's shapes (f32 and bf16; causal, non-causal, window 96),
    at qwen3_8b's head shape and at a ragged S; ``flash_decode`` at the
-   sweep's shapes, the clamp and pad cases, a poisoned cache tail and the
-   served cache; within ``atol + rtol |plain|`` of 2e-5 + 2e-5 (f32, the
+   sweep's shapes, the clamp and pad cases, the card's split plan at every
+   kv_len of the served steps, kv_len 1 and T, one split, a bk that does
+   not divide T, a poisoned cache tail, each case called twice (one launch
+   a call, the two results bit-identical), the twin handed the kernel's
+   split size; within ``atol + rtol |plain|`` of 2e-5 + 2e-5 (f32, the
    JAX sweep's) or 1e-3 + 8e-3 (bf16 ``flash_decode``: one bf16 rounding
    of the output); bf16 ``flash_attention`` (the tensor-core path, which
    rounds P to bf16 before P V) within ``fa.bf16_limit``, 1e-3 + 8e-3
    |plain| + 2^-8 plain(q, k, |v|), its worst ratio also printed against
    the old limit; then each is timed against its plain version and one
    ``scaled_dot_product_attention`` call, ``flash_attention`` on both
-   paths (bf16 at the scoring shape, f32 at the self-check's);
+   paths (bf16 at the scoring shape, f32 at the self-check's),
+   ``flash_decode`` by its device time a call (``device_ms``) and, apart,
+   its wrapper's host time a call (``host_us``);
 7. scoring: qwen3_8b at full width and depth (bf16, seeded random
    weights) scores 2 x 4096 tokens through ``lm.forward``: exactly 36
    ``flash_attention`` launches, all on the tensor-core path, finite
@@ -45,20 +50,24 @@ Phases, each of which raises on failure (the script then exits non-zero):
    logits' largest magnitude) and the greedy tokens (near-ties counted);
 10. ``wkv6`` against ``wkv6_plain``, the sequential recurrence, in f32 at
    the JAX sweep's shapes, under strong decay, at a T that is not a whole
-   number of chunks, on strided inputs and at rwkv6_3b's scoring shape
-   (within 5e-5 + 5e-5 |plain|, the sweep's; see ``WKV_LONG_ATOL`` for
-   the 4096-step shape); then timed against its plain version at the
-   scoring shape and at the serving prefill's;
+   number of chunks, on strided inputs, at the main path's shapes with
+   the default tile (rwkv6_3b's scoring shape in f32 and in bf16 r/k/v,
+   the serving prefill's, the decode step T 1) and at the double buffer's
+   edges (T 2, 2 x chunk + 1): y within 5e-5 + 5e-5 |plain| (the sweep's;
+   see ``WKV_LONG_ATOL`` for the 1024- and 4096-step shapes), sT
+   bit-equal in every case; then timed against its plain version at the
+   scoring shape (f32 and bf16), the serving prefill's and a decode
+   step's (device and host time);
 11. scoring: rwkv6_3b at full width and depth (bf16, seeded random
    weights) scores 2 x 4096 tokens through ``rwkv_lm.forward``: exactly
    32 ``wkv6`` launches, finite logits;
 12. serving: ``serve_greedy("rwkv6_3b", batch=4, prompt_len=1024,
-   gen_len=128)`` in f32: exactly 32 ``wkv6`` launches, all in the
-   prefill;
+   gen_len=128)`` in f32: exactly 32 + 32 x 127 = 4096 ``wkv6`` launches,
+   32 in the prefill and one per layer in each decode step;
 13. RWKV self-check: an f32 ``forward`` through ``wkv6`` over the prompt
    and the generated tokens reproduces the served logits and greedy
-   tokens as in phase 9, and one prefill launches ``wkv6`` once per layer
-   while one decode step launches it never.
+   tokens as in phase 9, and one prefill and one decode step each launch
+   ``wkv6`` once per layer.
 
 The last lines are the card's ``nvidia-smi`` name and power limit, a JSON
 line with each kernel's launches, error and times, and
@@ -91,14 +100,24 @@ SERVE_B, PROMPT, GEN = 4, 1024, 128
 SELF_CHECK_REL = 1e-3           # served vs forward logits, x max |logit|
 WKV_TOL = (5e-5, 5e-5)          # (rtol, atol): the JAX sweep's
 WKV_OPS_PER_CELL = 6            # f32 operations per state cell and step
-# At 4096 steps the kernel and its twin still share every state rounding
-# (the kernel is written so), and differ only in the order of y's sum over
-# i: 64 terms r_i (u_i k_i v_j + S_ij) with |S| ~ 14 under the model's
-# decays.  One such f32 sum already errs by up to 0.62 x the sweep's limit
-# against an f64 sum over 1e6 outputs (B1 x T4096 x H4, CPU), and the
-# kernel-vs-twin difference holds two such errors over 2.1e7 outputs, so
-# the absolute part of the limit is doubled at that shape only.
+# Over rwkv6_3b's long inputs (the serving prefill's 1024 steps and
+# scoring's 4096, under the model's decays) the kernel and its twin still
+# share every state rounding (the kernel is written so), and differ only
+# in the order of y's sum over i: 64 terms r_i (u_i k_i v_j + S_ij) with
+# |S| ~ 14 once the state has filled (a few hundred steps at these
+# decays).  One such f32 sum already errs by up to 0.62 x the sweep's
+# limit against an f64 sum over 1e6 outputs (B1 x T4096 x H4, CPU), and
+# the kernel-vs-twin difference holds two such errors over 1e7 to 2.1e7
+# outputs, so the absolute part of the limit is doubled at those shapes
+# only.
 WKV_LONG_ATOL = 1e-4
+# device_ms / host_us: the spin kernel ahead of the timed calls lasts this
+# many clock cycles a call (~100 us at ~2 GHz), longer than the kernel
+# wrappers' host paths, so the card never waits on the host inside the
+# window; device_ms stretches it for a slower caller (a plain twin),
+# counting SPIN_CLOCK_HZ cycles a second (the H100's top SM clock).
+SPIN_CYCLES_PER_CALL = 2e5
+SPIN_CLOCK_HZ = 1.98e9
 
 
 def check(cond, msg: str) -> None:
@@ -128,6 +147,48 @@ def time_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int) -> float:
+    """Mean device milliseconds per call of ``fn`` over ``reps`` calls run
+    back to back on the card: a spin kernel holds the card while the host
+    enqueues them, so CUDA events time the calls and not the host's rate
+    of enqueueing them (a decode-sized kernel is shorter than its wrapper's
+    host path).  The spin lasts SPIN_CYCLES_PER_CALL a call, or twice the
+    host time a call measured first if that is longer."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        fn()
+    host = (time.perf_counter() - t0) / 3
+    torch.cuda.synchronize()
+    spin = max(SPIN_CYCLES_PER_CALL, 2 * host * SPIN_CLOCK_HZ)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(spin * reps))
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def host_us(fn, reps: int) -> float:
+    """Mean host microseconds per call of ``fn``: ``perf_counter`` around
+    ``reps`` calls enqueued behind a spin kernel, before one synchronize."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(SPIN_CYCLES_PER_CALL * reps))
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / reps * 1e6
 
 
 def fe_bound_ms(C: int, POP: int, P: int, live_positions: int):
@@ -283,25 +344,44 @@ def attention_kernels(dev) -> dict:
                 for dt in (torch.float32, torch.bfloat16)]
     fd_cases += [(1, 72, 4, 2, 64, kl, bk, torch.float32, False)
                  for kl, bk in ((72, 512), (50, 32), (7, 16))]
-    fd_cases += [(SERVE_B, T_srv, 32, 8, 128, kl, fd.BK, dt, False)
-                 for kl in (PROMPT + 1, PROMPT + GEN - 1)
+    # the card's plan (bk None) at every kv_len of the 127 served steps
+    fd_cases += [(SERVE_B, T_srv, 32, 8, 128, kl, None, torch.float32, False)
+                 for kl in range(PROMPT + 1, PROMPT + GEN)]
+    fd_cases += [(SERVE_B, T_srv, 32, 8, 128, kl, bk, dt, False)
+                 for kl, bk in ((PROMPT + 1, None), (PROMPT + GEN - 1, None),
+                                (1, None), (T_srv, None), (64, None),
+                                (PROMPT + 40, 100), (T_srv, 512))
                  for dt in (torch.float32, torch.bfloat16)]
-    fd_cases += [(SERVE_B, T_srv, 32, 8, 128, PROMPT // 2 + 1, 256,
-                  torch.float32, True)]
-    fd_err = {}
+    fd_cases += [(SERVE_B, T_srv, 32, 8, 128, PROMPT // 2 + 1, bk,
+                  torch.float32, True) for bk in (256, None)]
+    fd_err, fd_plans, fd_same = {}, set(), 0
     for B, T, Hq, Hkv, hd, kl, bk, dt, poison in fd_cases:
         q, k, v = qkv(dt, B, 1, T, Hq, Hkv, hd)
-        want = fd.flash_decode_plain(q, k, v, kl, bk=bk)
+        used = fd.plan(q, k, kl, bk)             # the kernel's (bk, ns)
+        fd_plans.add(used)
+        want = fd.flash_decode_plain(q, k, v, kl, bk=used[0])
         if poison:                       # the unwritten tail, as in JAX's
             k[:, kl:], v[:, kl:] = 1e6, -1e6      # test_kernels.py:213
         label = (f"flash_decode B{B} T{T} Hq{Hq}/{Hkv} hd{hd} kv_len {kl} "
-                 f"bk {bk} {str(dt)[6:]} poisoned={poison}")
-        err = held(label, fd.flash_decode(q, k, v, kl, bk=bk), want, dt)[0]
+                 f"bk {bk} (plan {used}) {str(dt)[6:]} poisoned={poison}")
+        before = fd.STATS.launches
+        got = fd.flash_decode(q, k, v, kl, bk=bk)
+        again = fd.flash_decode(q, k, v, kl, bk=bk)
+        torch.cuda.synchronize()
+        check(fd.STATS.launches == before + 2, f"{label}: a call is not one "
+              f"launch")
+        check(torch.equal(got, again), f"{label}: two calls differ (the "
+              f"merge depends on block order)")
+        fd_same += 1
+        err = held(label, got, want, dt)[0]
         fd_err[dt] = max(fd_err.get(dt, 0.0), err)
     print(f"      flash_decode == plain on {len(fd_cases)} shapes (JAX sweep "
-          f"x f32/bf16 at bk 256, clamp/pad T 72, poisoned tail, served "
-          f"cache T {T_srv}): max abs err f32 {fd_err[torch.float32]:.3g}, "
-          f"bf16 {fd_err[torch.bfloat16]:.3g}")
+          f"x f32/bf16 at bk 256, clamp/pad T 72, the card's plan at every "
+          f"served kv_len {PROMPT + 1}..{PROMPT + GEN - 1}, kv_len 1, 64 (one "
+          f"split) and T, bk 100 (not dividing T), bf16, poisoned tail; "
+          f"plans {sorted(fd_plans)[:4]}...): max abs err f32 "
+          f"{fd_err[torch.float32]:.3g}, bf16 {fd_err[torch.bfloat16]:.3g}; "
+          f"two calls bit-identical on all {fd_same}, one launch a call")
     print(f"      worst |got - want| / (atol + rtol |want|) outside bf16 "
           f"flash_attention: f32 {worst[torch.float32]:.3g} (2e-5, 2e-5), "
           f"bf16 {worst[torch.bfloat16]:.3g} (8e-3, 1e-3)")
@@ -330,12 +410,16 @@ def attention_kernels(dev) -> dict:
     torch.cuda.empty_cache()
     kl = PROMPT + GEN // 2               # mean kv_len of the 127 steps
     q, k, v = qkv(torch.float32, SERVE_B, 1, T_srv, 32, 8, 128)
-    fd_ms = time_ms(lambda: fd.flash_decode(q, k, v, kl), 200)
+    fd_bk, fd_ns = fd.plan(q, k, kl)
+    fd_ms = device_ms(lambda: fd.flash_decode(q, k, v, kl), 300)
+    fd_host = min(host_us(lambda: fd.flash_decode(q, k, v, kl), 300)
+                  for _ in range(3))
     fd_plain = time_ms(lambda: fd.flash_decode_plain(q, k, v, kl), 50)
     fd_lib = sdpa_ms(q, k[:, :kl], v[:, :kl], False, 200)
     fd_main_err = held("flash_decode at the serving shape",
                        fd.flash_decode(q, k, v, kl),
-                       fd.flash_decode_plain(q, k, v, kl), torch.float32)[0]
+                       fd.flash_decode_plain(q, k, v, kl, bk=fd_bk),
+                       torch.float32)[0]
     fd_bound, fd_by = fd_bound_ms(SERVE_B, 32, 8, 128, kl, torch.float32)
     tflops = 4 * 128 * visible_pairs(SCORE_S, SCORE_S, True, -1) \
         * SCORE_B * 32 / fa_ms / 1e9
@@ -348,8 +432,14 @@ def attention_kernels(dev) -> dict:
           f"{f32_plain:.4f} ms, sdpa {f32_lib:.4f} ms, bound "
           f"{f32_bound:.4f} ms ({f32_by})")
     print(f"      flash_decode f32 [B{SERVE_B} T{T_srv} kv_len {kl} Hq32/8 "
-          f"hd128]: kernel {fd_ms:.4f} ms, plain {fd_plain:.4f} ms, sdpa "
-          f"{fd_lib:.4f} ms, bound {fd_bound:.5f} ms ({fd_by})")
+          f"hd128], the card's plan bk {fd_bk} x {fd_ns} splits "
+          f"({fd_ns * 8 * SERVE_B} blocks): kernel {fd_ms:.5f} ms of device "
+          f"time a call, plain {fd_plain:.4f} ms, sdpa {fd_lib:.4f} ms, bound "
+          f"{fd_bound:.5f} ms ({fd_by})")
+    print(f"      flash_decode host path: {fd_host:.2f} us a call (best of 3 "
+          f"x 300 calls enqueued before one synchronize), beside "
+          f"{fd_ms * 1e3:.2f} us of device time, a {fd_bound * 1e3:.2f} us "
+          f"bound and sdpa's {fd_lib * 1e3:.2f} us")
     return {"flash_attention": dict(
                 max_abs_err=fa_main_err, ms=fa_ms, plain_ms=fa_plain,
                 bound_ms=fa_bound, bound_by=fa_by, library_ms=fa_lib,
@@ -359,7 +449,8 @@ def attention_kernels(dev) -> dict:
                 f32_bound_ms=f32_bound, f32_library_ms=f32_lib),
             "flash_decode": dict(max_abs_err=fd_main_err, ms=fd_ms,
                                  plain_ms=fd_plain, bound_ms=fd_bound,
-                                 bound_by=fd_by, library_ms=fd_lib)}
+                                 bound_by=fd_by, library_ms=fd_lib,
+                                 host_us=fd_host, bk=fd_bk, ns=fd_ns)}
 
 
 def reset_counts() -> None:
@@ -559,65 +650,115 @@ def wkv_kernel(dev) -> dict:
              (1, 512, 4, 64, 64, strong, torch.float32, False),
              (2, 300, 3, 64, 64, strong, torch.float32, False),
              (2, 130, 3, 64, 64, mild, torch.float32, True),
-             (2, 130, 3, 64, 64, mild, torch.bfloat16, False),
-             (SCORE_B, SCORE_S, H, n, 64, "model", torch.float32, False)]
-    worst, worst_long, gated, y_err, s_err = 0.0, 0.0, 0.0, 0.0, 0.0
+             (2, 130, 3, 64, 64, mild, torch.bfloat16, False)]
+    # the main path's shapes at the default tile (chunk None), as the
+    # models call the kernel: scoring in f32 and in the bf16 r/k/v that
+    # rwkv6_3b scoring runs, and the f32 serving prefill
+    main_cases = [(SCORE_B, SCORE_S, H, n, None, "model", torch.float32,
+                   False),
+                  (SCORE_B, SCORE_S, H, n, None, "model", torch.bfloat16,
+                   False),
+                  (SERVE_B, PROMPT, H, n, None, "model", torch.float32,
+                   False)]
+    cases += main_cases
+    # the decode step (T 1) and the double buffer's edges: T 2, and 2 x
+    # chunk + 1 (the third tile refills the first buffer); the default tile
+    # (None), strong decay, bf16
+    cases += [(SERVE_B, T, H, n, chunk, decay, dt, False)
+              for T, chunk in ((1, None), (2, None), (2 * 16 + 1, 16),
+                               (2 * 32 + 1, 32), (2 * 3 + 1, 3))
+              for decay, dt in ((mild, torch.float32),
+                                (strong, torch.float32),
+                                (mild, torch.bfloat16))]
+    cases += [(1, 33, 2, nn_, 16, strong, torch.float32, False)
+              for nn_ in (16, 32)]
+    worst, worst_long, gated, y_err = 0.0, 0.0, 0.0, 0.0
+    main_err, tiles = {}, {}
     rtol, atol = WKV_TOL
-    for B, T, Hh, nn_, chunk, decay, dt, strided in cases:
+    sms = rk._build.sm_count(0)
+    for case in cases:
+        B, T, Hh, nn_, chunk, decay, dt, strided = case
         ins = inputs(B, T, Hh, nn_, decay, dt, strided)
-        got = rk.wkv6(*ins, chunk=chunk)
         want = rk.wkv6_plain(*ins)
+        before = rk.STATS.launches
+        got = rk.wkv6(*ins, chunk=chunk)
         torch.cuda.synchronize()
-        long_ = T == SCORE_S
-        label = (f"wkv6 B{B} T{T} H{Hh} n{nn_} chunk {chunk} decay {decay} "
-                 f"{str(dt)[6:]} strided={strided}")
-        for nm, g, w_ in zip(("y", "sT"), got, want):
-            diff = (g - w_).abs()
-            strict = float((diff / (atol + rtol * w_.abs())).max())
-            limit = WKV_LONG_ATOL if long_ else atol
-            ratio = float((diff / (limit + rtol * w_.abs())).max())
-            check(ratio <= 1 and bool(torch.isfinite(g).all()),
-                  f"{label}: {nm} differs from the plain twin (max abs err "
-                  f"{float(diff.max())}, {ratio:.3g} x the limit)")
-            gated = max(gated, ratio)
-            if long_:
-                worst_long = max(worst_long, strict)
-            else:
-                worst = max(worst, strict)
-            if nm == "y":
-                y_err = max(y_err, float(diff.max()))
-            else:
-                s_err = max(s_err, float(diff.max()))
-        del ins, got, want
+        long_ = decay == "model" and T >= PROMPT
+        tile = chunk or rk.auto_chunk(B, Hh, nn_, ins[0].element_size(), sms)
+        label = (f"wkv6 B{B} T{T} H{Hh} n{nn_} chunk {chunk} (tile {tile}) "
+                 f"decay {decay} {str(dt)[6:]} strided={strided}")
+        check(rk.STATS.launches == before + 1, f"{label}: not one launch")
+        check(torch.equal(got[1], want[1]), f"{label}: sT is not bit-equal "
+              f"to the plain twin's (max abs err "
+              f"{float((got[1] - want[1]).abs().max())})")
+        g, w_ = got[0], want[0]
+        diff = (g - w_).abs()
+        strict = float((diff / (atol + rtol * w_.abs())).max())
+        limit = WKV_LONG_ATOL if long_ else atol
+        ratio = float((diff / (limit + rtol * w_.abs())).max())
+        check(ratio <= 1 and bool(torch.isfinite(g).all()),
+              f"{label}: y differs from the plain twin (max abs err "
+              f"{float(diff.max())}, {ratio:.3g} x the limit)")
+        gated = max(gated, ratio)
+        if long_:
+            worst_long = max(worst_long, strict)
+        else:
+            worst = max(worst, strict)
+        y_err = max(y_err, float(diff.max()))
+        if case in main_cases:
+            main_err[case], tiles[case] = float(diff.max()), tile
+        del got, ins, want
+    sc32, sc16, pre = main_cases
     print(f"[10/13] wkv6 == plain on {len(cases)} shapes (JAX sweep, strong "
-          f"decay U{strong} at T 512 and T 300 (not whole chunks), strided, "
-          f"bf16 r/k/v, {RWKV} scoring shape): max abs err y {y_err:.3g}, "
-          f"sT {s_err:.3g}; worst |got - want| / ({atol:g} + {rtol:g} "
-          f"|want|) {worst:.3g}, at T {SCORE_S} {worst_long:.3g} (limit "
-          f"there {WKV_LONG_ATOL:g} + {rtol:g} |want|)")
+          f"decay U{strong}, T not whole chunks, strided, bf16 r/k/v, "
+          f"{RWKV} scoring in f32 and bf16 at tiles {tiles[sc32]} and "
+          f"{tiles[sc16]}, the serving prefill at tile {tiles[pre]}, the "
+          f"decode step T 1, T 2 and T 2 x chunk + 1): sT bit-equal in "
+          f"every case; max abs err y {y_err:.3g}; worst |got - want| / "
+          f"({atol:g} + {rtol:g} |want|) {worst:.3g}, at T {PROMPT} and "
+          f"{SCORE_S} {worst_long:.3g} (limit there {WKV_LONG_ATOL:g} + "
+          f"{rtol:g} |want|, worst {gated:.3g} of it or of the sweep's)")
 
     ins = inputs(SCORE_B, SCORE_S, H, n, "model")
-    ms = time_ms(lambda: rk.wkv6(*ins), 20)
+    ms = device_ms(lambda: rk.wkv6(*ins), 20)
     plain = time_ms(lambda: rk.wkv6_plain(*ins), 1)
-    got, want = rk.wkv6(*ins), rk.wkv6_plain(*ins)
-    main_err = float((got[0] - want[0]).abs().max())
     bound, by = wkv_bound_ms(SCORE_B, SCORE_S, H, n, torch.float32)
+    del ins
+    ins = inputs(SCORE_B, SCORE_S, H, n, "model", torch.bfloat16)
+    bf16_ms = device_ms(lambda: rk.wkv6(*ins), 20)
+    bf16_bound, _ = wkv_bound_ms(SCORE_B, SCORE_S, H, n, torch.bfloat16)
+    del ins
     print(f"      wkv6 f32 [B{SCORE_B} T{SCORE_S} H{H} n{n}]: kernel "
-          f"{ms:.4f} ms, plain {plain:.1f} ms, bound {bound:.4f} ms ({by}); "
-          f"no single PyTorch call computes it")
-    del ins, got, want
+          f"{ms:.4f} ms (tile {tiles[sc32]}), plain {plain:.1f} ms, bound "
+          f"{bound:.4f} ms ({by}); bf16 r/k/v (the model's scoring) "
+          f"{bf16_ms:.4f} ms (tile {tiles[sc16]}), bound {bf16_bound:.4f} "
+          f"ms; no single PyTorch call computes it")
     ins = inputs(SERVE_B, PROMPT, H, n, "model")      # the serving prefill
-    pre_ms = time_ms(lambda: rk.wkv6(*ins), 20)
+    pre_ms = device_ms(lambda: rk.wkv6(*ins), 20)
     pre_bound, pre_by = wkv_bound_ms(SERVE_B, PROMPT, H, n, torch.float32)
     print(f"      wkv6 f32 [B{SERVE_B} T{PROMPT} H{H} n{n}] (serving "
-          f"prefill): kernel {pre_ms:.4f} ms, bound {pre_bound:.4f} ms "
-          f"({pre_by})")
+          f"prefill): kernel {pre_ms:.4f} ms (tile {tiles[pre]}), bound "
+          f"{pre_bound:.4f} ms ({pre_by})")
+    del ins
+    ins = inputs(SERVE_B, 1, H, n, "model")           # one decode step
+    dec_ms = device_ms(lambda: rk.wkv6(*ins), 300)
+    dec_host = min(host_us(lambda: rk.wkv6(*ins), 300) for _ in range(3))
+    dec_plain = device_ms(lambda: rk.wkv6_plain(*ins), 100)
+    dec_bound, dec_by = wkv_bound_ms(SERVE_B, 1, H, n, torch.float32)
+    print(f"      wkv6 f32 [B{SERVE_B} T1 H{H} n{n}] (a decode step): kernel "
+          f"{dec_ms * 1e3:.2f} us of device time, host path {dec_host:.2f} "
+          f"us; plain twin (the old decode step on the card) "
+          f"{dec_plain * 1e3:.2f} us of device time; bound "
+          f"{dec_bound * 1e3:.2f} us ({dec_by})")
     del ins
     torch.cuda.empty_cache()
-    return dict(max_abs_err=main_err, worst_err_ratio=gated,
+    return dict(max_abs_err=main_err[sc32], worst_err_ratio=gated,
                 ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
-                library_ms=None, prefill_ms=pre_ms,
-                prefill_bound_ms=pre_bound)
+                library_ms=None, bf16_ms=bf16_ms, bf16_bound_ms=bf16_bound,
+                bf16_max_abs_err=main_err[sc16], prefill_ms=pre_ms,
+                prefill_bound_ms=pre_bound, prefill_max_abs_err=main_err[pre],
+                decode_ms=dec_ms, decode_bound_ms=dec_bound,
+                decode_plain_ms=dec_plain, decode_host_us=dec_host)
 
 
 def main() -> int:
@@ -809,9 +950,9 @@ def main() -> int:
     L = get_config(RWKV).n_layers
     wkv = wkv_kernel(dev)
     wkv_launches = scoring(dev, RWKV, 11, wkv6=L)["wkv6"]
-    served = serving(dev, RWKV, 12, wkv6=L)
+    served = serving(dev, RWKV, 12, wkv6=L + L * (GEN - 1))
     self_check(dev, RWKV, served, 13, want_fwd={"wkv6": L},
-               want_prefill={"wkv6": L}, want_step={})
+               want_prefill={"wkv6": L}, want_step={"wkv6": L})
     wkv_served = served["launches"]["wkv6"]
     del served
     print(f"      total {time.perf_counter() - t_all:.1f} s")

@@ -16,6 +16,7 @@ encoder is reached through ``cudaGetDriverEntryPoint``).
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
 import pathlib
 import shutil
@@ -24,7 +25,7 @@ import threading
 import time
 
 __all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "SOURCE_FLAGS", "flags",
-           "build", "load", "build_info"]
+           "build", "load", "build_info", "sm_count"]
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / \
@@ -111,6 +112,14 @@ def load(name: str) -> ctypes.CDLL:
                 lib = ctypes.CDLL(str(BUILD_DIR / f"lib{name}.so"))
                 _LIBS[name] = lib
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """The SM count of CUDA device ``index``, which the kernels' launch
+    plans size their grids by."""
+    import torch
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def build_info(name: str) -> dict | None:

@@ -8,27 +8,46 @@
 //
 // What it computes.  q [B, 1, Hq, hd] over a cache k/v [B, T, Hkv, hd], of
 // which the first kv_len keys are visible: out [B, 1, Hq*hd].  q-head h
-// reads kv-head h / G (GQA).  The cache is cut into splits of bk keys;
-// phase 1 reduces each split with a local softmax to f32 partials (o, m, l)
-// with o unnormalised, and phase 2 merges the splits with the online-softmax
-// combine.  f32 or bf16 in, f32 arithmetic, the input's type out.
+// reads kv-head h / G (GQA).  The cache is cut into splits of bk keys; each
+// split is reduced with a local softmax to f32 partials (o, m, l) with o
+// unnormalised, and the splits are merged with the online-softmax combine.
+// f32 or bf16 in, f32 arithmetic, the input's type out.
 //
 // What bounds it on this card.  Bytes: every visible key and value is read
 // once, 2 * B * kv_len * Hkv * hd * bytes, against 4 * hd operations per
 // (q-head, key): a few operations per byte, so HBM at 3.35 TB/s is the
-// bound.
+// bound.  At the serving shape (B 4, kv_len ~1088, Hkv 8, hd 128, f32)
+// that is ~36 MB, ~11 us: the launch and the host's path to it are of the
+// same size, so both are kept to one launch and a short wrapper.
 //
-// What the design does about it.  Phase 1 runs one block per (split,
-// kv-head, batch) that serves all G q-heads of its kv-head, so each K/V
-// split is read once and not G times (the Pallas grid is (B, Hq, splits)).
-// Only the splits that hold a visible key are launched: kv_len is a host
-// int, so a split wholly past kv_len is never read and adds exactly zero to
-// the merge, whatever the cache tail holds.  Inside the last split, keys
-// at or past kv_len are excluded (-inf, weight 0).  Each of the 8 warps
-// walks every 8th key of the split, 4 keys per step so that 8 loads are in
-// flight; a lane holds hd/32 elements of q, of the accumulators and of
-// each key, and a score is a warp-shuffle sum.  The warps' partials are
-// combined in shared memory.  Phase 2 is one block per (q-head, batch).
+// What the design does about it.
+// - One block per (split, kv-head, batch) serves all G q-heads of its
+//   kv-head, so each K/V row is read once and not G times (the Pallas grid
+//   is (B, Hq, splits)).  The wrapper sizes the splits to the card (about
+//   two blocks per SM), and only the ceil(kv_len / bk) splits that hold a
+//   visible key are launched: a split wholly past kv_len is never read,
+//   and inside the last split only the keys below kv_len are loaded, so
+//   the cache tail cannot reach the result.
+// - K and V stream through a 3-stage ring of shared-memory tiles of 16 KB
+//   each (TK keys), filled by 16-byte `cp.async`: two tiles are in flight
+//   while a third is consumed.  The split's K tiles come first, then its V
+//   tiles, through the same ring.  Rows are padded by 64 bytes so that the
+//   reads below are free of bank conflicts.
+// - Scores: 4 lanes share one key, each summing a quarter of the head dim
+//   for all G q-heads (q is read from shared memory as a broadcast), and 2
+//   shuffles finish each dot.  All scores of the split are kept in shared
+//   memory, so the softmax takes the split's exact maximum (as the plain
+//   twin does) and nothing is rescaled: P V then accumulates p * v, each
+//   warp over its own keys with a lane on each 16-byte chunk of the row,
+//   and the warps' sums are added in a fixed order.
+// - The merge runs in the same launch.  Each block writes its partials,
+//   fences, and bumps a per-(batch, kv-head) counter; the block that
+//   finishes last merges the kv-head's G q-heads over all splits, in split
+//   order (so the result does not depend on which block was last), writes
+//   the output and resets the counter to 0.  It stages every split's m and
+//   l in shared memory first, so each output's sum over the splits waits
+//   on one stream of independent loads of o.  The counters live in the
+//   wrapper's per-stream workspace, zeroed once when it is made.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -37,10 +56,13 @@
 
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr int kMaxG = 8;         // q-heads per kv-head that a block serves
-constexpr int kUnroll = 4;       // keys per warp step
+constexpr int kThreads = 128;
+constexpr int kWarps = kThreads / 32;
+constexpr int kMaxG = 8;          // q-heads per kv-head that a block serves
+constexpr int kStages = 3;        // ring depth
+constexpr int kTileBytes = 16384; // payload of one staged K or V tile
+constexpr int kPadChunks = 4;     // 16-byte chunks of padding per staged row
+constexpr int kMaxSmem = 232448;  // a block's shared memory limit
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
@@ -54,151 +76,317 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
   return __float2bfloat16(x);
 }
 
-__device__ __forceinline__ float warp_sum(float x) {
+// The VEC elements of one 16-byte chunk, widened to f32.
+__device__ __forceinline__ void widen(const float4& c, float (&x)[4]) {
+  x[0] = c.x; x[1] = c.y; x[2] = c.z; x[3] = c.w;
+}
+__device__ __forceinline__ void widen(const float4& c, float (&x)[8]) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&c);
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    x[2 * i] = f.x;
+    x[2 * i + 1] = f.y;
+  }
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(dst),
+               "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+template <typename T, int HD> struct Geo {
+  static constexpr int VEC = 16 / (int)sizeof(T);   // elements a chunk
+  static constexpr int NC = HD / VEC;               // chunks a row
+  static constexpr int RS = NC + kPadChunks;        // staged row, chunks
+  static constexpr int TK = kTileBytes / (HD * (int)sizeof(T));  // keys
+  static constexpr int CPL = NC / 4;                // chunks a score lane
+  static constexpr int KPW = 32 / NC;               // keys a P V warp step
+  static constexpr int kSets = kWarps * KPW;        // P V partial sums
+  static constexpr int kStageBytes = TK * RS * 16;
+  static constexpr int kRingBytes = kStages * kStageBytes;
+  static_assert(TK % 32 == 0 && NC % 4 == 0 && NC <= 32, "tile shape");
+  static_assert(kSets * kMaxG * HD * 4 <= kRingBytes, "P V sums alias");
+};
+
+// Shared memory past the ring: q [G][HD] f32, scores [bk][GP] f32, m and l
+// [kMaxG] f32, the "last block" flag.
+__host__ __device__ inline int gpad(int G) { return G <= 4 ? 4 : 8; }
+
+template <typename T, int HD>
+size_t smem_bytes(int G, int bk) {
+  return (size_t)Geo<T, HD>::kRingBytes + (size_t)G * HD * 4 +
+         (size_t)bk * gpad(G) * 4 + 2 * kMaxG * 4 + 16;
 }
 
 template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads)
-fd_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                const T* __restrict__ v, float* __restrict__ o_part,
-                float* __restrict__ m_part, float* __restrict__ l_part,
-                int Hq, int G, int kv_len, int bk, int ns, long long qsb,
-                long long qsh, long long ksb, long long kst, long long ksh,
-                long long vsb, long long vst, long long vsh, float scale) {
-  constexpr int EPL = HD / 32;   // elements per lane
-  __shared__ float wo[kWarps][kMaxG][HD];
-  __shared__ float wm[kWarps][kMaxG];
-  __shared__ float wl[kWarps][kMaxG];
+fd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+          const T* __restrict__ v, T* __restrict__ out,
+          float* __restrict__ o_part, float* __restrict__ m_part,
+          float* __restrict__ l_part, int* __restrict__ counters, int Hq,
+          int G, int kv_len, int bk, int ns, long long qsb, long long qsh,
+          long long ksb, long long kst, long long ksh, long long vsb,
+          long long vst, long long vsh, float scale) {
+  using Gm = Geo<T, HD>;
+  constexpr int VEC = Gm::VEC, NC = Gm::NC, RS = Gm::RS, TK = Gm::TK;
+  constexpr int KPW = Gm::KPW;
+  extern __shared__ float4 smem4[];
+  char* ring = reinterpret_cast<char*>(smem4);
+  float* sQ = reinterpret_cast<float*>(ring + Gm::kRingBytes);  // [G][HD]
+  float* sS = sQ + G * HD;                       // [bk][GP]: scores, then p
+  float* sM = sS + bk * gpad(G);
+  float* sL = sM + kMaxG;
+  int* sFlag = reinterpret_cast<int*>(sL + kMaxG);
+  const int GP = gpad(G);
 
   const int split = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int s0 = split * bk;
-  const int s1 = min(s0 + bk, kv_len);
-  const T* kb = k + b * ksb + hk * ksh + lane * EPL;
-  const T* vb = v + b * vsb + hk * vsh + lane * EPL;
+  const int nkeys = min(s0 + bk, kv_len) - s0;   // >= 1: split < ns
+  const int nt = (nkeys + TK - 1) / TK;          // tiles of K, then of V
+  const char* kb = reinterpret_cast<const char*>(
+      k + b * ksb + hk * ksh + (long long)s0 * kst);
+  const char* vb = reinterpret_cast<const char*>(
+      v + b * vsb + hk * vsh + (long long)s0 * vst);
+  const long long kstb = kst * (long long)sizeof(T);
+  const long long vstb = vst * (long long)sizeof(T);
+  const uint32_t ring_s = (uint32_t)__cvta_generic_to_shared(ring);
 
-  float qr[kMaxG][EPL], o[kMaxG][EPL], m[kMaxG], l[kMaxG];
-#pragma unroll
-  for (int g = 0; g < kMaxG; ++g) {
-    m[g] = -INFINITY;
-    l[g] = 0.0f;
-#pragma unroll
-    for (int e = 0; e < EPL; ++e) {
-      o[g][e] = 0.0f;
-      qr[g][e] = g < G ? to_f(q[b * qsb + (hk * G + g) * qsh + lane * EPL + e])
-                       : 0.0f;
+  auto load = [&](int it) {               // tile it: K tiles, then V tiles
+    const bool isv = it >= nt;
+    const int kt = isv ? it - nt : it;
+    const char* src = isv ? vb : kb;
+    const long long st = isv ? vstb : kstb;
+    const int rows = min(TK, nkeys - kt * TK);
+    const uint32_t dst = ring_s + (it % kStages) * Gm::kStageBytes;
+    for (int idx = tid; idx < rows * NC; idx += kThreads) {
+      const int r = idx / NC, c = idx % NC;
+      cp_async16(dst + (r * RS + c) * 16,
+                 src + (long long)(kt * TK + r) * st + c * 16);
     }
+  };
+
+  const int total = 2 * nt;
+#pragma unroll
+  for (int it = 0; it < kStages - 1; ++it) {
+    if (it < total) load(it);
+    cp_commit();
+  }
+  for (int idx = tid; idx < G * HD; idx += kThreads) {
+    const int g = idx / HD, d = idx % HD;
+    sQ[idx] = to_f(q[b * qsb + (hk * G + g) * qsh + d]);
   }
 
-  for (int base = s0 + warp; base < s1; base += kWarps * kUnroll) {
-    float kr[kUnroll][EPL], vr[kUnroll][EPL];
+  // P V accumulators of this lane: keys of sub-slot `sub` in each tile,
+  // elements [c * VEC, c * VEC + VEC) of the row
+  const int sub = lane / NC, pc = lane % NC;
+  float o[kMaxG][VEC];
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int j = base + u * kWarps;
+  for (int g = 0; g < kMaxG; ++g)
 #pragma unroll
-      for (int e = 0; e < EPL; ++e) {
-        kr[u][e] = j < s1 ? to_f(kb[j * kst + e]) : 0.0f;
-        vr[u][e] = j < s1 ? to_f(vb[j * vst + e]) : 0.0f;
+    for (int e = 0; e < VEC; ++e) o[g][e] = 0.0f;
+
+  for (int it = 0; it < total; ++it) {
+    cp_wait<kStages - 2>();                // tile it has landed (this thread)
+    __syncthreads();                       // ... for all; tile it-1 consumed
+    if (it + kStages - 1 < total) load(it + kStages - 1);
+    cp_commit();
+    const float4* tile = reinterpret_cast<const float4*>(
+        ring + (it % kStages) * Gm::kStageBytes);
+    if (it < nt) {
+      // scores of tile it: 4 lanes a key, CPL chunks each, all G heads
+      const int part = tid % 4, ks = tid / 4;
+      const int rows = min(TK, nkeys - it * TK);
+#pragma unroll
+      for (int kk = 0; kk < TK / 32; ++kk) {
+        const int j = kk * 32 + ks;
+        float acc[kMaxG];
+#pragma unroll
+        for (int g = 0; g < kMaxG; ++g) acc[g] = 0.0f;
+#pragma unroll
+        for (int i = 0; i < Gm::CPL; ++i) {
+          const int c = part + 4 * i;
+          float kx[VEC];
+          widen(tile[j * RS + c], kx);
+#pragma unroll
+          for (int g = 0; g < kMaxG; ++g) {
+            if (g >= G) break;
+            const float4* q4 = reinterpret_cast<const float4*>(
+                sQ + g * HD + c * VEC);
+#pragma unroll
+            for (int e4 = 0; e4 < VEC / 4; ++e4) {
+              const float4 qq = q4[e4];
+              acc[g] = fmaf(qq.x, kx[4 * e4], acc[g]);
+              acc[g] = fmaf(qq.y, kx[4 * e4 + 1], acc[g]);
+              acc[g] = fmaf(qq.z, kx[4 * e4 + 2], acc[g]);
+              acc[g] = fmaf(qq.w, kx[4 * e4 + 3], acc[g]);
+            }
+          }
+        }
+#pragma unroll
+        for (int g = 0; g < kMaxG; ++g) {
+          if (g >= G) break;
+          acc[g] += __shfl_xor_sync(0xffffffffu, acc[g], 1);
+          acc[g] += __shfl_xor_sync(0xffffffffu, acc[g], 2);
+          if (g % 4 == part && j < rows)
+            sS[(it * TK + j) * GP + g] = acc[g] * scale;
+        }
       }
+      continue;
     }
+    if (it == nt) {
+      // the split's softmax: warp w takes heads w, w + 4
+      for (int g = warp; g < G; g += kWarps) {
+        float mx = -INFINITY;
+        for (int j = lane; j < nkeys; j += 32) mx = fmaxf(mx, sS[j * GP + g]);
 #pragma unroll
-    for (int g = 0; g < kMaxG; ++g) {
-      if (g >= G) break;
-      float s[kUnroll];
-      float smax = m[g];
+        for (int off = 16; off > 0; off >>= 1)
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+        float sum = 0.0f;
+        for (int j = lane; j < nkeys; j += 32) {
+          const float p = expf(sS[j * GP + g] - mx);
+          sS[j * GP + g] = p;
+          sum += p;
+        }
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        float part = 0.0f;
-#pragma unroll
-        for (int e = 0; e < EPL; ++e) part = fmaf(qr[g][e], kr[u][e], part);
-        const float dot = warp_sum(part) * scale;
-        s[u] = base + u * kWarps < s1 ? dot : -INFINITY;
-        smax = fmaxf(smax, s[u]);
+        for (int off = 16; off > 0; off >>= 1)
+          sum += __shfl_xor_sync(0xffffffffu, sum, off);
+        if (lane == 0) {
+          sM[g] = mx;
+          sL[g] = sum;
+        }
       }
-      // base < s1, so s[0] is finite and so is smax
-      const float alpha = expf(m[g] - smax);
-      float psum = 0.0f;
-#pragma unroll
-      for (int e = 0; e < EPL; ++e) o[g][e] *= alpha;
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        const float p = expf(s[u] - smax);
-        psum += p;
-#pragma unroll
-        for (int e = 0; e < EPL; ++e) o[g][e] = fmaf(p, vr[u][e], o[g][e]);
+      __syncthreads();
+    }
+    // P V of V tile it - nt: warp w, sub-slot sub take keys w * KPW + sub,
+    // then every kWarps * KPW-th key
+    const int vt = it - nt;
+    const int rows = min(TK, nkeys - vt * TK);
+    for (int j = warp * KPW + sub; j < rows; j += kWarps * KPW) {
+      float vx[VEC];
+      widen(tile[j * RS + pc], vx);
+      const float4* p4 = reinterpret_cast<const float4*>(
+          sS + (vt * TK + j) * GP);
+      float p[kMaxG] = {};
+      const float4 pa = p4[0];
+      p[0] = pa.x; p[1] = pa.y; p[2] = pa.z; p[3] = pa.w;
+      if (GP == 8) {
+        const float4 pb = p4[1];
+        p[4] = pb.x; p[5] = pb.y; p[6] = pb.z; p[7] = pb.w;
       }
-      l[g] = l[g] * alpha + psum;
-      m[g] = smax;
+#pragma unroll
+      for (int g = 0; g < kMaxG; ++g) {
+        if (g >= G) break;
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) o[g][e] = fmaf(p[g], vx[e], o[g][e]);
+      }
     }
   }
+  cp_wait<0>();
+  __syncthreads();                        // the ring is free: alias the sums
 
+  float* sO = reinterpret_cast<float*>(ring);    // [kSets][G][HD]
+  const int set = warp * KPW + sub;
 #pragma unroll
   for (int g = 0; g < kMaxG; ++g) {
     if (g >= G) break;
 #pragma unroll
-    for (int e = 0; e < EPL; ++e) wo[warp][g][lane * EPL + e] = o[g][e];
-    if (lane == 0) {
-      wm[warp][g] = m[g];
-      wl[warp][g] = l[g];
-    }
+    for (int e = 0; e < VEC; ++e) sO[(set * G + g) * HD + pc * VEC + e] = o[g][e];
   }
   __syncthreads();
-
-  // combine the warps: a warp that saw no key has m = -inf and weight 0
-  for (int idx = threadIdx.x; idx < G * HD; idx += kThreads) {
+  const long long row0 = ((long long)b * Hq + hk * G) * ns + split;
+  for (int idx = tid; idx < G * HD; idx += kThreads) {
     const int g = idx / HD, d = idx % HD;
-    float mx = -INFINITY;
-    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, wm[w][g]);
-    float acc = 0.0f, den = 0.0f;
-    for (int w = 0; w < kWarps; ++w) {
-      const float a = wm[w][g] == -INFINITY ? 0.0f : expf(wm[w][g] - mx);
-      acc += wo[w][g][d] * a;
-      den += wl[w][g] * a;
-    }
-    const long long row = ((long long)b * Hq + hk * G + g) * ns + split;
-    o_part[row * HD + d] = acc;
-    if (d == 0) {
-      m_part[row] = mx;
-      l_part[row] = den;
-    }
+    float acc = 0.0f;
+    for (int s = 0; s < Gm::kSets; ++s) acc += sO[(s * G + g) * HD + d];
+    o_part[(row0 + (long long)g * ns) * HD + d] = acc;
   }
-}
+  if (tid < G) {
+    m_part[row0 + (long long)tid * ns] = sM[tid];
+    l_part[row0 + (long long)tid * ns] = sL[tid];
+  }
 
-template <typename T, int HD>
-__global__ void fd_merge_kernel(const float* __restrict__ o_part,
-                                const float* __restrict__ m_part,
-                                const float* __restrict__ l_part,
-                                T* __restrict__ out, int Hq, int ns) {
-  const int h = blockIdx.x, b = blockIdx.y, d = threadIdx.x;
-  const long long row0 = ((long long)b * Hq + h) * ns;
-  float mg = -INFINITY;
-  for (int s = 0; s < ns; ++s) mg = fmaxf(mg, m_part[row0 + s]);
-  float acc = 0.0f, den = 0.0f;
-  for (int s = 0; s < ns; ++s) {
-    const float w = expf(m_part[row0 + s] - mg);
-    den += w * l_part[row0 + s];
-    acc += o_part[(row0 + s) * HD + d] * w;
+  // the merge, by the block of this (batch, kv-head) that finishes last
+  __threadfence();
+  __syncthreads();
+  int* cnt = counters + b * (Hq / G) + hk;
+  if (tid == 0) {
+    const int prev = atomicAdd(cnt, 1);
+    *sFlag = prev == ns - 1;
+    if (prev == ns - 1) *cnt = 0;          // ready for the next launch
   }
-  out[((long long)b * Hq + h) * HD + d] = from_f<T>(acc / fmaxf(den, 1e-30f));
+  __syncthreads();
+  if (!*sFlag) return;
+  __threadfence();
+  // m and l of all splits into shared memory (the ring is free), the
+  // splits' weights exp(m - max m) and the denominator by one thread a
+  // head, then each output sums its splits in split order
+  const long long base = ((long long)b * Hq + hk * G) * ns;
+  float* sW = reinterpret_cast<float*>(ring);    // [G][ns]: m, then weights
+  float* sLs = sW + G * ns;                      // [G][ns]: l
+  float* sDen = sLs + G * ns;                    // [G]
+  for (int i = tid; i < G * ns; i += kThreads) {
+    sW[i] = __ldcg(m_part + base + i);
+    sLs[i] = __ldcg(l_part + base + i);
+  }
+  __syncthreads();
+  if (tid < G) {
+    float mg = -INFINITY;
+    for (int s = 0; s < ns; ++s) mg = fmaxf(mg, sW[tid * ns + s]);
+    float den = 0.0f;
+    for (int s = 0; s < ns; ++s) {
+      const float w = expf(sW[tid * ns + s] - mg);
+      sW[tid * ns + s] = w;
+      den += w * sLs[tid * ns + s];
+    }
+    sDen[tid] = den;
+  }
+  __syncthreads();
+  for (int idx = tid; idx < G * HD; idx += kThreads) {
+    const int g = idx / HD, d = idx % HD;
+    const float* op = o_part + (base + (long long)g * ns) * HD + d;
+    const float* wg = sW + g * ns;
+    float acc = 0.0f;
+#pragma unroll 4
+    for (int s = 0; s < ns; ++s) acc += __ldcg(op + (long long)s * HD) * wg[s];
+    out[((long long)b * Hq + hk * G + g) * HD + d] =
+        from_f<T>(acc / fmaxf(sDen[g], 1e-30f));
+  }
 }
 
 template <typename T, int HD>
 int launch(const void* q, const void* k, const void* v, void* out,
-           float* o_part, float* m_part, float* l_part, int B, int Hq,
-           int Hkv, int kv_len, int bk, int ns, const long long* st,
+           int* counters, float* part, int B, int Hq, int Hkv, int kv_len,
+           int bk, int ns, const long long* st, int device,
            cudaStream_t stream) {
-  fd_split_kernel<T, HD><<<dim3(ns, Hkv, B), kThreads, 0, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, o_part, m_part, l_part, Hq,
-      Hq / Hkv, kv_len, bk, ns, st[0], st[1], st[2], st[3], st[4], st[5],
-      st[6], st[7], 1.0f / sqrtf((float)HD));
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  fd_merge_kernel<T, HD><<<dim3(Hq, B), HD, 0, stream>>>(
-      o_part, m_part, l_part, (T*)out, Hq, ns);
+  static uint64_t attr_set = 0;           // per device, once
+  const int G = Hq / Hkv;
+  const size_t smem = smem_bytes<T, HD>(G, bk);
+  if (smem > (size_t)kMaxSmem || device < 0 || device >= 64 ||
+      (size_t)(2 * ns + 1) * G * 4 > (size_t)Geo<T, HD>::kRingBytes)
+    return (int)cudaErrorInvalidValue;
+  if (!(attr_set >> device & 1)) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        fd_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kMaxSmem);
+    if (err != cudaSuccess) return (int)err;
+    attr_set |= 1ull << device;
+  }
+  const long long rows = (long long)B * Hq * ns;
+  float* o_part = part;
+  float* m_part = o_part + rows * HD;
+  float* l_part = m_part + rows;
+  fd_kernel<T, HD><<<dim3(ns, Hkv, B), kThreads, smem, stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, (T*)out, o_part, m_part, l_part,
+      counters, Hq, G, kv_len, bk, ns, st[0], st[1], st[2], st[3], st[4],
+      st[5], st[6], st[7], 1.0f / sqrtf((float)HD));
   return (int)cudaGetLastError();
 }
 
@@ -206,38 +394,57 @@ int launch(const void* q, const void* k, const void* v, void* out,
 
 extern "C" {
 
-// dtype: 0 = f32, 1 = bf16.  ns = ceil(kv_len / bk) splits are launched;
-// o_part [B, Hq, ns, hd], m_part and l_part [B, Hq, ns] are f32 scratch.
-// strides: q (b, h), k (b, t, h), v (b, t, h) in elements.  Launches both
-// phases on `stream`; returns cudaGetLastError() (0 on success), or
-// cudaErrorInvalidValue for a head dim, type or group it does not take.
-int flash_decode_launch(const void* q, const void* k, const void* v,
-                        void* out, void* o_part, void* m_part, void* l_part,
-                        int dtype, int B, int Hq, int Hkv, int hd, int kv_len,
-                        int bk, int ns, long long qsb, long long qsh,
-                        long long ksb, long long kst, long long ksh,
-                        long long vsb, long long vst, long long vsh,
-                        void* stream) {
-  const long long st[8] = {qsb, qsh, ksb, kst, ksh, vsb, vst, vsh};
-  cudaStream_t s = (cudaStream_t)stream;
-  float *op = (float*)o_part, *mp = (float*)m_part, *lp = (float*)l_part;
+// One call, its arguments packed into 24 int64 (one ctypes argument keeps
+// the wrapper's host path short):
+//   a[0..4]   q, k, v, out, work (addresses)
+//   a[5..13]  ncnt, dtype (0 f32, 1 bf16), B, Hq, Hkv, hd, kv_len, bk, ns
+//   a[14..21] strides in elements: q (b, h), k (b, t, h), v (b, t, h)
+//   a[22..23] device, stream
+// ns = ceil(kv_len / bk) splits are launched, one block per (split,
+// kv-head, batch).  `work` is the workspace: `ncnt` int32 counters, zero
+// between launches (the first B * Hkv are used), then f32 partials o [B,
+// Hq, ns, hd], m and l [B, Hq, ns].  k and v rows must be 16-byte
+// aligned; `out` is contiguous [B, Hq * hd].  Launches on the stream of
+// `device` (made current for the launch if it is not); returns
+// cudaGetLastError() (0 on success), or cudaErrorInvalidValue for a head
+// dim, type, group or plan it does not take.
+int flash_decode_launch(const long long* a) {
+  const void *q = (const void*)a[0], *k = (const void*)a[1],
+             *v = (const void*)a[2];
+  void *out = (void*)a[3], *work = (void*)a[4];
+  const int ncnt = (int)a[5], dtype = (int)a[6], B = (int)a[7],
+            Hq = (int)a[8], Hkv = (int)a[9], hd = (int)a[10],
+            kv_len = (int)a[11], bk = (int)a[12], ns = (int)a[13];
+  const long long* st = a + 14;
+  const int device = (int)a[22];
   if (Hkv <= 0 || Hq % Hkv != 0 || Hq / Hkv > kMaxG || kv_len <= 0 ||
-      bk <= 0 || ns != (kv_len + bk - 1) / bk)
+      bk <= 0 || ns != (kv_len + bk - 1) / bk || ncnt < B * Hkv ||
+      ncnt % 4 != 0)
     return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
+  int cur = -1;
+  cudaError_t err = cudaGetDevice(&cur);
+  if (err != cudaSuccess) return (int)err;
+  if (cur != device && (err = cudaSetDevice(device)) != cudaSuccess)
+    return (int)err;
+  cudaStream_t s = (cudaStream_t)a[23];
+  int* cnt = (int*)work;
+  float* part = (float*)(cnt + ncnt);
+  int rc = (int)cudaErrorInvalidValue;
   if (dtype == 0 && hd == 64)
-    return launch<float, 64>(q, k, v, out, op, mp, lp, B, Hq, Hkv, kv_len,
-                             bk, ns, st, s);
-  if (dtype == 0 && hd == 128)
-    return launch<float, 128>(q, k, v, out, op, mp, lp, B, Hq, Hkv, kv_len,
-                              bk, ns, st, s);
-  if (dtype == 1 && hd == 64)
-    return launch<__nv_bfloat16, 64>(q, k, v, out, op, mp, lp, B, Hq, Hkv,
-                                     kv_len, bk, ns, st, s);
-  if (dtype == 1 && hd == 128)
-    return launch<__nv_bfloat16, 128>(q, k, v, out, op, mp, lp, B, Hq, Hkv,
-                                      kv_len, bk, ns, st, s);
-  return (int)cudaErrorInvalidValue;
+    rc = launch<float, 64>(q, k, v, out, cnt, part, B, Hq, Hkv, kv_len, bk,
+                           ns, st, device, s);
+  else if (dtype == 0 && hd == 128)
+    rc = launch<float, 128>(q, k, v, out, cnt, part, B, Hq, Hkv, kv_len, bk,
+                            ns, st, device, s);
+  else if (dtype == 1 && hd == 64)
+    rc = launch<__nv_bfloat16, 64>(q, k, v, out, cnt, part, B, Hq, Hkv,
+                                   kv_len, bk, ns, st, device, s);
+  else if (dtype == 1 && hd == 128)
+    rc = launch<__nv_bfloat16, 128>(q, k, v, out, cnt, part, B, Hq, Hkv,
+                                    kv_len, bk, ns, st, device, s);
+  if (cur != device) cudaSetDevice(cur);
+  return rc;
 }
 
 }  // extern "C"

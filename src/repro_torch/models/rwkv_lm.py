@@ -10,9 +10,9 @@ reference's pytree paths with the layer index spelled out
 Entry points, with the signatures of ``models.lm``: :func:`init`,
 :func:`forward` (teacher-forced logits), :func:`init_decode_state`,
 :func:`prefill` and :func:`decode_step`.  ``impl="kernel"`` (the default)
-sends each layer's multi-token time mix to the ``wkv6`` kernel;
-``impl="dense"`` is the reference's ``impl="xla"`` (the chunked form).  A
-decode step is one token and takes the sequential step under either.
+sends each layer's time mix to the ``wkv6`` kernel, a decode step's
+single token included; ``impl="dense"`` is the reference's ``impl="xla"``
+(the chunked form, and the sequential step for a single token).
 The decode state is ``{"s": [L,B,H,n,n] f32, "x_tm", "xc_tm": [L,B,d]}``
 in the cache type, O(1) in ``max_len``, and written in place.
 ``loss_fn`` waits for the training slice.

@@ -9,12 +9,14 @@ LayerNorm (``gn``) and SiLU(g) output gating.  The channel mix is the
 squared-ReLU RWKV FFN.  ``w0`` and ``u`` stay f32 whatever the
 parameters' type.
 
-``impl`` selects the recurrence of a multi-token time mix, as the
-reference's ``impl`` does: ``"kernel"`` (the reference's ``"pallas"``)
-sends it to ``kernels.rwkv6_scan.wkv6``, ``"dense"`` (the reference's
-``"xla"``) to :func:`wkv_chunked`.  A single token (decode) takes the
-sequential step :func:`wkv_scan` whatever ``impl`` says.  Decode carries
-O(1) state: S [B,H,n,n] and the last normed token of each shift.
+``impl`` selects the recurrence: ``"kernel"`` (the reference's
+``"pallas"``) sends every time mix, the single-token decode step
+included, to ``kernels.rwkv6_scan.wkv6`` (the card's kernel; its plain
+twin on CPU tensors); ``"dense"`` (the reference's ``"xla"``) sends a
+multi-token one to :func:`wkv_chunked` and a single token to the
+sequential step :func:`wkv_scan`, as the reference's ``"xla"`` path does.
+Decode carries O(1) state: S [B,H,n,n] and the last normed token of each
+shift.
 """
 from __future__ import annotations
 
@@ -140,7 +142,7 @@ class RWKVBlock(nn.Module):
         g = self.g(proj["g"])
         lora = self.w2(torch.tanh(self.w1(proj["w"])))
         w = torch.exp(-torch.exp(self.w0 + lora.float())).reshape(B, T, H, n)
-        if T > 1 and impl == "kernel":
+        if impl == "kernel":
             y, sT = wkv6(r, k, v, w, self.u, s0)
         elif T > 1:
             y, sT = wkv_chunked(r, k, v, w, self.u, s0)

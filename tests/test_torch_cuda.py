@@ -210,6 +210,62 @@ def test_flash_decode_masks_a_poisoned_tail(dev):
     assert torch.isfinite(got).all()
 
 
+def _fd_held(q, k, v, kv_len, bk=None):
+    """flash_decode on the card against its twin over the kernel's own
+    splits: one launch a call, two calls bit-identical."""
+    used = fd.plan(q, k, kv_len, bk)
+    before = fd.STATS.launches
+    got = fd.flash_decode(q, k, v, kv_len, bk=bk)
+    again = fd.flash_decode(q, k, v, kv_len, bk=bk)
+    assert fd.STATS.launches == before + 2
+    assert torch.equal(got, again), (kv_len, bk)
+    _close(got, fd.flash_decode_plain(q, k, v, kv_len, bk=used[0]), q.dtype)
+    return used
+
+
+def test_flash_decode_card_plan_at_every_served_kv_len(dev):
+    """The card's plan (bk None) at every kv_len of a 128-token serve of
+    qwen3_8b's heads: at least two blocks per SM, bk a multiple of 64."""
+    q, k, v = _qkv(dev, torch.float32, 4, 1, 1160, 32, 8, 128)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for kv_len in range(1025, 1152):
+        bk, ns = _fd_held(q, k, v, kv_len)
+        assert bk % 64 == 0 and ns * 8 * 4 >= 2 * sms
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kv_len,bk", [(1, None), (64, None), (1160, None),
+                                       (700, 128), (1064, 100), (1160, 512),
+                                       (90, 32)])
+def test_flash_decode_plan_edges(dev, dtype, kv_len, bk):
+    """kv_len 1, one split (ns 1), kv_len = T, a bk that does not divide T,
+    the reference's 512, small splits; f32 and bf16."""
+    q, k, v = _qkv(dev, dtype, 4, 1, 1160, 32, 8, 128)
+    _, ns = _fd_held(q, k, v, kv_len, bk)
+    if kv_len == 64:
+        assert ns == 1
+
+
+def test_flash_decode_poisoned_tail_under_the_card_plan(dev):
+    q, k, v = _qkv(dev, torch.float32, 4, 1, 1160, 32, 8, 128)
+    bk = fd.plan(q, k, 513)[0]
+    want = fd.flash_decode_plain(q, k, v, 513, bk=bk)
+    k[:, 513:], v[:, 513:] = 1e6, -1e6
+    got = fd.flash_decode(q, k, v, 513)
+    assert torch.isfinite(got).all()
+    _close(got, want, torch.float32)
+
+
+def test_flash_decode_raises_on_rows_it_cannot_copy(dev):
+    q, k, v = _qkv(dev, torch.float32, 1, 1, 64, 4, 2, 64)
+    flat = torch.zeros(k.numel() + 1, device=dev)
+    with pytest.raises(ValueError, match="16 bytes"):
+        fd.flash_decode(q, flat[1:].view(k.shape), v, 8)
+    long_k = torch.zeros(1, 600, 2, 64, device=dev)
+    with pytest.raises(ValueError, match="splits"):
+        fd.flash_decode(q, long_k, long_k, 600, bk=1)   # 600 splits
+
+
 def test_kernels_raise_on_what_they_do_not_take(dev):
     q, k, v = _qkv(dev, torch.float32, 1, 8, 8, 2, 2, 32)
     with pytest.raises(ValueError, match="head dim"):
@@ -281,7 +337,7 @@ def _wkv(dev, B, T, H, n, decay="mild", dtype=torch.float32, seed=0):
     (1, 256, 2, 64, 64, "strong", torch.float32),
     (2, 300, 2, 16, 64, "strong", torch.float32),
     (1, 77, 2, 64, 17, "mild", torch.float32),
-    (2, 130, 3, 64, 256, "mild", torch.float32),
+    (2, 130, 3, 64, rk.MAX_CHUNK, "mild", torch.float32),
     (2, 130, 3, 64, 64, "mild", torch.bfloat16)])
 def test_wkv6_kernel_matches_plain(dev, B, T, H, n, chunk, decay, dtype):
     ins = _wkv(dev, B, T, H, n, decay, dtype)
@@ -290,7 +346,23 @@ def test_wkv6_kernel_matches_plain(dev, B, T, H, n, chunk, decay, dtype):
     assert rk.STATS.launches == before + 1
     want_y, want_s = rk.wkv6_plain(*ins)
     torch.testing.assert_close(y, want_y, **WKV_TOL)
-    torch.testing.assert_close(s, want_s, **WKV_TOL)
+    assert torch.equal(s, want_s)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("decay", ["mild", "strong"])
+@pytest.mark.parametrize("T,chunk", [(1, None), (2, None), (33, 16),
+                                     (65, 32), (7, 3), (200, None)])
+def test_wkv6_decode_step_and_double_buffer_edges(dev, dtype, decay, T,
+                                                  chunk):
+    """T 1 (the decode step), T 2 and T 2 x chunk + 1 (the third tile
+    refills the first buffer): sT bit-equal to the twin, y within the
+    sweep's limit."""
+    ins = _wkv(dev, 4, T, 5, 64, decay, dtype)
+    y, s = rk.wkv6(*ins, chunk=chunk)
+    want_y, want_s = rk.wkv6_plain(*ins)
+    assert torch.equal(s, want_s)
+    torch.testing.assert_close(y, want_y, **WKV_TOL)
 
 
 def test_wkv6_reads_strided_inputs(dev):
@@ -300,8 +372,8 @@ def test_wkv6_reads_strided_inputs(dev):
     uv = torch.stack([u, u], 1)[:, 0]             # non-contiguous u
     got = rk.wkv6(*rkvw.unbind(3), uv, sv)
     want = rk.wkv6_plain(r, k, v, w, u, s0)
-    for g, want_t in zip(got, want):
-        torch.testing.assert_close(g, want_t, **WKV_TOL)
+    torch.testing.assert_close(got[0], want[0], **WKV_TOL)
+    assert torch.equal(got[1], want[1])
 
 
 def test_wkv6_raises_on_what_it_does_not_take(dev):
@@ -317,13 +389,16 @@ def test_wkv6_raises_on_what_it_does_not_take(dev):
         rk.wkv6(r, k, v.cpu(), w, u, s0)
     with pytest.raises(ValueError, match="chunk"):
         rk.wkv6(r, k, v, w, u, s0, chunk=rk.MAX_CHUNK + 1)
+    flat = torch.zeros(r.numel() + 1, device=dev)
+    with pytest.raises(ValueError, match="16 bytes"):
+        rk.wkv6(flat[1:].view(r.shape), k, v, w, u, s0)
 
 
 def test_rwkv_kernel_path_matches_dense_path_on_card(dev):
-    """The reduced rwkv6_3b: forward through wkv6 and prefill through it
-    then decode by the sequential step agree with the dense (chunked) path
-    and with the forward (f32; 2e-4 relative to the logits' scale, the
-    reference's own model tolerance)."""
+    """The reduced rwkv6_3b: forward through wkv6, and prefill then decode
+    steps through it, agree with the dense path (chunked, then the
+    sequential step) and with the forward (f32; 2e-4 relative to the
+    logits' scale, the reference's own model tolerance)."""
     cfg = get_config("rwkv6_3b", reduced=True)
     model = rwkv_lm.init(cfg, seed=0, dtype=torch.float32, device=dev)
     toks = torch.as_tensor(np.random.default_rng(0).integers(
@@ -346,8 +421,37 @@ def test_rwkv_kernel_path_matches_dense_path_on_card(dev):
                                          impl=impl)
             seq.append(lg)
         outs[impl] = torch.cat(seq, 1)
-    assert rk.STATS.launches == cfg.n_layers        # the kernel's prefill
+    assert rk.STATS.launches == 11 * cfg.n_layers   # prefill + 10 steps
     torch.testing.assert_close(outs["kernel"], outs["dense"], rtol=0,
                                atol=tol)
     torch.testing.assert_close(outs["kernel"], got[:, 119:], rtol=0,
+                               atol=tol)
+
+
+def test_rwkv6_3b_width_decode_step_on_card(dev):
+    """rwkv6_3b at full width (2 of its 32 layers): from one prefilled
+    state, a decode step through wkv6 (one launch a layer) equals the dense
+    path's sequential step within 2e-4 of the logits' scale, and leaves a
+    bit-equal recurrent state in the first layer."""
+    cfg = dataclasses.replace(get_config("rwkv6_3b"), n_layers=2)
+    model = rwkv_lm.init(cfg, seed=0, dtype=torch.float32, device=dev)
+    toks = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab, (4, 9)), device=dev)
+    _, st = rwkv_lm.prefill(model, {"tokens": toks[:, :8]}, 16,
+                            cache_dtype=torch.float32)
+    out = {}
+    for impl in ("kernel", "dense"):
+        mine = {key: a.clone() for key, a in st.items()}
+        rk.reset_launches()
+        lg, mine = rwkv_lm.decode_step(model, mine, {"tokens": toks[:, 8:]},
+                                       impl=impl)
+        out[impl] = (lg, mine["s"], rk.STATS.launches)
+    assert out["kernel"][2] == cfg.n_layers and out["dense"][2] == 0
+    # layer 0 sees the same inputs on both paths; later layers see inputs
+    # that differ by the order of y's sum
+    assert torch.equal(out["kernel"][1][0], out["dense"][1][0])
+    torch.testing.assert_close(out["kernel"][1], out["dense"][1],
+                               rtol=2e-4, atol=2e-4)
+    tol = 2e-4 * float(out["dense"][0].abs().max())
+    torch.testing.assert_close(out["kernel"][0], out["dense"][0], rtol=0,
                                atol=tol)
