@@ -12,9 +12,15 @@ Phases, each of which raises on failure (the script then exits non-zero):
    tensor-core attention kernel's setmaxnreg split), and a probe kernel
    launches;
 3. kernel against its plain version: ``fusion_eval`` and
-   ``fusion_eval_grid_stats_plain`` on the same card inputs (every zoo part
-   serving an edge packing, so the BPE rescale runs; the main path's
-   P=64 x pop 40 grid and a population of 133), bit for bit;
+   ``fusion_eval_plain`` on the same card inputs (every zoo part serving
+   an edge packing, so the BPE rescale runs, at pop 40 and 133, and the
+   nets of at most 18 layers so packed at nmax 32 and 19, one chunk of
+   32 positions; the main path's P=64 grid at pop 1, 36 and 40), in each
+   form (cost, stats, raw), every output bit for bit, CostOut included;
+   then each form timed by its device time a call (``device_ms``) against
+   its own bound, and the host time a call of ``evaluate_grid`` and
+   ``evaluate_grid_stats`` (``host_us``), also with the input check's
+   cache emptied before each call;
 4. G-Sampler on the card: the paper's config over 120 conditions (6 CNNs
    x 5 parts x 4 budgets, batch 64, nmax 64), through the kernel;
 5. DT one shot on the card: a full-width, hw-conditioned DT with seeded
@@ -93,6 +99,8 @@ H100_BYTES_PER_S = 3.35e12      # HBM3, H100 SXM data sheet
 H100_F32_OPS_PER_S = 67e12      # f32 outside the tensor cores
 H100_BF16_OPS_PER_S = 989e12    # bf16 on the tensor cores, dense
 FE_OPS_PER_POSITION = 48        # f32 operations of one live (candidate, pos)
+FE_POPS = (1, 36, 40)           # the naive search and re-score, repair, GA
+MB = 2.0 ** 20
 ARCH = "qwen3_8b"
 RWKV = "rwkv6_3b"
 SCORE_B, SCORE_S = 2, 4096
@@ -191,13 +199,17 @@ def host_us(fn, reps: int) -> float:
     return (t1 - t0) / reps * 1e6
 
 
-def fe_bound_ms(C: int, POP: int, P: int, live_positions: int):
-    """Least time for one fusion_eval call: each input read once, each
-    output written once, over HBM; f32 operations over the f32 peak."""
+def fe_bound_ms(C: int, POP: int, P: int, live_positions: int, form):
+    """Least time for one fusion_eval call in ``form``: the strategies, the
+    layer table, the per-condition scalars and hw rows read once, the
+    CostOut and the form's group matrices (none, gid and M_g, or all
+    seven) written once, over HBM; f32 operations over the f32 peak."""
+    mats = (0, 2, 7)[int(form)]
     bytes_ = (C * POP * P * 4                    # strategies
               + C * P * (5 * 4 + 4)              # A W F OE UC, SKIP
-              + C * (4 + 4 + 4 + 10 * 4)         # n, batch, BPE, hw row
-              + 7 * C * POP * P * 4)             # six f32 + gid outputs
+              + C * (4 * 4 + 10 * 4)             # n, batch, BPE, budget, hw
+              + C * POP * (3 * 4 + 1 + 4)        # CostOut
+              + mats * C * POP * P * 4)          # the form's matrices
     ops = POP * live_positions * FE_OPS_PER_POSITION
     t_bytes = bytes_ / H100_BYTES_PER_S * 1e3
     t_ops = ops / H100_F32_OPS_PER_S * 1e3
@@ -822,9 +834,9 @@ def main() -> int:
     wls = {n: CNN_ZOO[n]() for n in names}
     rng = np.random.default_rng(0)
 
-    def population(n_rows, pop):
+    def population(n_rows, pop, nmax=NMAX):
         return torch.as_tensor(np.stack([
-            np.stack([cm.random_strategy(rng, int(k), NMAX, BATCH,
+            np.stack([cm.random_strategy(rng, int(k), nmax, BATCH,
                                          p_sync=0.1 + 0.6 * (j % 5) / 4)
                       for j in range(pop)]) for k in n_rows]), device=dev)
 
@@ -834,43 +846,89 @@ def main() -> int:
         for n in names for _ in parts])
     edge_hw = [accel.ACCEL_ZOO[p] for _ in names for p in parts]
     edge_n = [wls[n].n for n in names for _ in parts]
-    cases = [("zoo-served-edge-pack pop40", edge_packed, edge_hw, edge_n, 40),
+    edge_budgets = torch.tensor([BUDGETS_MB[i % len(BUDGETS_MB)] * MB
+                                 for i in range(len(edge_n))], device=dev)
+    batches_t = torch.as_tensor(batches, device=dev)
+    budgets_t = torch.as_tensor(budgets, device=dev)
+    hwv = accel.stack_hw(hws, C, dev)
+    cases = [("zoo-served-edge-pack pop40", edge_packed, edge_hw, edge_n,
+              edge_budgets, 40),
              ("zoo-served-edge-pack pop133", edge_packed, edge_hw, edge_n,
-              133),
-             ("main-path grid pop40", packed, hws, n_of, 40)]
+              edge_budgets, 133)] + [
+        (f"main-path grid pop{pop}", packed, hwv, n_of, budgets_t, pop)
+        for pop in FE_POPS]
+    for nmax in (32, 19):               # one chunk; resnet18 at n = P - 1
+        small = [n for n in names if wls[n].n < nmax]
+        cases.append((f"small-nets-edge-pack nmax{nmax} pop40",
+                      cm.stack_workloads([cm.pack_workload(
+                          wls[n], accel.ACCEL_ZOO["edge"], nmax, device=dev)
+                          for n in small for _ in parts]),
+                      [accel.ACCEL_ZOO[p] for _ in small for p in parts],
+                      [wls[n].n for n in small for _ in parts],
+                      edge_budgets[:len(small) * len(parts)], 40))
     max_err = 0.0
-    main_args = None
-    for label, wl_rows, hw_rows, n_rows, pop in cases:
-        strat = population(n_rows, pop)
-        Cc = strat.shape[0]
+    main_args = {}
+    for label, wl_rows, hw_rows, n_rows, budg, pop in cases:
+        strat = population(n_rows, pop, wl_rows["A"].shape[1])
+        Cc, _, P = strat.shape
         args = fe.kernel_args(wl_rows, strat,
                               torch.full((Cc,), float(BATCH), device=dev),
                               hw_rows)
-        got = fe.fusion_eval_raw(*args)
-        want = fe.fusion_eval_grid_stats_plain(*args)
-        torch.cuda.synchronize()
-        mask = wl_rows["mask"][:, None, :].expand_as(got[6])
-        check(torch.equal(got[6][mask], want[6][mask]),
-              f"{label}: gid differs under the mask")
-        check(torch.equal(got[5], want[5]), f"{label}: glen differs")
-        errs = [float((g - w).abs().max()) for g, w in zip(got[:5], want[:5])]
-        max_err = max(max_err, *errs)
-        for nm, g, w in zip(("C_g", "T_g", "O_g", "M_g", "wave_g"), got, want):
-            check(torch.equal(g, w), f"{label}: {nm} not bit-equal to the "
-                  f"plain version (max abs err {float((g - w).abs().max())})")
-        print(f"[3/13] kernel == plain on {label} [{Cc}x{pop}x{NMAX}]: "
-              f"bit-equal (max abs err {max(errs)})")
+        mask = wl_rows["mask"][:, None, :].expand_as(strat)
+        for form in fe.Form:
+            got = fe.fusion_eval(form, args, budg)
+            want = fe.fusion_eval_plain(form, *args, budg)
+            torch.cuda.synchronize()
+            for k in want[0]._fields:
+                g, w = getattr(got[0], k), getattr(want[0], k)
+                if g.is_floating_point():
+                    max_err = max(max_err, float((g - w).abs().max()))
+                check(torch.equal(g, w), f"{label} {form.name}: CostOut.{k} "
+                      f"not bit-equal to the plain version")
+            for j, (g, w) in enumerate(zip(got[1:], want[1:])):
+                if g.dtype == torch.int32:
+                    check(torch.equal(g[mask], w[mask]), f"{label} "
+                          f"{form.name}: gid differs under the mask")
+                    continue
+                max_err = max(max_err, float((g - w).abs().max()))
+                check(torch.equal(g, w), f"{label} {form.name}: group "
+                      f"matrix {j} not bit-equal to the plain version")
+        raw = fe.fusion_eval_raw(*args)
+        check(all(torch.equal(g, w) for g, w in zip(raw[:6], want[1:7])),
+              f"{label}: fusion_eval_raw differs from the raw form")
+        print(f"[3/13] kernel == plain on {label} [{Cc}x{pop}x{P}], "
+              f"forms cost, stats, raw: bit-equal, CostOut included")
         if label.startswith("main-path"):
-            main_args = args
-    tiny_args = (main_args[0][:1, :1],) + tuple(a[:1] for a in main_args[1:])
-    k_ms = time_ms(lambda: fe.fusion_eval_raw(*main_args), 200)
-    p_ms = time_ms(lambda: fe.fusion_eval_grid_stats_plain(*main_args), 20)
-    launch_ms = time_ms(lambda: fe.fusion_eval_raw(*tiny_args), 200)
+            main_args[pop] = args
     live = int(n_of.sum())
-    bound_ms, bound_by, nbytes = fe_bound_ms(C, 40, NMAX, live)
-    print(f"      fusion_eval at [{C}x40x{NMAX}]: kernel {k_ms:.4f} ms, "
-          f"plain {p_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}, "
-          f"{nbytes} bytes); one-candidate call {launch_ms:.4f} ms")
+    fe_ms = {}
+    for pop in FE_POPS:
+        for form in fe.Form:
+            ms = device_ms(lambda: fe.fusion_eval(form, main_args[pop],
+                                                  budgets_t), 200)
+            bound, by, nbytes = fe_bound_ms(C, pop, NMAX, live, form)
+            fe_ms[(form, pop)] = (ms, bound, by)
+            print(f"      fusion_eval {form.name.lower()} form at "
+                  f"[{C}x{pop}x{NMAX}]: {ms * 1e3:.3f} us of device time, "
+                  f"bound {bound * 1e3:.3f} us ({by}, {nbytes} bytes), "
+                  f"{bound / ms:.3f} of it; tile "
+                  f"{fe.tile_for(C, pop, NMAX, _build.sm_count(0))}")
+    s36, s40 = main_args[36][0], main_args[40][0]
+    grid40 = lambda: cm.evaluate_grid(packed, s40, batches_t, budgets_t, hwv)
+    stats36 = lambda: cm.evaluate_grid_stats(packed, s36, batches_t,
+                                             budgets_t, hwv)
+    fe_host = {
+        "evaluate_grid pop40": host_us(grid40, 300),
+        "evaluate_grid_stats pop36": host_us(stats36, 300),
+        "evaluate_grid pop40, check uncached": host_us(
+            lambda: (fe._CHECKED.clear(), grid40()), 300),
+        "evaluate_grid_stats pop36, check uncached": host_us(
+            lambda: (fe._CHECKED.clear(), stats36()), 300)}
+    fe_plain = time_ms(lambda: fe.fusion_eval_plain(
+        fe.Form.STATS, *main_args[36], budgets_t), 5)
+    print(f"      fusion_eval host us a call: " + ", ".join(
+        f"{k} {v:.2f}" for k, v in fe_host.items()) +
+        f"; plain twin, stats form at [{C}x36x{NMAX}]: {fe_plain:.3f} ms")
 
     # -- 4. G-Sampler on the card -------------------------------------------
     cfg = gs.GSamplerConfig()
@@ -964,8 +1022,13 @@ def main() -> int:
          "source": f"{csrc}/fusion_eval.cu",
          "replaces": "src/repro/kernels/fusion_eval.py:57",
          "launches": gs_launches + dt_launches, "max_abs_err": max_err,
-         "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms,
-         "bound_by": bound_by, "library_ms": None},
+         "ms": fe_ms[(fe.Form.STATS, 36)][0], "plain_ms": fe_plain,
+         "bound_ms": fe_ms[(fe.Form.STATS, 36)][1],
+         "bound_by": fe_ms[(fe.Form.STATS, 36)][2], "library_ms": None,
+         "form": "stats", "shape": [C, 36, NMAX],
+         "forms": {f"{f.name.lower()} pop{p}": {"ms": v[0], "bound_ms": v[1]}
+                   for (f, p), v in fe_ms.items()},
+         "host_us": fe_host},
         {"name": "flash_attention", "route": "cuda",
          "source": f"{csrc}/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:27",

@@ -90,24 +90,39 @@ def _scaled_AW(wl: dict, hw: torch.Tensor):
 
 def finalize_groups(C_g, T_g, O_g, M_g, wave_g, glen, budget_bytes,
                     hw) -> CostOut:
-    """Per-group decomposition -> CostOut, reducing the trailing group axis.
+    """Per-group decomposition -> CostOut, reducing the trailing group axis
+    in group order.
 
+    The reference's ``finalize_groups`` with its sums and max taken column
+    by column from 0 over the closed groups (``glen > 0``), the order in
+    which the ``fusion_eval`` kernel reduces in its launch, so the two
+    agree bit for bit; an empty column adds exactly 0 in the reference.
     ``hw`` is a ``[..., 10]`` tensor whose leading axes broadcast against
     the group arrays' (``[C, 1, 10]`` for ``[C, POP, P]`` grids), and
     ``budget_bytes`` broadcasts against the result (``[C, 1]``)."""
     nonempty = glen > 0.0
-    peak_mem = torch.amax(torch.where(nonempty, M_g, 0.0), dim=-1)
     fill_g = wave_g * _col(hw, T_PASS) + nonempty.float() * _col(hw, T_SYNC)
     L_g = torch.maximum(torch.maximum(C_g, T_g / _col(hw, BW_OFF)),
                         O_g / _col(hw, BW_ON)) + fill_g
-    latency = torch.sum(L_g, dim=-1)
-    traffic = torch.sum(T_g, dim=-1)
+    L_g = torch.where(nonempty, L_g, 0.0)
+    T_g = torch.where(nonempty, T_g, 0.0)
+    M_g = torch.where(nonempty, M_g, 0.0)
+    latency = traffic = peak_mem = torch.zeros(L_g.shape[:-1],
+                                               device=L_g.device)
+    for g in range(L_g.shape[-1]):
+        latency = latency + L_g[..., g]
+        traffic = traffic + T_g[..., g]
+        peak_mem = torch.maximum(peak_mem, M_g[..., g])
     n_groups = torch.sum(nonempty, dim=-1).to(torch.int32)
     valid = peak_mem <= budget_bytes
     return CostOut(latency, peak_mem, traffic, valid, n_groups)
 
 
 def _as_strategies(strategies, like: torch.Tensor) -> torch.Tensor:
+    if isinstance(strategies, torch.Tensor) and \
+            strategies.dtype is torch.int32 and strategies.is_contiguous() \
+            and strategies.get_device() == like.get_device():
+        return strategies
     return torch.as_tensor(strategies, device=like.device).to(
         torch.int32).contiguous()
 
@@ -120,38 +135,44 @@ def evaluate_grid_stats(wls: dict, strategies, batches, budgets, hw):
     """``(CostOut [C, POP], gid [C, POP, P], M_g [C, POP, P])`` of
     per-condition populations ``strategies`` [C, POP, P] over stacked
     workloads, per-condition ``batches``/``budgets`` [C] and hardware
-    (anything ``accel.stack_hw`` accepts)."""
+    (anything ``accel.stack_hw`` accepts): one ``fusion_eval`` launch on
+    the card."""
     from ..kernels.fusion_eval import fusion_eval_grid_stats
-    s = _as_strategies(strategies, wls["A"])
-    return fusion_eval_grid_stats(wls, s, _as_f32(batches, s),
-                                  _as_f32(budgets, s), hw)
+    return fusion_eval_grid_stats(wls, _as_strategies(strategies, wls["A"]),
+                                  batches, budgets, hw)
 
 
 def evaluate_grid(wls: dict, strategies, batches, budgets, hw) -> CostOut:
-    """CostOut [C, POP]; see :func:`evaluate_grid_stats`."""
-    out, _, _ = evaluate_grid_stats(wls, strategies, batches, budgets, hw)
-    return out
+    """CostOut [C, POP]; see :func:`evaluate_grid_stats` (the launch writes
+    no group matrix)."""
+    from ..kernels.fusion_eval import fusion_eval_grid
+    return fusion_eval_grid(wls, _as_strategies(strategies, wls["A"]),
+                            batches, budgets, hw)
 
 
 def _lift(wl: dict) -> dict:
     return {k: v.unsqueeze(0) for k, v in wl.items()}
 
 
+def _one(wl: dict, strategies, batch, budget_bytes, hw) -> tuple:
+    """One packed workload's population as a one-condition grid."""
+    s = _as_strategies(strategies, wl["A"])
+    return (_lift(wl), s[None], _as_f32(batch, s).reshape(1),
+            _as_f32(budget_bytes, s).reshape(1), stack_hw(hw, 1, s.device))
+
+
 def evaluate_population_stats(wl: dict, strategies, batch, budget_bytes, hw):
     """Single-condition form: ``(CostOut [pop], gid [pop, P], M_g [pop, P])``."""
-    s = _as_strategies(strategies, wl["A"])
-    out, gid, M_g = evaluate_grid_stats(
-        _lift(wl), s[None], _as_f32(batch, s).reshape(1),
-        _as_f32(budget_bytes, s).reshape(1), stack_hw(hw, 1, s.device))
+    out, gid, M_g = evaluate_grid_stats(*_one(wl, strategies, batch,
+                                              budget_bytes, hw))
     return CostOut(*(x[0] for x in out)), gid[0], M_g[0]
 
 
 def evaluate_population(wl: dict, strategies, batch, budget_bytes,
                         hw) -> CostOut:
     """CostOut [pop] of strategies [pop, P] against one packed workload."""
-    out, _, _ = evaluate_population_stats(wl, strategies, batch,
-                                          budget_bytes, hw)
-    return out
+    out = evaluate_grid(*_one(wl, strategies, batch, budget_bytes, hw))
+    return CostOut(*(x[0] for x in out))
 
 
 def evaluate(wl: dict, strategy, batch, budget_bytes, hw) -> CostOut:

@@ -4,7 +4,7 @@ One module per kernel, each holding its wrapper, its plain twin and its
 launch count:
 
 - ``fusion_eval`` (``csrc/fusion_eval.cu``) replaces the reference's
-  Pallas ``_fe_kernel``;
+  Pallas ``_fe_kernel`` and the CostOut reduction after it;
 - ``flash_attention`` (``csrc/flash_attention.cu``) its ``_fa_kernel``;
 - ``flash_decode`` (``csrc/flash_decode.cu``) its ``_fd_kernel`` and the
   merge after it;

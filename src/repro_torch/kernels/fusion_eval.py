@@ -1,40 +1,66 @@
 """Population fusion-strategy evaluation: the G-Sampler's hot loop.
 
-Port of ``repro.kernels.fusion_eval`` (the Pallas ``_fe_kernel``).  The
-kernel is ``csrc/fusion_eval.cu``: one CUDA block per (condition, tile of
-``THREADS`` candidates), one thread per candidate strategy, sweeping the
-chain positions in order and writing each fused group to its column as it
-closes.  It emits the per-group decomposition ``C_g, T_g, O_g, M_g,
-wave_g, glen`` (f32) and ``gid`` (i32), each ``[C, POP, P]``; the CostOut
-reduction runs outside it, through ``cost_model.finalize_groups``.
+Port of ``repro.kernels.fusion_eval`` (the Pallas ``_fe_kernel`` and the
+CostOut reduction that follows it in the reference's jit).  The kernel is
+``csrc/fusion_eval.cu``: one CUDA block per (condition, tile of
+candidates), the per-position terms computed position-parallel, the group
+sums and the CostOut reduction walked in order by one thread a candidate.
+Each launch writes the CostOut ``[C, POP]`` of every candidate, and the
+group matrices only where its :class:`Form` asks: none (``COST``), ``gid``
+and ``M_g`` (``STATS``, what the repair reads) or all seven ``C_g, T_g,
+O_g, M_g, wave_g, glen`` (f32) and ``gid`` (i32), each ``[C, POP, P]``
+(``RAW``).
 
-:func:`fusion_eval_grid_stats_plain` is the same sweep in plain PyTorch,
-vectorised over ``[C, POP]``: the kernel's oracle on the card and its path
-on the CPU.  It writes each closed group with ``scatter_`` at a distinct
-column per lane (no ``index_add_``/``scatter_add_``, whose CUDA atomics
-sum in no fixed order) and repeats the kernel's operation order, so the
-two agree bit for bit on the card.  The wrappers take the plain path only
-for tensors on the CPU; for CUDA tensors they launch the kernel or raise.
+:func:`fusion_eval_plain` is the same function in plain PyTorch, vectorised
+over ``[C, POP]``: the kernel's oracle on the card and its path on the CPU.
+Its sweep writes each closed group with ``scatter_`` at a distinct column
+per lane (no ``index_add_``/``scatter_add_``, whose CUDA atomics sum in no
+fixed order), and its CostOut is ``cost_model.finalize_groups``, which
+sums the groups in group order as the kernel does; every expression keeps
+the kernel's operation order, so the two agree bit for bit on the card.
+The wrappers take the plain path only for tensors on the CPU; for CUDA
+tensors they launch the kernel or raise.
+
+The main path's entries, :func:`fusion_eval_grid` and
+:func:`fusion_eval_grid_stats`, check their inputs once per input
+signature (the identity of the packed table, batch, budget and hw
+tensors, and the strategies' shape and device), allocate the form's
+outputs and pass one packed argument to the launch: no host sync, no read
+of a tensor's values.
 """
 from __future__ import annotations
 
+import array
 import ctypes
+import enum
+import functools
+import operator
 
 import torch
 
 from . import _build
 from ..core.accel import BPE, FREQ, HW_FEATURE_DIM, LANES, NPE, STREAM, \
-    stack_hw
+    AccelConfig, stack_hw
+from ..core.cost_model import CostOut, finalize_groups
 
-__all__ = ["fusion_eval_grid", "fusion_eval_grid_stats",
-           "fusion_eval_grid_stats_plain", "fusion_eval_raw", "kernel_args",
-           "compiled_backend_supported", "backend_stats", "reset_launches",
-           "THREADS"]
+__all__ = ["Form", "fusion_eval", "fusion_eval_plain", "fusion_eval_grid",
+           "fusion_eval_grid_stats", "fusion_eval_raw", "kernel_args",
+           "tile_for", "smem_bytes", "compiled_backend_supported",
+           "backend_stats", "reset_launches", "MAX_TILE", "SMEM_LIMIT"]
 
-THREADS = 128                     # candidates per CUDA block (fixed tile)
+MAX_TILE = 32                     # candidates a block at most
+SMEM_LIMIT = 227 * 1024           # shared memory a block may take (H100)
 SOURCE = "fusion_eval"            # csrc/fusion_eval.cu
 _UTIL_MIN = 1.0 / 4096.0
 _KERNEL_KEYS = ("A", "W", "F", "OE", "UC", "SKIP", "n", "BPE")
+
+
+class Form(enum.IntEnum):
+    """Which group matrices a call writes besides the CostOut."""
+
+    COST = 0    # none: the GA's evaluation, the naive search, the re-score
+    STATS = 1   # gid and M_g: what the repair reads
+    RAW = 2     # C_g, T_g, O_g, M_g, wave_g, glen and gid
 
 
 class _Stats:
@@ -63,11 +89,11 @@ def backend_stats() -> dict:
 def _lib() -> ctypes.CDLL:
     lib = _build.load(SOURCE)
     if not getattr(lib, "_argtypes_set", False):
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.fusion_eval_launch.argtypes = [vp] * 18 + [ci] * 4 + [vp]
-        lib.fusion_eval_launch.restype = ci
-        lib.fusion_eval_probe.argtypes = [vp, ci, vp]
-        lib.fusion_eval_probe.restype = ci
+        lib.fusion_eval_launch.argtypes = [ctypes.c_void_p]
+        lib.fusion_eval_launch.restype = ctypes.c_int
+        lib.fusion_eval_probe.argtypes = [ctypes.c_void_p, ctypes.c_int,
+                                          ctypes.c_void_p]
+        lib.fusion_eval_probe.restype = ctypes.c_int
         lib._argtypes_set = True
     return lib
 
@@ -92,6 +118,29 @@ def compiled_backend_supported() -> bool:
     return True
 
 
+def smem_bytes(P: int, tile: int) -> int:
+    """Shared memory of one block (``smem_bytes`` in the source)."""
+    return 4 * (6 * P + tile * P + 12 * tile * (P + 1)
+                + tile * (-(-P // 32)) + tile + 8)
+
+
+@functools.lru_cache(maxsize=1024)
+def tile_for(C: int, POP: int, P: int, sms: int) -> int:
+    """Candidates a block: the largest power of two up to ``MAX_TILE`` (and
+    POP rounded up) whose grid still gives every SM four blocks, so a small
+    population spreads over the card; then halved until the block's shared
+    memory fits."""
+    tile = min(MAX_TILE, 1 << max(POP - 1, 0).bit_length())
+    while tile > 1 and C * -(-POP // tile) < 4 * sms:
+        tile //= 2
+    while tile > 1 and smem_bytes(P, tile) > SMEM_LIMIT:
+        tile //= 2
+    if smem_bytes(P, tile) > SMEM_LIMIT:
+        raise ValueError(f"fusion_eval: P {P} needs more shared memory than "
+                         f"a block has")
+    return tile
+
+
 def _check(name: str, t, dtype, shape, device) -> None:
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"fusion_eval: {name} must be a tensor")
@@ -108,9 +157,10 @@ def _check(name: str, t, dtype, shape, device) -> None:
         raise ValueError(f"fusion_eval: {name} must be contiguous")
 
 
-def kernel_args(wls: dict, strategies, batches, hw):
-    """Validated kernel inputs: (strategies, A, W, F, OE, UC, SKIP, n,
-    batches, BPE, hw rows)."""
+def _table(wls: dict, strategies, batches, budgets, hw) -> tuple:
+    """Checked per-condition inputs of strategies [C, POP, P]: (A, W, F,
+    OE, UC, SKIP, n, batches, BPE, hw rows, budgets); ``budgets`` None
+    leaves them out."""
     missing = [k for k in _KERNEL_KEYS if k not in wls]
     if missing:
         raise KeyError(f"packed workload missing {missing}; pack with "
@@ -120,47 +170,113 @@ def kernel_args(wls: dict, strategies, batches, hw):
                          "tensor")
     C, POP, P = strategies.shape
     dev = strategies.device
-    batches = torch.as_tensor(batches, dtype=torch.float32, device=dev)
-    hwr = stack_hw(hw, C, device=dev)
     f32, i32 = torch.float32, torch.int32
+    batches = torch.as_tensor(batches, dtype=f32, device=dev)
+    hwr = stack_hw(hw, C, device=dev)
     _check("strategies", strategies, i32, (C, POP, P), dev)
-    args = [strategies]
     for k in ("A", "W", "F", "OE", "UC"):
         _check(k, wls[k], f32, (C, P), dev)
-        args.append(wls[k])
     _check("SKIP", wls["SKIP"], i32, (C, P), dev)
     _check("n", wls["n"], i32, (C,), dev)
     _check("batches", batches, f32, (C,), dev)
     _check("BPE", wls["BPE"], f32, (C,), dev)
     _check("hw", hwr, f32, (C, HW_FEATURE_DIM), dev)
-    return (*args, wls["SKIP"], wls["n"], batches, wls["BPE"], hwr)
+    out = (wls["A"], wls["W"], wls["F"], wls["OE"], wls["UC"], wls["SKIP"],
+           wls["n"], batches, wls["BPE"], hwr)
+    if budgets is None:
+        return out
+    budgets = torch.as_tensor(budgets, dtype=f32, device=dev)
+    _check("budgets", budgets, f32, (C,), dev)
+    return out + (budgets,)
 
 
-def _launch(strat, A, W, F, OE, UC, SKIP, n, batch, bpe, hw):
+def kernel_args(wls: dict, strategies, batches, hw):
+    """Validated kernel inputs: (strategies, A, W, F, OE, UC, SKIP, n,
+    batches, BPE, hw rows)."""
+    return (strategies, *_table(wls, strategies, batches, None, hw))
+
+
+# Inputs already checked, by the identity of what the caller passed: an
+# entry holds those objects, so their ids stay theirs while it lives.
+_CHECKED: dict[tuple, tuple] = {}
+_CHECKED_MAX = 64
+
+
+def _inputs(wls: dict, strategies, batches, budgets, hw) -> tuple:
+    """The kernel's 12 inputs, checked in one pass the first time a
+    signature is seen: strategies an int32 contiguous [C, POP, P] tensor
+    with the same table, batch, budget and hw objects at the same C, P and
+    device.  Only inputs taken as they are (no conversion) are remembered,
+    with an AccelConfig for ``hw``, which is frozen; a list is checked on
+    every call, since it may change in place."""
+    s = strategies
+    key = None
+    if isinstance(s, torch.Tensor) and s.dtype is torch.int32 \
+            and s.dim() == 3 and s.is_contiguous():
+        key = (id(wls), id(batches), id(budgets), id(hw), s.shape[0],
+               s.shape[2], s.get_device())
+        hit = _CHECKED.get(key)
+        if hit is not None and hit[0] is wls and all(
+                map(operator.is_, map(wls.get, _KERNEL_KEYS), hit[1])):
+            return (s, *hit[2])
+    table = _table(wls, s, batches, budgets, hw)
+    if key is not None and table[7] is batches and table[10] is budgets \
+            and (table[9] is hw or isinstance(hw, AccelConfig)):
+        if len(_CHECKED) >= _CHECKED_MAX:
+            _CHECKED.clear()
+        _CHECKED[key] = (wls, tuple(wls[k] for k in _KERNEL_KEYS), table,
+                         batches, budgets, hw)
+    return (s, *table)
+
+
+def _launch(form: Form, strat, A, W, F, OE, UC, SKIP, n, batch, bpe, hw,
+            budget):
     C, POP, P = strat.shape
-    outs = [torch.empty((C, POP, P), dtype=torch.float32, device=strat.device)
-            for _ in range(6)]
-    gid = torch.empty((C, POP, P), dtype=torch.int32, device=strat.device)
+    dev = strat.device
+    index = strat.get_device()
+    if index != torch.cuda.current_device():
+        raise ValueError(f"fusion_eval: strategies on {dev}, but the current "
+                         f"device is cuda:{torch.cuda.current_device()}")
+    # one f32 buffer for the CostOut's numbers (n_groups viewed as int32)
+    # and one for the form's matrices (gid viewed as int32), plus the flags
+    lat, peak, traf, ng = torch.empty((4, C, POP), dtype=torch.float32,
+                                      device=dev).unbind(0)
+    cost = CostOut(lat, peak, traf,
+                   torch.empty((C, POP), dtype=torch.bool, device=dev),
+                   ng.view(torch.int32))
+    if form == Form.COST:
+        outs, ptrs = (cost,), (0,) * 7
+    else:
+        mats = torch.empty((2 if form == Form.STATS else 7, C, POP, P),
+                           dtype=torch.float32, device=dev).unbind(0)
+        gid = mats[-1].view(torch.int32)
+        if form == Form.STATS:
+            outs = (cost, gid, mats[0])
+            ptrs = (gid.data_ptr(), 0, 0, 0, mats[0].data_ptr(), 0, 0)
+        else:
+            outs = (cost, *mats[:6], gid)
+            ptrs = (gid.data_ptr(), *(t.data_ptr() for t in mats[:6]))
     if C == 0 or POP == 0 or P == 0:
-        return (*outs, gid)
-    lib = _lib()
-    ptrs = [t.data_ptr() for t in (strat, A, W, F, OE, UC, SKIP, n, batch,
-                                   bpe, hw, *outs, gid)]
-    with torch.cuda.device(strat.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.fusion_eval_launch(*ptrs, C, POP, P, THREADS, stream)
+        return outs
+    tile = tile_for(C, POP, P, _build.sm_count(index))
+    args = array.array("q", (
+        strat.data_ptr(), A.data_ptr(), W.data_ptr(), F.data_ptr(),
+        OE.data_ptr(), UC.data_ptr(), SKIP.data_ptr(), n.data_ptr(),
+        batch.data_ptr(), bpe.data_ptr(), hw.data_ptr(), budget.data_ptr(),
+        *(t.data_ptr() for t in cost), *ptrs, C, POP, P, tile,
+        torch._C._cuda_getCurrentRawStream(index)))
+    rc = _lib().fusion_eval_launch(args.buffer_info()[0])
     if rc != 0:
         raise RuntimeError(f"fusion_eval kernel launch failed: CUDA error "
                            f"{rc}")
     STATS.launches += 1
-    return (*outs, gid)
+    return outs
 
 
-def fusion_eval_grid_stats_plain(strat, A, W, F, OE, UC, SKIP, n, batch, bpe,
-                                 hw):
-    """The kernel's sweep in plain PyTorch, vectorised over [C, POP].
-
-    Same inputs and outputs as the kernel (see the module docstring); every
+def fusion_eval_plain(form: Form, strat, A, W, F, OE, UC, SKIP, n, batch,
+                      bpe, hw, budget):
+    """The kernel in plain PyTorch, vectorised over [C, POP]: the same
+    inputs and, by ``form``, the same outputs as :func:`fusion_eval`; every
     expression keeps the kernel's operation order."""
     C, POP, P = strat.shape
     dev, f32 = strat.device, torch.float32
@@ -254,36 +370,54 @@ def fusion_eval_grid_stats_plain(strat, A, W, F, OE, UC, SKIP, n, batch, bpe,
         prev_sync = sync
         prev_mb = mb
 
-    return (*(o[..., :P].contiguous() for o in outs), gid)
+    mats = tuple(o[..., :P].contiguous() for o in outs)
+    cost = finalize_groups(*mats, budget.view(C, 1), hw[:, None, :])
+    if form == Form.COST:
+        return (cost,)
+    if form == Form.STATS:
+        return cost, gid, mats[3]
+    return (cost, *mats, gid)
+
+
+def fusion_eval(form: Form, args: tuple, budgets):
+    """``(CostOut [C, POP], *matrices)`` of :func:`kernel_args`' ``args``
+    against per-condition ``budgets`` [C]: nothing more for ``Form.COST``,
+    ``gid, M_g`` for ``Form.STATS``, ``C_g, T_g, O_g, M_g, wave_g, glen,
+    gid`` for ``Form.RAW``.  The kernel for CUDA tensors (:func:`tile_for`
+    candidates a block), the plain twin for CPU tensors."""
+    strat = args[0]
+    budget = torch.as_tensor(budgets, dtype=torch.float32,
+                             device=strat.device)
+    _check("budgets", budget, torch.float32, (strat.shape[0],), strat.device)
+    return _run(Form(form), (*args, budget))
+
+
+def _run(form: Form, inputs: tuple):
+    strat = inputs[0]
+    if strat.is_cuda:
+        return _launch(form, *inputs)
+    if strat.device.type != "cpu":
+        raise ValueError(f"fusion_eval: no kernel for device {strat.device}")
+    return fusion_eval_plain(form, *inputs)
 
 
 def fusion_eval_raw(strat, A, W, F, OE, UC, SKIP, n, batch, bpe, hw):
-    """The seven group matrices: the kernel for CUDA tensors, the plain
-    twin for CPU tensors."""
-    if strat.is_cuda:
-        return _launch(strat, A, W, F, OE, UC, SKIP, n, batch, bpe, hw)
-    if strat.device.type != "cpu":
-        raise ValueError(f"fusion_eval: no kernel for device {strat.device}")
-    return fusion_eval_grid_stats_plain(strat, A, W, F, OE, UC, SKIP, n,
-                                        batch, bpe, hw)
+    """The seven group matrices ``C_g, T_g, O_g, M_g, wave_g, glen, gid``:
+    the kernel for CUDA tensors, the plain twin for CPU tensors."""
+    budget = torch.full((strat.shape[0],), float("inf"), device=strat.device)
+    return _run(Form.RAW, (strat, A, W, F, OE, UC, SKIP, n, batch, bpe, hw,
+                           budget))[1:]
 
 
 def fusion_eval_grid_stats(wls: dict, strategies, batches, budgets, hw):
     """``(CostOut [C, POP], gid [C, POP, P], M_g [C, POP, P])`` for
     strategies [C, POP, P] (int32) over stacked packed workloads,
     per-condition ``batches``/``budgets`` [C] and per-condition hardware
-    (anything ``accel.stack_hw`` accepts)."""
-    from ..core.cost_model import finalize_groups
-    args = kernel_args(wls, strategies, batches, hw)
-    C_g, T_g, O_g, M_g, wave_g, glen, gid = fusion_eval_raw(*args)
-    budgets = torch.as_tensor(budgets, dtype=torch.float32,
-                              device=strategies.device)
-    out = finalize_groups(C_g, T_g, O_g, M_g, wave_g, glen,
-                          budgets[:, None], args[-1][:, None, :])
-    return out, gid, M_g
+    (anything ``accel.stack_hw`` accepts): one launch on the card."""
+    return _run(Form.STATS, _inputs(wls, strategies, batches, budgets, hw))
 
 
-def fusion_eval_grid(wls: dict, strategies, batches, budgets, hw):
+def fusion_eval_grid(wls: dict, strategies, batches, budgets, hw) -> CostOut:
     """CostOut [C, POP]; see :func:`fusion_eval_grid_stats`."""
-    out, _, _ = fusion_eval_grid_stats(wls, strategies, batches, budgets, hw)
-    return out
+    return _run(Form.COST, _inputs(wls, strategies, batches, budgets,
+                                   hw))[0]

@@ -1,6 +1,7 @@
 """Where the time of the port's main path goes, on one CUDA card.
 
     PYTHONPATH=src python -m repro_torch.profile_main_path [--out DIR]
+        [--only gsampler,dt_one_shot,qwen3_8b,rwkv6_3b]
 
 Slice 1: answers the smoke grid (6 CNNs x 5 parts x 4 budgets, batch 64,
 nmax 64) with the G-Sampler (paper config) and with the DT one-shot
@@ -9,8 +10,11 @@ and 3: qwen3_8b and rwkv6_3b at full width and depth (seeded random
 weights) each score 2 x 4096 tokens in bf16 (``forward``), and, in f32
 after a 1024-token prefill of batch 4, run 8 greedy decode steps
 (``decode_step``).  Each phase
-runs once to warm up and once under ``torch.profiler``.  Prints one JSON
-line per phase: host wall time, device busy time (the sum of kernel
+runs once to warm up, once timed without the profiler and once under
+``torch.profiler``.  ``--only`` runs the named phases alone, so that one
+mapper's wall can be compared between two trees in fresh processes.
+Prints one JSON line per phase: host wall time with and without the
+profiler, device busy time (the sum of kernel
 times; everything runs on one stream, so kernels do not overlap), the
 device's idle share, the number of kernel launches, the launches of the
 port's own kernels, and the kernels that take the most device time.
@@ -42,9 +46,14 @@ __all__ = ["profile_phase", "main"]
 
 
 def profile_phase(name: str, fn, out_dir: pathlib.Path, top: int = 8) -> dict:
-    """Run ``fn`` once to warm up, then once under the profiler."""
+    """Run ``fn`` once to warm up, once timed, then once under the
+    profiler."""
     fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    unprofiled = time.perf_counter() - t0
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     for mod in PORT_KERNELS.values():
@@ -68,6 +77,7 @@ def profile_phase(name: str, fn, out_dir: pathlib.Path, top: int = 8) -> dict:
     busy_us = sum(v[1] for v in per_name.values())
     ranked = sorted(per_name.items(), key=lambda kv: -kv[1][1])[:top]
     return {"phase": name, "wall_ms": wall * 1e3,
+            "wall_ms_unprofiled": unprofiled * 1e3,
             "device_busy_ms": busy_us / 1e3,
             "idle_share": 1.0 - busy_us / 1e3 / (wall * 1e3),
             "kernel_launches": len(kernels),
@@ -111,7 +121,11 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="chiprun_out/profile",
                     help="directory for the chrome traces")
+    ap.add_argument("--only", default="gsampler,dt_one_shot,qwen3_8b,"
+                    "rwkv6_3b", help="comma-separated phases to run (the "
+                    "LMs' name both their scoring and decode phases)")
     args = ap.parse_args(argv)
+    only = set(args.only.split(","))
     if not torch.cuda.is_available():
         raise SystemExit("profile_main_path: needs a CUDA device")
     dev = torch.device("cuda", torch.cuda.current_device())
@@ -133,12 +147,14 @@ def main(argv=None) -> int:
     print(json.dumps({"device": torch.cuda.get_device_name(0),
                       "conditions": len(conds)}))
     for name, fn in phases.items():
-        print(json.dumps(profile_phase(name, fn, out_dir)))
+        if name in only:
+            print(json.dumps(profile_phase(name, fn, out_dir)))
     del model, packed
 
     rng = np.random.default_rng(1)
     for arch, mod in (("qwen3_8b", lm), ("rwkv6_3b", rwkv_lm)):
-        lm_phases(arch, mod, rng, dev, out_dir)
+        if arch in only:
+            lm_phases(arch, mod, rng, dev, out_dir)
     return 0
 
 

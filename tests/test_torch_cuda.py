@@ -19,6 +19,7 @@ from repro_torch.kernels import flash_attention as fa, flash_decode as fd
 from repro_torch.kernels import fusion_eval as fe, rwkv6_scan as rk
 from repro_torch.models import lm, rwkv_lm
 from repro_torch.workloads import resnet18, tiny_cnn
+from repro_torch.workloads.grid import paper_grid
 
 pytestmark = pytest.mark.cuda
 MB = 2.0 ** 20
@@ -32,33 +33,84 @@ def dev():
     return torch.device("cuda", torch.cuda.current_device())
 
 
-def _grid(dev, pop):
+def _grid(dev, pop, nmax):
+    """The smoke grid's conditions (6 CNNs x 5 parts x 4 budgets) whose net
+    fits ``nmax`` (all 120 at 64; at 32 and 19, one chunk of 32 positions,
+    the 60 of vgg16, resnet18 and tiny_cnn, at 19 resnet18's n 18 =
+    nmax - 1), or
+    at nmax 54 mnasnet alone (n 53 = nmax - 1), packed for edge and served
+    on each part, ``pop`` strategies a condition from no SYNC to all
+    SYNC."""
     parts = sorted(accel.ACCEL_ZOO)
-    ws = [resnet18(), tiny_cnn()]
-    wl = cm.stack_workloads([cm.pack_workload(w, accel.PAPER_ACCEL, 32,
-                                              device=dev)
-                             for w in ws for _ in parts])
-    hw = [accel.ACCEL_ZOO[p] for _ in ws for p in parts]
-    rng = np.random.default_rng(0)
+    conds, works, batches, budgets = paper_grid(parts, (8, 16, 32, 64), 32)
+    if nmax == 54:
+        keep = [conds.index(("mnasnet", "datacenter", 8))]
+    else:
+        keep = [i for i, w in enumerate(works) if w.n < nmax]
+    wl = cm.stack_workloads([cm.pack_workload(works[i], accel.PAPER_ACCEL,
+                                              nmax, device=dev)
+                             for i in keep])
+    hw = accel.stack_hw([accel.ACCEL_ZOO[conds[i][1]] for i in keep],
+                        len(keep), dev)
+    rng = np.random.default_rng(pop)
     s = torch.as_tensor(np.stack([np.stack([
-        cm.random_strategy(rng, w.n, 32, 32, p_sync=0.3)
-        for _ in range(pop)]) for w in ws for _ in parts]), device=dev)
-    return wl, s, hw
+        cm.random_strategy(rng, works[i].n, nmax, 32,
+                           p_sync=(0.0, 0.2, 0.4, 0.7, 1.0)[j % 5])
+        for j in range(pop)]) for i in keep]), device=dev)
+    return (wl, s, torch.as_tensor(batches[keep], device=dev),
+            torch.as_tensor(budgets[keep], device=dev), hw)
 
 
-@pytest.mark.parametrize("pop", [1, 40, 131])
-def test_kernel_bit_equal_to_plain_twin(dev, pop):
-    wl, s, hw = _grid(dev, pop)
-    args = fe.kernel_args(wl, s, torch.full((s.shape[0],), 32.0, device=dev),
-                          hw)
+@pytest.mark.parametrize("form", list(fe.Form), ids=lambda f: f.name)
+@pytest.mark.parametrize("pop", [1, 36, 40, 133])
+@pytest.mark.parametrize("nmax", [54, 64, 32, 19])
+def test_kernel_bit_equal_to_plain_twin(dev, form, pop, nmax):
+    """Every output of every form, CostOut included, bit for bit, at one
+    condition (nmax 54) and at grids of two chunks of 32 positions (64)
+    and of one (32, 19); ``gid`` under the mask (past n the kernel and the
+    twin both hold the SYNC count, which the repair never reads)."""
+    wl, s, batches, budgets, hw = _grid(dev, pop, nmax)
+    args = fe.kernel_args(wl, s, batches, hw)
     before = fe.STATS.launches
-    got = fe.fusion_eval_raw(*args)
+    got = fe.fusion_eval(form, args, budgets)
     assert fe.STATS.launches == before + 1
-    want = fe.fusion_eval_grid_stats_plain(*args)
-    mask = wl["mask"][:, None, :].expand_as(got[6])
-    assert torch.equal(got[6][mask], want[6][mask])
-    for g, w in zip(got[:6], want[:6]):
-        assert torch.equal(g, w)
+    want = fe.fusion_eval_plain(form, *args, budgets)
+    assert len(got) == len(want) == {fe.Form.COST: 1, fe.Form.STATS: 3,
+                                     fe.Form.RAW: 8}[form]
+    for k in want[0]._fields:
+        assert torch.equal(getattr(got[0], k), getattr(want[0], k)), k
+    mask = wl["mask"][:, None, :].expand_as(s)
+    for g, w in zip(got[1:], want[1:]):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        if g.dtype == torch.int32:
+            assert torch.equal(g[mask], w[mask])
+        else:
+            assert torch.equal(g, w)
+    if form == fe.Form.RAW:
+        raw = fe.fusion_eval_raw(*args)
+        assert all(torch.equal(g, w) for g, w in zip(raw[:6], got[1:7]))
+
+
+@pytest.mark.parametrize("stats", [False, True])
+def test_evaluate_grid_is_one_kernel_launch(dev, stats):
+    """One evaluation is one CUDA kernel, counted with the profiler as
+    ``profile_main_path`` counts: the CostOut reduction runs in it."""
+    wl, s, batches, budgets, hw = _grid(dev, 40, 64)
+    fn = cm.evaluate_grid_stats if stats else cm.evaluate_grid
+    fn(wl, s, batches, budgets, hw)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    before = fe.STATS.launches
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(3):
+            fn(wl, s, batches, budgets, hw)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert fe.STATS.launches == before + 3
+    assert len(kernels) == 3, [e.name for e in kernels]
+    assert all("fusion_eval" in e.name for e in kernels)
 
 
 def test_gsampler_on_card_is_deterministic_and_uses_kernel(dev):
@@ -72,7 +124,8 @@ def test_gsampler_on_card_is_deterministic_and_uses_kernel(dev):
     b = gs.gsampler_search_grid(ws, accel.PAPER_ACCEL, [32, 32],
                                 [2 * MB, 8 * MB], nmax=32, cfg=cfg,
                                 device=dev)
-    np.testing.assert_array_equal(a.strategies, b.strategies)
+    for k in ("strategies", "latency", "peak_mem", "valid", "history"):
+        np.testing.assert_array_equal(getattr(a, k), getattr(b, k), k)
     assert a.valid[:, 0].all()
 
 
