@@ -26,7 +26,22 @@ Phases, each of which raises on failure (the script then exits non-zero):
 5. DT one shot on the card: a full-width, hw-conditioned DT with seeded
    random weights answers the same 120 conditions in one batched episode,
    and its strategies are re-scored through the kernel;
-6. attention kernels against their plain versions: ``flash_attention`` at
+6. the paper loop on the card: ``generate_teacher_corpus`` over the same
+   grid (the paper's GA, top 8 elites and 2 jittered copies of the top 4
+   per condition, decorated by one ``prefix_scan``) in exactly 369
+   ``fusion_eval`` launches, its decoration's final costs equal to the
+   kernel's re-score of the same candidates (rtol 1e-5, ``valid`` and
+   ``n_groups`` equal) and its rows equal to a replay's; ``train_model``
+   of the full-width hw-conditioned DT on that corpus (the reference's
+   TrainConfig, 3000 steps), its loss curve falling, and 20 steps run
+   twice from one seed and once with a crash at step 10 and a resume,
+   bit-identical parameters all three times; then the trained DT answers
+   the 120 conditions (re-scored as in phase 5, beside the G-Sampler's and
+   the untrained DT's numbers), the same nets and parts at budgets the
+   corpus never saw (12, 24, 48 MB, beside a G-Sampler search of them),
+   and on a few conditions the host ``dnnfuser_infer`` is compared with
+   the fused episode;
+7. attention kernels against their plain versions: ``flash_attention`` at
    the JAX sweep's shapes (f32 and bf16; causal, non-causal, window 96),
    at qwen3_8b's head shape and at a ragged S; ``flash_decode`` at the
    sweep's shapes, the clamp and pad cases, the card's split plan at every
@@ -43,18 +58,18 @@ Phases, each of which raises on failure (the script then exits non-zero):
    paths (bf16 at the scoring shape, f32 at the self-check's),
    ``flash_decode`` by its device time a call (``device_ms``) and, apart,
    its wrapper's host time a call (``host_us``);
-7. scoring: qwen3_8b at full width and depth (bf16, seeded random
+8. scoring: qwen3_8b at full width and depth (bf16, seeded random
    weights) scores 2 x 4096 tokens through ``lm.forward``: exactly 36
    ``flash_attention`` launches, all on the tensor-core path, finite
    logits;
-8. serving: ``serve_greedy("qwen3_8b", batch=4, prompt_len=1024,
+9. serving: ``serve_greedy("qwen3_8b", batch=4, prompt_len=1024,
    gen_len=128)`` in f32: prefill (chunked, no kernel), then 127 greedy
    decode steps, exactly 36 x 127 ``flash_decode`` launches;
-9. full-width self-check: an f32 ``forward`` over the prompt and the
+10. full-width self-check: an f32 ``forward`` over the prompt and the
    generated tokens (36 ``flash_attention`` launches, all on the
    CUDA-core path) reproduces the served logits (within 1e-3 of the
    logits' largest magnitude) and the greedy tokens (near-ties counted);
-10. ``wkv6`` against ``wkv6_plain``, the sequential recurrence, in f32 at
+11. ``wkv6`` against ``wkv6_plain``, the sequential recurrence, in f32 at
    the JAX sweep's shapes, under strong decay, at a T that is not a whole
    number of chunks, on strided inputs, at the main path's shapes with
    the default tile (rwkv6_3b's scoring shape in f32 and in bf16 r/k/v,
@@ -64,15 +79,15 @@ Phases, each of which raises on failure (the script then exits non-zero):
    bit-equal in every case; then timed against its plain version at the
    scoring shape (f32 and bf16), the serving prefill's and a decode
    step's (device and host time);
-11. scoring: rwkv6_3b at full width and depth (bf16, seeded random
+12. scoring: rwkv6_3b at full width and depth (bf16, seeded random
    weights) scores 2 x 4096 tokens through ``rwkv_lm.forward``: exactly
    32 ``wkv6`` launches, finite logits;
-12. serving: ``serve_greedy("rwkv6_3b", batch=4, prompt_len=1024,
+13. serving: ``serve_greedy("rwkv6_3b", batch=4, prompt_len=1024,
    gen_len=128)`` in f32: exactly 32 + 32 x 127 = 4096 ``wkv6`` launches,
    32 in the prefill and one per layer in each decode step;
-13. RWKV self-check: an f32 ``forward`` through ``wkv6`` over the prompt
+14. RWKV self-check: an f32 ``forward`` through ``wkv6`` over the prompt
    and the generated tokens reproduces the served logits and greedy
-   tokens as in phase 9, and one prefill and one decode step each launch
+   tokens as in phase 10, and one prefill and one decode step each launch
    ``wkv6`` once per layer.
 
 The last lines are the card's ``nvidia-smi`` name and power limit, a JSON
@@ -270,7 +285,7 @@ def sdpa_ms(q, k, v, causal: bool, reps: int) -> float:
 
 
 def attention_kernels(dev) -> dict:
-    """Phase 6: both attention kernels against their plain versions, then
+    """Phase 7: both attention kernels against their plain versions, then
     timed at the main path's shapes.  Returns the JSON fields."""
     import numpy as np
     import torch
@@ -338,7 +353,7 @@ def attention_kernels(dev) -> dict:
             fa_strict, fa_gated = max(fa_strict, strict), max(fa_gated, ratio)
         fa_err[dt] = max(fa_err.get(dt, 0.0), err)
         del q, k, v, want, limit
-    print(f"[6/13] flash_attention == plain on {len(fa_cases)} shapes (JAX "
+    print(f"[7/14] flash_attention == plain on {len(fa_cases)} shapes (JAX "
           f"sweep x f32/bf16 x causal/non-causal/window 96, one tile of 64 "
           f"and 128 rows at hd 64 and 128, GQA 4:1 and 8:1, ragged S/T "
           f"77/150, qwen3_8b heads at S {SCORE_S} and at ragged S "
@@ -495,7 +510,7 @@ def expect_counts(label: str, n: dict, **want) -> None:
 
 
 def scoring(dev, arch: str, phase: int, **want) -> dict:
-    """Phases 7 and 11: ``arch`` (bf16, seeded random weights) scores
+    """Phases 8 and 12: ``arch`` (bf16, seeded random weights) scores
     SCORE_B x SCORE_S random tokens; the launches are ``want``."""
     import numpy as np
     import torch
@@ -522,7 +537,7 @@ def scoring(dev, arch: str, phase: int, **want) -> dict:
     check(tuple(logits.shape) == (SCORE_B, SCORE_S, cfg.vocab_padded)
           and bool(torch.isfinite(logits).all()), "scoring logits malformed "
           "or not finite")
-    print(f"[{phase}/13] scoring {arch} ({cfg.n_layers} layers, d "
+    print(f"[{phase}/14] scoring {arch} ({cfg.n_layers} layers, d "
           f"{cfg.d_model}, {n_params / 1e9:.2f}e9 params, bf16, "
           f"seeded random weights; init {t_init:.2f} s) over "
           f"{SCORE_B}x{SCORE_S} tokens: wall {wall:.4f} s, launches "
@@ -533,7 +548,7 @@ def scoring(dev, arch: str, phase: int, **want) -> dict:
 
 
 def serving(dev, arch: str, phase: int, **want) -> dict:
-    """Phases 8 and 12: greedy serving of ``arch`` in f32; the launches are
+    """Phases 9 and 13: greedy serving of ``arch`` in f32; the launches are
     ``want``."""
     import torch
     from repro_torch.configs import get_config
@@ -549,7 +564,7 @@ def serving(dev, arch: str, phase: int, **want) -> dict:
     toks = out["tokens"]
     check(toks.shape == (SERVE_B, GEN) and (toks >= 0).all()
           and (toks < cfg.vocab_padded).all(), "served tokens malformed")
-    print(f"[{phase}/13] serving {arch} f32, batch {SERVE_B}, prompt "
+    print(f"[{phase}/14] serving {arch} f32, batch {SERVE_B}, prompt "
           f"{PROMPT}, gen {GEN}: prefill {out['t_prefill_s']:.4f} s, decode "
           f"{out['t_decode_s']:.4f} s, {out['tok_per_s']:.2f} tok/s; wall "
           f"with init {wall:.2f} s; launches {launched(n)}")
@@ -560,7 +575,7 @@ def serving(dev, arch: str, phase: int, **want) -> dict:
 
 def self_check(dev, arch: str, served: dict, phase: int, *, want_fwd=None,
                want_prefill=None, want_step=None) -> None:
-    """Phases 9 and 13: an f32 forward over prompt + generated tokens
+    """Phases 10 and 14: an f32 forward over prompt + generated tokens
     reproduces the served logits and the greedy tokens.  With ``want_*``,
     the forward, one prefill of the prompt and one decode step after it
     launch exactly those kernels."""
@@ -607,7 +622,7 @@ def self_check(dev, arch: str, served: dict, phase: int, *, want_fwd=None,
     ties = int((diff & (gap <= 2 * err)).sum())
     check(int(diff.sum()) == ties, f"{int(diff.sum()) - ties} greedy tokens "
           f"differ from the forward's argmax beyond a near-tie")
-    print(f"[{phase}/13] self-check {arch}: f32 forward over {seq.shape[0]}x"
+    print(f"[{phase}/14] self-check {arch}: f32 forward over {seq.shape[0]}x"
           f"{seq.shape[1]} tokens (launches {launched(n_fwd)}) reproduces "
           f"the served logits at positions {PROMPT - 1}..{PROMPT + GEN - 2}: "
           f"max abs err {err:.4g} ({err_pre:.4g} at the prefill's position "
@@ -631,7 +646,7 @@ def wkv_bound_ms(B, T, H, n, dtype):
 
 
 def wkv_kernel(dev) -> dict:
-    """Phase 10: ``wkv6`` against its plain twin, then timed at the scoring
+    """Phase 11: ``wkv6`` against its plain twin, then timed at the scoring
     shape.  Returns the JSON fields."""
     import numpy as np
     import torch
@@ -721,7 +736,7 @@ def wkv_kernel(dev) -> dict:
             main_err[case], tiles[case] = float(diff.max()), tile
         del got, ins, want
     sc32, sc16, pre = main_cases
-    print(f"[10/13] wkv6 == plain on {len(cases)} shapes (JAX sweep, strong "
+    print(f"[11/14] wkv6 == plain on {len(cases)} shapes (JAX sweep, strong "
           f"decay U{strong}, T not whole chunks, strided, bf16 r/k/v, "
           f"{RWKV} scoring in f32 and bf16 at tiles {tiles[sc32]} and "
           f"{tiles[sc16]}, the serving prefill at tile {tiles[pre]}, the "
@@ -773,6 +788,207 @@ def wkv_kernel(dev) -> dict:
                 decode_plain_ms=dec_plain, decode_host_us=dec_host)
 
 
+TRAIN_CKPT = ROOT / "build" / "smoke_train_ckpt"
+UNSEEN_MB = (12, 24, 48)        # budgets the corpus never saw
+HOST_CONDS = (0, 37, 74, 111)   # conditions the host mapper answers too
+
+
+def paper_loop(dev, grid: dict, gsampler: dict, untrained: dict) -> int:
+    """Phase 6: corpus, training and answer on the card.  ``grid`` holds the
+    smoke grid (workloads, hws, batches, budgets, packed, n_of),
+    ``gsampler`` phase 4's wall and best speedups, ``untrained`` phase 5's
+    valid share, speedup and wall.  Returns the ``fusion_eval`` launches of
+    the paths it drives."""
+    import shutil
+    import numpy as np
+    import torch
+    from repro_torch.core import (accel, cost_model as cm, dataset as ds_,
+                                  env as env_, gsampler as gs, infer,
+                                  model as dtm, train)
+    from repro_torch.workloads import CNN_ZOO
+    from repro_torch.workloads.grid import paper_grid
+    C = len(grid["workloads"])
+    packed, batches, budgets, hws = (grid[k] for k in ("packed", "batches",
+                                                       "budgets", "hws"))
+    nets = [CNN_ZOO[n]() for n in sorted(CNN_ZOO)]
+    parts = [accel.ACCEL_ZOO[p] for p in sorted(accel.ACCEL_ZOO)]
+    ga = gs.GSamplerConfig()
+    top_k, jitter = 8, 2
+
+    # -- corpus -------------------------------------------------------------
+    reset_counts()
+    t0 = time.perf_counter()
+    corpus = ds_.generate_teacher_corpus(
+        nets, parts, batch=BATCH, budgets_mb=list(BUDGETS_MB),
+        max_steps=NMAX, top_k=top_k, ga_cfg=ga, seed=0,
+        augment_jitter=jitter, device=dev)
+    torch.cuda.synchronize()
+    corpus_wall = time.perf_counter() - t0
+    n = counts()
+    want = 18 + ga.generations * (1 + ga.repair_tries) + 1
+    expect_counts("corpus", n, fusion_eval=want)
+    corpus_launches = n["fusion_eval"]
+    # replay the pipeline's steps (deterministic per seed): the decoration's
+    # final costs against the kernel's re-score of the same candidates, and
+    # the replay's kept rows against the corpus
+    res = gs.gsampler_search_grid(grid["workloads"], hws, batches, budgets,
+                                  nmax=NMAX, cfg=ga, top_k=top_k,
+                                  packed=packed, device=dev)
+    cand = ds_._augment_candidates(np.random.default_rng(0), res.strategies,
+                                   grid["n_of"], BATCH, top_k, jitter)
+    _, rtg, _, _, fin = ds_._decorate_grid(packed, cand, batches, budgets,
+                                           hws)
+    re = cm.evaluate_grid(packed, cand, batches, budgets, hws)
+    for k in ("latency", "peak_mem", "traffic"):
+        a, b = getattr(re, k).cpu().numpy(), getattr(fin, k).cpu().numpy()
+        check(np.isfinite(b).all() and np.allclose(a, b, rtol=1e-5, atol=0),
+              f"corpus {k}: prefix_scan final differs from the kernel "
+              f"re-score (max rel {np.max(np.abs(a - b) / np.abs(b))})")
+    check(torch.equal(re.valid, fin.valid) and
+          torch.equal(re.n_groups, fin.n_groups),
+          "corpus: valid / n_groups of prefix_scan differ from the kernel")
+    valid, rtg = fin.valid.cpu().numpy(), rtg.cpu().numpy()
+    kept = []
+    for c, w in enumerate(grid["workloads"]):
+        seen = set()
+        for k in range(cand.shape[1]):
+            key = cand[c, k, : w.n + 1].tobytes()
+            if valid[c, k] and key not in seen:
+                seen.add(key)
+                kept.append(rtg[c, k])
+    check(len(kept) == len(corpus) and
+          np.array_equal(np.stack(kept), corpus.rtg),
+          "corpus: a replay of the pipeline keeps other rows")
+    sp = np.array([m[2] for m in corpus.meta])
+    print(f"[6/14] corpus: generate_teacher_corpus over {C} conditions "
+          f"(GA pop {ga.population} x {ga.generations}, top {top_k} + "
+          f"{jitter} jittered copies of the top {top_k // 2}, {cand.shape[1]}"
+          f" candidates a condition): wall {corpus_wall:.3f} s, "
+          f"fusion_eval launches {corpus_launches} (GA {want}, decoration 0)"
+          f", {len(corpus)} rows kept of {cand.shape[0] * cand.shape[1]}, "
+          f"mean teacher speedup {sp.mean():.4f}; prefix_scan finals == "
+          f"kernel re-score (rtol 1e-5, valid and n_groups equal), replay "
+          f"rows equal")
+
+    # -- training -----------------------------------------------------------
+    cfg = dtm.DTConfig(hw_dim=accel.HW_FEATURE_DIM)
+    tc = train.TrainConfig()            # the reference's: 3000 steps, ...
+    model = dtm.dt_init(cfg, seed=0, device=dev)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model, log = train.train_model(dtm.dt_loss, model, corpus, tc,
+                                   device=dev)
+    torch.cuda.synchronize()
+    train_wall = time.perf_counter() - t0
+    expect_counts("training", counts())
+    losses = [l for _, l in log["losses"]]
+    check(np.isfinite(losses).all() and losses[-1] < losses[0],
+          f"training loss did not fall: {log['losses']}")
+    print(f"      training: train_model, DT 3x2x128 hw_dim 10, "
+          f"{tc.steps} steps of batch {tc.batch_size} (lr {tc.lr}, warmup "
+          f"{tc.warmup}, cosine, decay {tc.weight_decay}, clip "
+          f"{tc.max_grad_norm}): wall {train_wall:.2f} s, "
+          f"{train_wall / tc.steps * 1e3:.3f} ms a step (host clock, the "
+          f"loop ends in a sync); loss " + ", ".join(
+              f"{s}: {l:.5f}" for s, l in log["losses"]))
+    # bit-exact: twice from one seed, and a crash at step 10 plus a resume
+    short = train.TrainConfig(steps=20, log_every=5, ckpt_every=10, seed=1)
+    runs = []
+    for _ in range(2):
+        runs.append(train.train_model(
+            dtm.dt_loss, dtm.dt_init(cfg, seed=1, device=dev), corpus,
+            short, device=dev)[0])
+    shutil.rmtree(TRAIN_CKPT, ignore_errors=True)
+    train.train_model(dtm.dt_loss, dtm.dt_init(cfg, seed=1, device=dev),
+                      corpus, short, ckpt_dir=TRAIN_CKPT, crash_at=10,
+                      device=dev)
+    resumed, rlog = train.train_model(
+        dtm.dt_loss, dtm.dt_init(cfg, seed=1, device=dev), corpus, short,
+        ckpt_dir=TRAIN_CKPT, device=dev)
+    shutil.rmtree(TRAIN_CKPT, ignore_errors=True)
+    check(rlog["start_step"] == 10, "resume did not start at step 10")
+    trees = [dtm.param_tree(m) for m in runs + [resumed]]
+    for other in trees[1:]:
+        check(all(torch.equal(trees[0][k], other[k]) for k in trees[0]),
+              "training on the card is not bit-exact (same seed, or resume)")
+    print(f"      20 steps twice from one seed and once crashed at step 10 "
+          f"and resumed: parameters bit-identical ({len(trees[0])} leaves)")
+
+    # -- answer -------------------------------------------------------------
+    infer.dnnfuser_infer_batch(model, packed, batches, budgets, hws,
+                               device=dev)             # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = infer.dnnfuser_infer_batch(model, packed, batches, budgets, hws,
+                                     device=dev)
+    torch.cuda.synchronize()
+    dt_wall = time.perf_counter() - t0
+    re = cm.evaluate_grid(packed, out["strategy"][:, None, :], batches,
+                          budgets, hws)
+    torch.cuda.synchronize()
+    n = counts()
+    expect_counts("trained answer + re-score", n, fusion_eval=1)
+    answer_launches = n["fusion_eval"]
+    for k in ("latency", "peak_mem", "traffic"):
+        a = getattr(re, k)[:, 0].cpu().numpy()
+        b = out[k].cpu().numpy()
+        check(np.isfinite(b).all() and np.allclose(a, b, rtol=1e-5, atol=0),
+              f"trained DT {k} differs from the kernel re-score")
+    check(torch.equal(re.valid[:, 0], out["valid"]) and
+          torch.equal(re.n_groups[:, 0], out["n_groups"]),
+          "trained DT valid / n_groups differ from the kernel re-score")
+    v = out["valid"].cpu().numpy()
+    speed = out["speedup"].cpu().numpy()
+    dt_speed = speed[v].mean() if v.any() else 0.0
+    print(f"      trained DT one shot over {C} conditions: wall "
+          f"{dt_wall:.4f} s, valid share {v.mean():.4f}, mean valid speedup "
+          f"{dt_speed:.4f} (G-Sampler best {gsampler['best'].mean():.4f}, "
+          f"valid {gsampler['valid']:.4f}; untrained DT "
+          f"{untrained['speedup']:.4f}, valid {untrained['valid']:.4f}); "
+          f"re-score matches (rtol 1e-5); G-Sampler/DT wall ratio "
+          f"{gsampler['wall'] / dt_wall:.2f} (untrained "
+          f"{gsampler['wall'] / untrained['wall']:.2f})")
+
+    # budgets the corpus never saw, beside a G-Sampler search of them
+    ucond, uw, ub, ubud = paper_grid(sorted(accel.ACCEL_ZOO), UNSEEN_MB,
+                                     BATCH)
+    uhws = [accel.ACCEL_ZOO[p] for _, p, _ in ucond]
+    upacked = cm.stack_workloads([cm.pack_workload(w, h, NMAX, device=dev)
+                                  for w, h in zip(uw, uhws)])
+    uout = infer.dnnfuser_infer_batch(model, upacked, ub, ubud, uhws,
+                                      device=dev)
+    ures = gs.gsampler_search_grid(uw, uhws, ub, ubud, nmax=NMAX, cfg=ga,
+                                   top_k=1, packed=upacked, device=dev)
+    uv = uout["valid"].cpu().numpy()
+    usp = uout["speedup"].cpu().numpy()
+    ubest = np.where(ures.valid, ures.speedup, 0.0).max(1)
+    print(f"      unseen budgets {UNSEEN_MB} MB ({len(ucond)} conditions, "
+          f"informative): trained DT valid share {uv.mean():.4f}, mean valid "
+          f"speedup {usp[uv].mean() if uv.any() else 0.0:.4f}; G-Sampler "
+          f"valid {ures.valid[:, 0].mean():.4f}, mean best {ubest.mean():.4f}"
+          f"; DT / G-Sampler speedup per condition, mean "
+          f"{np.mean(np.where(uv, usp, 0.0) / np.maximum(ubest, 1e-12)):.4f}")
+
+    # the host mapper on a few conditions, against the fused episode
+    strat = out["strategy"].cpu().numpy()
+    same, host_launches = 0, 0
+    for c in HOST_CONDS:
+        env = env_.FusionEnv(grid["workloads"][c], hws[c], BATCH,
+                             float(budgets[c]), nmax=NMAX, device=dev)
+        before = counts()["fusion_eval"]
+        r = infer.dnnfuser_infer(model, env)
+        host_launches += counts()["fusion_eval"] - before
+        same += int(np.array_equal(r.strategy, strat[c]))
+    check(host_launches > 0, "the host mapper launched no fusion_eval")
+    print(f"      host dnnfuser_infer on {len(HOST_CONDS)} conditions: "
+          f"{same} of {len(HOST_CONDS)} strategies equal the fused "
+          f"episode's; {host_launches} fusion_eval launches (one per env "
+          f"state and guard probe)")
+    return corpus_launches + answer_launches + host_launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -794,7 +1010,7 @@ def main() -> int:
     # -- 1. device ----------------------------------------------------------
     kind = torch.cuda.get_device_name(0)
     smi = smi_line()
-    print(f"[1/13] device: {kind} | nvidia-smi: {smi} | torch "
+    print(f"[1/14] device: {kind} | nvidia-smi: {smi} | torch "
           f"{torch.__version__} CUDA {torch.version.cuda} | devices "
           f"{torch.cuda.device_count()}")
 
@@ -804,7 +1020,7 @@ def main() -> int:
     _build.build(*sources)
     fe.compiled_backend_supported()
     infos = {src: _build.build_info(src) for src in sources}
-    print(f"[2/13] build: " + ", ".join(
+    print(f"[2/14] build: " + ", ".join(
         f"{src}.cu {infos[src]['build_s']:.2f} s" for src in sources) +
         f" (in parallel; cached={infos[fe.SOURCE]['cached']}), probe ok, "
         f"phase {time.perf_counter() - t0:.2f} s")
@@ -896,7 +1112,7 @@ def main() -> int:
         raw = fe.fusion_eval_raw(*args)
         check(all(torch.equal(g, w) for g, w in zip(raw[:6], want[1:7])),
               f"{label}: fusion_eval_raw differs from the raw form")
-        print(f"[3/13] kernel == plain on {label} [{Cc}x{pop}x{P}], "
+        print(f"[3/14] kernel == plain on {label} [{Cc}x{pop}x{P}], "
               f"forms cost, stats, raw: bit-equal, CostOut included")
         if label.startswith("main-path"):
             main_args[pop] = args
@@ -948,7 +1164,7 @@ def main() -> int:
           (C, 4, NMAX), "G-Sampler result malformed")
     check(res.valid[:, 0].mean() > 0.5, "G-Sampler found too few valid "
           "strategies")
-    print(f"[4/13] G-Sampler pop {cfg.population} x {cfg.generations} gens "
+    print(f"[4/14] G-Sampler pop {cfg.population} x {cfg.generations} gens "
           f"over {C} conditions: wall {gs_wall:.3f} s, fusion_eval launches "
           f"{gs_launches}, mean best speedup {best.mean():.4f}, valid share "
           f"{res.valid[:, 0].mean():.4f}")
@@ -986,30 +1202,38 @@ def main() -> int:
           "DT n_groups differs")
     dt_valid = out["valid"].float().mean().item()
     dt_speed = out["speedup"][out["valid"]].mean().item() if dt_valid else 0.0
-    print(f"[5/13] DT one shot (3x2x128, hw_dim 10, seeded random weights) "
+    print(f"[5/14] DT one shot (3x2x128, hw_dim 10, seeded random weights) "
           f"over {C} conditions: wall {dt_wall:.4f} s, valid share "
           f"{dt_valid:.4f}, mean valid speedup {dt_speed:.4f}; re-score "
           f"matches (rtol 1e-5); G-Sampler/DT wall ratio "
           f"{gs_wall / dt_wall:.1f} (informative)")
 
-    # -- 6.-9. the dense LM: kernels, scoring, serving, self-check ---------
+    # -- 6. the paper loop: corpus, training, answer -----------------------
+    loop_launches = paper_loop(
+        dev, dict(workloads=workloads, hws=hws, batches=batches,
+                  budgets=budgets, packed=packed, n_of=n_of),
+        dict(wall=gs_wall, best=best, valid=res.valid[:, 0].mean()),
+        dict(wall=dt_wall, valid=dt_valid, speedup=dt_speed))
+    torch.cuda.empty_cache()
+
+    # -- 7.-10. the dense LM: kernels, scoring, serving, self-check ---------
     L = get_config(ARCH).n_layers
     attn = attention_kernels(dev)
     torch.cuda.empty_cache()
-    fa_launches = scoring(dev, ARCH, 7, flash_attention=L,
+    fa_launches = scoring(dev, ARCH, 8, flash_attention=L,
                           fa_tensor_core=L)["flash_attention"]
-    served = serving(dev, ARCH, 8, flash_decode=L * (GEN - 1))
-    self_check(dev, ARCH, served, 9,
+    served = serving(dev, ARCH, 9, flash_decode=L * (GEN - 1))
+    self_check(dev, ARCH, served, 10,
                want_fwd={"flash_attention": L, "fa_cuda_core": L})
     fd_launches = served["launches"]["flash_decode"]
     del served                          # qwen3_8b is gone before rwkv6_3b
 
-    # -- 10.-13. the RWKV6 LM: kernel, scoring, serving, self-check ---------
+    # -- 11.-14. the RWKV6 LM: kernel, scoring, serving, self-check ---------
     L = get_config(RWKV).n_layers
     wkv = wkv_kernel(dev)
-    wkv_launches = scoring(dev, RWKV, 11, wkv6=L)["wkv6"]
-    served = serving(dev, RWKV, 12, wkv6=L + L * (GEN - 1))
-    self_check(dev, RWKV, served, 13, want_fwd={"wkv6": L},
+    wkv_launches = scoring(dev, RWKV, 12, wkv6=L)["wkv6"]
+    served = serving(dev, RWKV, 13, wkv6=L + L * (GEN - 1))
+    self_check(dev, RWKV, served, 14, want_fwd={"wkv6": L},
                want_prefill={"wkv6": L}, want_step={"wkv6": L})
     wkv_served = served["launches"]["wkv6"]
     del served
@@ -1021,7 +1245,8 @@ def main() -> int:
         {"name": "fusion_eval", "route": "cuda",
          "source": f"{csrc}/fusion_eval.cu",
          "replaces": "src/repro/kernels/fusion_eval.py:57",
-         "launches": gs_launches + dt_launches, "max_abs_err": max_err,
+         "launches": gs_launches + dt_launches + loop_launches,
+         "max_abs_err": max_err,
          "ms": fe_ms[(fe.Form.STATS, 36)][0], "plain_ms": fe_plain,
          "bound_ms": fe_ms[(fe.Form.STATS, 36)][1],
          "bound_by": fe_ms[(fe.Form.STATS, 36)][2], "library_ms": None,

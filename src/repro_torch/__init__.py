@@ -7,18 +7,23 @@ Port contract
 -------------
 Layout.  The subpackages mirror ``repro``'s: ``workloads/`` (numpy-only
 copies of the layer IR and the CNN zoo), ``core/`` (``accel``,
-``cost_model``, ``env``, ``model``, ``backend``, ``infer``, ``gsampler``),
-``configs/`` (copies of the ten LM arch configs), ``nn/`` (dense,
+``cost_model``, ``env``, ``model``, ``backend``, ``infer``, ``gsampler``,
+and the paper loop's ``dataset`` -- the teacher corpus -- and ``train``),
+``optim/`` (the hand-written AdamW and SGD and the learning-rate
+schedules), ``configs/`` (copies of the ten LM arch configs), ``nn/`` (dense,
 LayerNorm, RMSNorm, RoPE, GQA attention with windows, qk-norm, a KV cache
 and the ``impl`` dispatch to the kernels, the pre-norm block),
 ``models/`` (the dense LM and the registry), ``launch/`` (greedy
 serving), ``kernels/`` (hand-written CUDA kernels under ``kernels/csrc/``
-with their Python wrappers) and ``checkpoint/`` (a numpy-only reader of
-the reference checkpoint format, through which weights cross packages).
+with their Python wrappers) and ``checkpoint/`` (a writer, a reader and
+a ``Checkpointer`` of the reference checkpoint format, byte-compatible
+with the reference's, through which weights cross packages).
 
 Device policy.  Entry points that create tensors (``pack_workload``,
-``dt_init``, ``gsampler_search_grid``, ``dnnfuser_infer_batch``, ...) run
-on ``cuda`` unless the caller passes ``device="cpu"``; with no card and no
+``FusionEnv``, ``dt_init``, ``gsampler_search_grid``,
+``generate_teacher_corpus``, ``collect_teacher_data``,
+``dnnfuser_infer_batch``, ...) and the training loop (``train_model``,
+``fine_tune``) run on ``cuda`` unless the caller passes ``device="cpu"``; with no card and no
 ``device="cpu"`` they raise (:func:`resolve_device`) instead of carrying on
 quietly on the CPU.  Functions that take tensors run where the tensors
 are.  TF32 is off for matmuls and cuDNN: parity needs full f32.
@@ -44,9 +49,12 @@ each operation in the same order; the kernel is built with
 twins and are held to the sweep tolerances.
 
 Randomness.  Every random draw takes an explicit ``torch.Generator``
-seeded from a config; torch streams are not JAX's threefry streams, so
-stochastic parts (GA, init) are deterministic per seed within the port
-and compared with the reference on quality, not bytes.
+seeded from a config, or a numpy ``default_rng`` where the reference
+draws from numpy (the host G-Sampler, jitter augmentation, training
+batches), whose streams are then the reference's.  Torch streams are not
+JAX's threefry streams, so the grid GA and init are deterministic per
+seed within the port and compared with the reference on quality, not
+bytes.  Training is bit-exact per seed on the card and on resume.
 """
 from __future__ import annotations
 

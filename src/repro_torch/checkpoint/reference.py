@@ -9,16 +9,13 @@ sorted order, each path and the first MiB of its array's bytes.
 """
 from __future__ import annotations
 
-import hashlib
-import json
-import pathlib
-
 import numpy as np
 import torch
 
 from .. import resolve_device
 from ..configs import ArchConfig
 from ..core.model import DT, DTConfig
+from .checkpointer import restore_pytree
 
 __all__ = ["load_reference", "dt_params_from_reference",
            "lm_params_from_reference"]
@@ -27,18 +24,7 @@ __all__ = ["load_reference", "dt_params_from_reference",
 def load_reference(path, *, verify: bool = True) -> dict[str, np.ndarray]:
     """``{path: ndarray}`` of a reference checkpoint directory; raises
     ``IOError`` when ``verify`` and the digest does not match."""
-    path = pathlib.Path(path)
-    meta = json.loads((path / "meta.json").read_text())
-    arrays = {}
-    digest = hashlib.sha256()
-    for key in sorted(meta["leaves"]):
-        arr = np.load(path / meta["leaves"][key]["file"])
-        digest.update(key.encode())
-        digest.update(arr.tobytes()[: 1 << 20])
-        arrays[key] = arr
-    if verify and digest.hexdigest() != meta["digest"]:
-        raise IOError(f"checkpoint {path} failed digest verification")
-    return arrays
+    return restore_pytree(path, verify=verify)
 
 
 def _port_name(key: str) -> str:

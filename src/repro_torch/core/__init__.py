@@ -1,26 +1,43 @@
-"""The mapper core: conditions, cost model, environment, DT, G-Sampler."""
+"""The mapper core: conditions, cost model, environment, DT, G-Sampler,
+the teacher corpus, training and inference."""
 from .accel import (ACCEL_ZOO, HW_FEATURE_DIM, HW_FIELDS, PAPER_ACCEL,
                     AccelConfig, accel_features, accel_from_features,
                     hw_array, stack_hw)
 from .cost_model import (SYNC, CostOut, baseline_grid, baseline_no_fusion,
                          evaluate, evaluate_grid, evaluate_grid_stats,
                          evaluate_population, evaluate_population_stats,
-                         pack_workload, stack_workloads)
-from .env import FusionEnv, decode_action, encode_action
+                         pack_workload, prefix_scan, prefix_trace,
+                         stack_workloads)
+from .env import FusionEnv, decode_action, encode_action, returns_to_go
 from .model import (DT, DTBackend, DTConfig, dt_apply, dt_cache_init,
-                    dt_decode_step, dt_init, dt_prefill)
+                    dt_decode_step, dt_init, dt_loss, dt_prefill,
+                    load_param_tree, param_tree)
 from .backend import backend_for
-from .infer import InferResult, dnnfuser_infer_batch, dnnfuser_infer_fused
-from .gsampler import GSamplerConfig, GridTeacherResult, gsampler_search_grid
+from .infer import (InferResult, dnnfuser_infer, dnnfuser_infer_batch,
+                    dnnfuser_infer_fused)
+from .gsampler import (GSamplerConfig, GSamplerResult, GridTeacherResult,
+                       gsampler_search, gsampler_search_grid,
+                       naive_uniform_mb)
+from .dataset import (TrajectoryDataset, collect_teacher_data,
+                      generate_teacher_corpus, merge_datasets,
+                      window_dataset)
+from .train import (TrainConfig, fine_tune, make_train_step, restore_params,
+                    train_model)
 
 __all__ = ["ACCEL_ZOO", "HW_FEATURE_DIM", "HW_FIELDS", "PAPER_ACCEL",
            "AccelConfig", "accel_features", "accel_from_features",
            "hw_array", "stack_hw", "SYNC", "CostOut", "baseline_grid",
            "baseline_no_fusion", "evaluate", "evaluate_grid",
            "evaluate_grid_stats", "evaluate_population",
-           "evaluate_population_stats", "pack_workload", "stack_workloads",
-           "FusionEnv", "decode_action", "encode_action", "DT", "DTBackend",
-           "DTConfig", "dt_apply", "dt_cache_init", "dt_decode_step",
-           "dt_init", "dt_prefill", "backend_for", "InferResult",
+           "evaluate_population_stats", "pack_workload", "prefix_scan",
+           "prefix_trace", "stack_workloads", "FusionEnv", "decode_action",
+           "encode_action", "returns_to_go", "DT", "DTBackend", "DTConfig",
+           "dt_apply", "dt_cache_init", "dt_decode_step", "dt_init",
+           "dt_loss", "dt_prefill", "load_param_tree", "param_tree",
+           "backend_for", "InferResult", "dnnfuser_infer",
            "dnnfuser_infer_batch", "dnnfuser_infer_fused", "GSamplerConfig",
-           "GridTeacherResult", "gsampler_search_grid"]
+           "GSamplerResult", "GridTeacherResult", "gsampler_search",
+           "gsampler_search_grid", "naive_uniform_mb", "TrajectoryDataset",
+           "collect_teacher_data", "generate_teacher_corpus",
+           "merge_datasets", "window_dataset", "TrainConfig", "fine_tune",
+           "make_train_step", "restore_params", "train_model"]

@@ -34,8 +34,8 @@ __all__ = ["SYNC", "CostOut", "pack_workload", "stack_workloads",
            "evaluate_population_stats", "evaluate_grid",
            "evaluate_grid_stats", "baseline_no_fusion", "baseline_grid",
            "PrefixConsts", "PrefixCarry", "prefix_consts", "prefix_init",
-           "prefix_step", "prefix_out", "prefix_probe_peak",
-           "random_strategy"]
+           "prefix_step", "prefix_out", "prefix_probe_peak", "prefix_trace",
+           "prefix_scan", "random_strategy"]
 
 SYNC = -1  # strategy sentinel: flush activation off-chip after this layer
 _UTIL_MIN = 1.0 / 4096.0
@@ -512,6 +512,47 @@ def prefix_probe_peak(consts: PrefixConsts, carry: PrefixCarry, action,
     grp = torch.where(i > c.n, 0.0, grp)          # inactive lane
     grp = torch.where(i == 0, c.SPEAK[:, 1], grp)  # input pseudo tensor
     return torch.maximum(carry.peak, grp)
+
+
+def prefix_trace(wl: dict, strategy, batch, budget_bytes, hw) -> CostOut:
+    """Partial-strategy trace for RL state decoration (paper Eq. 2).
+
+    Entry ``t`` evaluates ``strategy`` [P] with only positions ``< t``
+    applied (the rest forced to SYNC): the environment state before action
+    ``t``.  The P truncations go through :func:`evaluate_population` as
+    one [P, P] population, so on the card this is one ``fusion_eval``
+    launch.  Returns a CostOut with a leading axis of length P."""
+    s = _as_strategies(strategy, wl["A"])
+    P = s.shape[-1]
+    pos = torch.arange(P, device=s.device)
+    trunc = torch.where(pos[None, :] < pos[:, None], s[None, :], SYNC)
+    return evaluate_population(wl, trunc.to(torch.int32).contiguous(), batch,
+                               budget_bytes, hw)
+
+
+def prefix_scan(wls: dict, strategies, batches, budgets_bytes, hw):
+    """Carry form of :func:`prefix_trace` for rows ``wls`` [R, P] and
+    ``strategies`` [R, P], with per-row ``batches``/``budgets_bytes`` [R]
+    and hardware (anything ``accel.stack_hw`` accepts).
+
+    Folds ``prefix_out`` then ``prefix_step`` over the P positions, the
+    carry frozen once it passes a row's ``n``.  Returns ``(trace, final)``:
+    ``trace`` a CostOut of [R, P] fields whose entry ``t`` is
+    ``prefix_trace`` entry ``t``, ``final`` the full-strategy CostOut [R].
+    No ``fusion_eval`` launch: O(P) small elementwise steps."""
+    s = _as_strategies(strategies, wls["A"])
+    R, P = s.shape
+    hwv = stack_hw(hw, R, s.device)
+    consts = prefix_consts(wls, _as_f32(batches, s).reshape(R),
+                           _as_f32(budgets_bytes, s).reshape(R), hwv)
+    carry = prefix_init(consts)
+    trace = []
+    for t in range(P):
+        trace.append(prefix_out(consts, carry, hwv))
+        new = prefix_step(consts, carry, s[:, t], hwv)
+        carry = _select(carry.t <= consts.n, new, carry)
+    trace = CostOut(*(torch.stack(x, dim=-1) for x in zip(*trace)))
+    return trace, prefix_out(consts, carry, hwv)
 
 
 def random_strategy(rng: np.random.Generator, n: int, nmax: int, batch: int,

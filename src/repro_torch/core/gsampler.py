@@ -1,14 +1,21 @@
-"""G-Sampler: the paper's search-based teacher (§4.4.2), grid form.
+"""G-Sampler: the paper's search-based teacher (§4.4.2).
 
-Port of the device-resident grid search of ``repro.core.gsampler``: a
-genetic algorithm with heuristic seeding (all-sync and the naive uniform
-micro-batch), fusion-aware mutation and a constraint-repair operator that
-targets the most over-budget fused group, run for every condition of a
-(workload x accelerator x budget) grid at once over a [C, POP, P]
-strategy tensor.  Every fitness and repair evaluation goes through the
-``fusion_eval`` kernel.
+Port of ``repro.core.gsampler``: a genetic algorithm with heuristic
+seeding (all-sync and the naive uniform micro-batch), fusion-aware
+mutation and a constraint-repair operator that targets the most
+over-budget fused group.  Every fitness and repair evaluation goes through
+the ``fusion_eval`` kernel.  Two forms:
 
-Differences from the reference, none of which changes the operator:
+- ``gsampler_search``, the host search of one condition (a ``FusionEnv``):
+  numpy draws from ``np.random.default_rng(cfg.seed)`` in the reference's
+  order, one population evaluation a generation and one per repair round,
+  so its strategies equal the reference's exactly wherever the two cost
+  models rank the population alike;
+- ``gsampler_search_grid``, every condition of a (workload x accelerator x
+  budget) grid at once over a [C, POP, P] strategy tensor.
+
+Differences of the grid form from the reference, none of which changes
+the operator:
 
 - randomness comes from one ``torch.Generator`` on the search's device
   (``jax.random.categorical`` becomes ``torch.multinomial``), so results
@@ -21,7 +28,7 @@ Differences from the reference, none of which changes the operator:
 from __future__ import annotations
 
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
@@ -30,7 +37,8 @@ from .. import resolve_device
 from . import cost_model as cm
 from .accel import AccelConfig, stack_hw
 
-__all__ = ["GSamplerConfig", "GridTeacherResult", "gsampler_search_grid"]
+__all__ = ["GSamplerConfig", "GSamplerResult", "gsampler_search",
+           "naive_uniform_mb", "GridTeacherResult", "gsampler_search_grid"]
 
 
 @dataclass(frozen=True)
@@ -42,6 +50,162 @@ class GSamplerConfig:
     p_sync_mut: float = 0.25
     repair_tries: int = 6
     seed: int = 0
+
+
+@dataclass
+class GSamplerResult:
+    strategy: np.ndarray
+    speedup: float
+    latency: float
+    peak_mem: float
+    valid: bool
+    n_evals: int
+    wall_s: float
+    history: list = field(default_factory=list)     # best speedup per gen
+    elites: list = field(default_factory=list)      # top-k distinct strategies
+
+
+def naive_uniform_mb(env, max_mb: int | None = None) -> np.ndarray:
+    """Paper §3's naive strategy: one uniform micro-batch for the whole net,
+    the largest that stages all intermediates on-chip (binary search)."""
+    B = env.batch
+    hi = max_mb or B
+    best = None
+    lo = 1
+    while lo <= hi:
+        mid = (lo + hi) // 2
+        s = np.full(env.nmax, cm.SYNC, dtype=np.int32)
+        s[: env.n + 1] = mid
+        _, _, valid = env.speedup(s)
+        if valid:
+            best, lo = s, mid + 1
+        else:
+            hi = mid - 1
+    if best is None:
+        best = np.full(env.nmax, cm.SYNC, dtype=np.int32)
+        best[0] = 1
+    return best
+
+
+def _repair_population(env, pop: np.ndarray, cfg: GSamplerConfig,
+                       rng: np.random.Generator) -> np.ndarray:
+    """Constraint repair of a whole brood: while any child is over budget,
+    split or shrink its worst fused group (one stats-form evaluation a
+    round supplies the group ids and memories)."""
+    s = pop.copy()
+    mask = env.wl_np["mask"]
+    for _ in range(cfg.repair_tries):
+        out, gid, M_g = cm.evaluate_population_stats(
+            env.wl, s, float(env.batch), float(env.budget_bytes), env.hw)
+        invalid = ~out.valid.cpu().numpy()
+        if not invalid.any():
+            break
+        gid = gid.cpu().numpy()
+        M_g = M_g.cpu().numpy()
+        for i in np.where(invalid)[0]:
+            worst = int(np.argmax(M_g[i]))
+            span = np.where((gid[i] == worst) & mask)[0]
+            start, end = int(span[0]), int(span[-1])
+            if end > start and rng.random() < 0.5:
+                s[i, (start + end) // 2] = cm.SYNC     # split the group
+            else:
+                seg = s[i, start: end + 1]
+                mbs = np.where(seg > 1, seg, 0)
+                if mbs.max() > 1:
+                    j = start + int(np.argmax(mbs))
+                    s[i, j] = max(1, s[i, j] // 2)     # shrink largest stage
+                elif end > start:
+                    s[i, (start + end) // 2] = cm.SYNC
+                # else: single layer already minimal -- leave it
+    return s
+
+
+def _fitness(latency: np.ndarray, peak: np.ndarray,
+             budget: float) -> np.ndarray:
+    over = np.maximum(0.0, peak / budget - 1.0)
+    return np.where(over > 0.0, -1e3 * (1.0 + over) - latency, -latency)
+
+
+def _costs(env, pop: np.ndarray):
+    """(latency, peak) of population ``pop`` as host arrays."""
+    out = cm.evaluate_population(env.wl, pop, float(env.batch),
+                                 float(env.budget_bytes), env.hw)
+    return out.latency.cpu().numpy(), out.peak_mem.cpu().numpy()
+
+
+def gsampler_search(env, cfg: GSamplerConfig = GSamplerConfig(),
+                    top_k: int = 8) -> GSamplerResult:
+    """Search one ``FusionEnv`` condition on the env's device."""
+    rng = np.random.default_rng(cfg.seed)
+    t0 = time.perf_counter()
+    P, n, B = cfg.population, env.n, env.batch
+
+    pop = np.stack([cm.random_strategy(rng, n, env.nmax, B, p_sync=0.4)
+                    for _ in range(P)])
+    pop[0] = np.full(env.nmax, cm.SYNC, dtype=np.int32)
+    pop[0][0] = B
+    pop[1] = naive_uniform_mb(env)
+    n_evals = 0
+    history = []
+    seen_elites: dict[bytes, tuple[float, np.ndarray]] = {}
+
+    for _ in range(cfg.generations):
+        lat, peak = _costs(env, pop)
+        n_evals += P
+        fit = _fitness(lat, peak, env.budget_bytes)
+        order = np.argsort(-fit)
+        for idx in order[: cfg.elite]:
+            if fit[idx] > -1e3:     # valid
+                key = pop[idx, : n + 1].tobytes()
+                seen_elites[key] = (float(fit[idx]), pop[idx].copy())
+        best = order[0]
+        history.append(env.baseline_latency / lat[best]
+                       if fit[best] > -1e3 else 0.0)
+
+        # --- next generation ---------------------------------------------
+        nxt = [pop[i].copy() for i in order[: cfg.elite]]
+        ranks = np.empty(P)
+        ranks[order] = np.arange(P)
+        p_sel = (P - ranks) / (P * (P + 1) / 2)
+        while len(nxt) < P:
+            pa, pb = rng.choice(P, size=2, p=p_sel)
+            cut = rng.integers(1, n + 1)
+            child = np.concatenate([pop[pa][:cut], pop[pb][cut:]])
+            for j in range(n + 1):            # mutation
+                if rng.random() < cfg.p_mut_gene / (n + 1):
+                    r = rng.random()
+                    if j > 0 and r < cfg.p_sync_mut:
+                        child[j] = cm.SYNC if child[j] != cm.SYNC \
+                            else int(rng.integers(1, B + 1))
+                    elif r < 0.6 and child[j] >= 1:
+                        child[j] = int(np.clip(
+                            child[j] * (2 if rng.random() < 0.5 else 0.5),
+                            1, B))
+                    else:
+                        child[j] = int(rng.integers(1, B + 1))
+            if child[0] < 1:
+                child[0] = int(rng.integers(1, B + 1))
+            nxt.append(child)
+        brood = _repair_population(env, np.stack(nxt[cfg.elite:]), cfg, rng)
+        pop = np.concatenate([np.stack(nxt[: cfg.elite]), brood])
+
+    lat, peak = _costs(env, pop)             # final evaluation
+    n_evals += P
+    fit = _fitness(lat, peak, env.budget_bytes)
+    best = int(np.argmax(fit))
+    for idx in np.argsort(-fit)[: cfg.elite]:
+        if fit[idx] > -1e3:
+            key = pop[idx, : n + 1].tobytes()
+            seen_elites[key] = (float(fit[idx]), pop[idx].copy())
+
+    elites = [s for _, s in sorted(seen_elites.values(),
+                                   key=lambda kv: -kv[0])][:top_k]
+    return GSamplerResult(
+        strategy=pop[best].copy(),
+        speedup=env.baseline_latency / float(lat[best]),
+        latency=float(lat[best]), peak_mem=float(peak[best]),
+        valid=bool(fit[best] > -1e3), n_evals=n_evals,
+        wall_s=time.perf_counter() - t0, history=history, elites=elites)
 
 
 @dataclass
@@ -64,7 +228,7 @@ def _randint_1_to_B(gen, shape, B) -> torch.Tensor:
     return (1.0 + torch.floor(u * B)).to(torch.int32)
 
 
-def _fitness(latency, peak, budget):
+def _fitness_grid(latency, peak, budget):
     over = torch.clamp_min(peak / budget - 1.0, 0.0)
     return torch.where(over > 0.0, -1e3 * (1.0 + over) - latency, -latency)
 
@@ -182,7 +346,7 @@ def _ga_grid(gen, wls, batches, budgets, hw, cfg: GSamplerConfig,
     history = []
     for _ in range(cfg.generations):
         out = cm.evaluate_grid(wls, pop, batches, budgets, hw)
-        fit = _fitness(out.latency, out.peak_mem, budgets[:, None])
+        fit = _fitness_grid(out.latency, out.peak_mem, budgets[:, None])
         order = torch.argsort(-fit, dim=1, stable=True)
         elites = torch.take_along_dim(pop, order[:, :E, None], dim=1)
         ranks = torch.argsort(order, dim=1, stable=True)
@@ -201,7 +365,7 @@ def _ga_grid(gen, wls, batches, budgets, hw, cfg: GSamplerConfig,
         history.append(torch.amax(torch.where(out.valid, sp, 0.0), dim=1))
 
     out = cm.evaluate_grid(wls, pop, batches, budgets, hw)
-    fit = _fitness(out.latency, out.peak_mem, budgets[:, None])
+    fit = _fitness_grid(out.latency, out.peak_mem, budgets[:, None])
     order = torch.argsort(-fit, dim=1, stable=True)[:, :top_k]
     take = lambda x: torch.take_along_dim(x, order, dim=1)
     lat = take(out.latency)

@@ -1,16 +1,26 @@
 """One-shot inference: the paper's headline capability (§4.5.2).
 
-Port of the fused, batched episode of ``repro.core.infer``.  Every row of
-a stack of (workload, batch, budget, accelerator) conditions is rolled out
-in lockstep: at step t each row observes (r_t, s_t) from the O(1) prefix
-carry, the model decodes one step over its KV cache, the budget guard
-halves or syncs the action until the staged prefix fits, and the env
-commits it.  Positions past a row's true ``n`` are masked to SYNC.
+Port of ``repro.core.infer``.  Two implementations:
+
+- ``dnnfuser_infer``, the host reference (``_rollout``): a Python loop
+  that re-runs the model's full-sequence forward at every step, decodes
+  the action on the host and probes the budget guard with full
+  ``FusionEnv.evaluate_strategy`` calls (one ``fusion_eval`` launch each on
+  the card) -- the readable oracle;
+- ``dnnfuser_infer_batch`` / ``dnnfuser_infer_fused``, the fused, batched
+  episode described below.
+
+In the fused episode every row of a stack of (workload, batch, budget,
+accelerator) conditions is rolled out in lockstep: at step t each row
+observes (r_t, s_t) from the O(1) prefix carry, the model decodes one step
+over its KV cache, the budget guard halves or syncs the action until the
+staged prefix fits, and the env commits it. Positions past a row's true
+``n`` are masked to SYNC.
 
 The reference's guard is a ``lax.while_loop``; here it is a fixed-trip
 masked loop of floor(log2 max B) + 1 rounds (halving from at most B down
 to 1, then one step to SYNC), which is equivalent because a row whose
-probe fits never changes again.  So the episode makes no host sync: no
+probe fits never changes again. So the episode makes no host sync: no
 ``.item()`` and no Python branch on a device tensor.
 """
 from __future__ import annotations
@@ -26,11 +36,11 @@ from .. import resolve_device
 from . import cost_model as cm
 from .accel import accel_features, stack_hw
 from .backend import backend_for
-from .env import (FusionEnv, decode_action, encode_action, env_final,
-                  env_make, env_observe, env_reset, env_step)
+from .env import (STATE_DIM, FusionEnv, decode_action, encode_action,
+                  env_final, env_make, env_observe, env_reset, env_step)
 
-__all__ = ["InferResult", "dnnfuser_infer_batch", "dnnfuser_infer_fused",
-           "guard_rounds"]
+__all__ = ["InferResult", "dnnfuser_infer", "dnnfuser_infer_batch",
+           "dnnfuser_infer_fused", "guard_rounds"]
 
 
 @dataclass
@@ -42,6 +52,60 @@ class InferResult:
     valid: bool
     wall_s: float
     n_model_calls: int
+
+
+def _rollout(backend, model, env: FusionEnv, *, repair: bool) -> InferResult:
+    cfg = model.cfg
+    T = cfg.max_steps
+    dev = env.device
+    rtg = np.zeros((1, T), np.float32)
+    states = np.zeros((1, T, STATE_DIM), np.float32)
+    actions = np.zeros((1, T), np.float32)
+    hwf = (torch.as_tensor(env.hw_features[None], device=dev)
+           if cfg.hw_dim else None)
+    t0 = time.perf_counter()
+    s = env.reset()
+    calls = 0
+    for t in range(env.n + 1):
+        states[0, t] = s
+        rtg[0, t] = env.reward_to_go
+        with torch.inference_mode():
+            pred = backend.forward(model, torch.as_tensor(rtg, device=dev),
+                                   torch.as_tensor(states, device=dev),
+                                   torch.as_tensor(actions, device=dev), hwf)
+        calls += 1
+        a = int(decode_action(float(pred[0, t]), env.batch))
+        if t == 0 and a < 1:
+            a = 1                      # the input micro-batch cannot sync
+        if repair and a >= 1 and t > 0:
+            # inference-time budget guard: halve, then sync, until the
+            # staged prefix (the rest SYNC) fits the budget
+            while a >= 1:
+                probe = env.actions.copy()
+                probe[t] = a
+                probe = np.where(np.arange(env.nmax) <= t, probe, cm.SYNC)
+                out = env.evaluate_strategy(probe)
+                if float(out.peak_mem) <= env.budget_bytes:
+                    break
+                a = a // 2 if a > 1 else cm.SYNC
+        actions[0, t] = encode_action(np.float32(a), env.batch)
+        s, _, _ = env.step(a)
+    wall = time.perf_counter() - t0
+    strat = env.actions.copy()
+    out = env.evaluate_strategy(strat)
+    return InferResult(strat, env.baseline_latency / float(out.latency),
+                       float(out.latency), float(out.peak_mem),
+                       bool(out.valid), wall, calls)
+
+
+def dnnfuser_infer(model, env: FusionEnv, *,
+                   repair: bool = True) -> InferResult:
+    """Conditional autoregressive inference of one condition, the host
+    reference path, on the env's device (the model must be there)."""
+    if model.head.w.device != env.device:
+        raise ValueError(f"model is on {model.head.w.device}, the env on "
+                         f"{env.device}")
+    return _rollout(backend_for(model.cfg), model, env, repair=repair)
 
 
 def guard_rounds(max_batch: int) -> int:

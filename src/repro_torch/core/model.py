@@ -15,14 +15,16 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from .. import resolve_device
 from ..nn import Block, Dense, Embedding, LayerNorm, init_kv_cache
 from .env import STATE_DIM
 
-__all__ = ["DTConfig", "DT", "dt_init", "dt_apply", "dt_cache_init",
-           "dt_prefill", "dt_decode_step", "DTBackend"]
+__all__ = ["DTConfig", "DT", "dt_init", "dt_apply", "dt_loss",
+           "dt_cache_init", "dt_prefill", "dt_decode_step", "DTBackend",
+           "param_tree", "load_param_tree"]
 
 
 @dataclass(frozen=True)
@@ -81,9 +83,18 @@ class DT(nn.Module):
 
     def time_emb(self, idx: torch.Tensor) -> torch.Tensor:
         """Time embedding at ``idx``; indices past ``max_steps`` are
-        poisoned to NaN instead of raising or aliasing a row."""
+        poisoned to NaN instead of raising or aliasing a row.
+
+        The lookup is a one-hot product, which selects each row exactly
+        (TF32 is off) and whose backward is a matmul: on the card the
+        gradient of ``time`` is then the same in every run.  Both gather
+        forms are not: ``F.embedding``'s backward sums a row's gradient in
+        another order from run to run once it sees more than 3072 indices
+        (measured on the H100, torch 2.11), with no warning under
+        ``torch.use_deterministic_algorithms``."""
         ms = self.cfg.max_steps
-        t = self.time(idx.clamp(0, ms - 1))
+        onehot = F.one_hot(idx.clamp(0, ms - 1).long(), ms)
+        t = onehot.to(self.time.emb.dtype) @ self.time.emb
         return torch.where((idx < ms)[..., None], t, float("nan"))
 
 
@@ -113,7 +124,7 @@ def dt_apply(model: DT, rtg, states, actions, t0=None, hw=None):
     tok_a = model.emb_a(actions[..., None])
     steps = torch.arange(T, device=rtg.device)
     if t0 is None:
-        time = model.time(steps)[None]
+        time = model.time_emb(steps)[None]
     else:
         time = model.time_emb(t0.long()[:, None] + steps[None, :])
     typ = model.type_.emb
@@ -125,6 +136,49 @@ def dt_apply(model: DT, rtg, states, actions, t0=None, hw=None):
     x = model.ln_f(x)
     s_tok = x.reshape(B, T, 3, d)[:, :, 1]
     return model.head(s_tok)[..., 0]
+
+
+def dt_loss(model: DT, batch: dict) -> torch.Tensor:
+    """Masked MSE (paper §4.3.1) of tensors ``batch`` (``rtg``, ``states``,
+    ``actions``, ``mask`` and optionally ``t0`` window offsets and ``hw``
+    condition rows)."""
+    pred = dt_apply(model, batch["rtg"], batch["states"], batch["actions"],
+                    batch.get("t0"), batch.get("hw"))
+    err = torch.square(pred - batch["actions"]) * batch["mask"]
+    return err.sum() / torch.clamp_min(batch["mask"].sum(), 1.0)
+
+
+def _ref_name(name: str) -> str:
+    """Port parameter name -> the reference's pytree path."""
+    parts = name.split(".")
+    if parts[0] == "type_":
+        parts[0] = "type"
+    return "/".join(parts)
+
+
+def param_tree(model: nn.Module) -> dict[str, torch.Tensor]:
+    """The model's parameters keyed by the reference's pytree paths
+    (``blocks/0/attn/q/w``, ``type/emb``), in ``named_parameters`` order:
+    the ``params`` tree of a training checkpoint."""
+    return {_ref_name(k): p for k, p in model.named_parameters()}
+
+
+@torch.no_grad()
+def load_param_tree(model: nn.Module, tree: dict) -> nn.Module:
+    """Copy ``tree`` (reference paths -> arrays or tensors) into the
+    model's parameters in place; raises on a missing, extra or misshapen
+    leaf."""
+    params = param_tree(model)
+    if set(tree) != set(params):
+        raise KeyError(f"parameter trees differ: "
+                       f"{sorted(set(tree) ^ set(params))}")
+    for k, p in params.items():
+        v = torch.as_tensor(tree[k])
+        if tuple(v.shape) != tuple(p.shape):
+            raise ValueError(f"{k}: shape {tuple(v.shape)}, the model has "
+                             f"{tuple(p.shape)}")
+        p.copy_(v)
+    return model
 
 
 def dt_cache_init(cfg: DTConfig, batch: int = 1, device=None) -> list:

@@ -1,11 +1,16 @@
 """Where the time of the port's main path goes, on one CUDA card.
 
     PYTHONPATH=src python -m repro_torch.profile_main_path [--out DIR]
-        [--only gsampler,dt_one_shot,qwen3_8b,rwkv6_3b]
+        [--only gsampler,dt_one_shot,corpus,train_step,qwen3_8b,rwkv6_3b]
 
 Slice 1: answers the smoke grid (6 CNNs x 5 parts x 4 budgets, batch 64,
 nmax 64) with the G-Sampler (paper config) and with the DT one-shot
-episode (full width, hw-conditioned, seeded random weights).  Slices 2
+episode (full width, hw-conditioned, seeded random weights).  Slice 7:
+builds the teacher corpus of that grid (``generate_teacher_corpus``: the
+GA, top 8 elites and 2 jittered copies of the top 4, one ``prefix_scan``
+decoration; phase ``corpus``) and runs 20 training steps of the same DT on
+it (the reference's TrainConfig, batch 64; phase ``train_step``, which
+also reports launches and host milliseconds a step).  Slices 2
 and 3: qwen3_8b and rwkv6_3b at full width and depth (seeded random
 weights) each score 2 x 4096 tokens in bf16 (``forward``), and, in f32
 after a 1024-token prefill of batch 4, run 8 greedy decode steps
@@ -32,8 +37,8 @@ import torch
 import numpy as np
 
 from .configs import get_config
-from .core import accel, cost_model as cm, gsampler as gs, infer
-from .core import model as dtm
+from .core import accel, cost_model as cm, dataset, gsampler as gs, infer
+from .core import model as dtm, train
 from .kernels import flash_attention as fa, flash_decode as fd
 from .kernels import fusion_eval as fe, rwkv6_scan as rk
 from .models import lm, rwkv_lm
@@ -43,6 +48,8 @@ PORT_KERNELS = {"fusion_eval": fe, "flash_attention": fa,
                 "flash_decode": fd, "wkv6": rk}
 
 __all__ = ["profile_phase", "main"]
+
+TRAIN_STEPS = 20
 
 
 def profile_phase(name: str, fn, out_dir: pathlib.Path, top: int = 8) -> dict:
@@ -121,8 +128,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="chiprun_out/profile",
                     help="directory for the chrome traces")
-    ap.add_argument("--only", default="gsampler,dt_one_shot,qwen3_8b,"
-                    "rwkv6_3b", help="comma-separated phases to run (the "
+    ap.add_argument("--only", default="gsampler,dt_one_shot,corpus,"
+                    "train_step,qwen3_8b,rwkv6_3b", help="comma-separated phases to run (the "
                     "LMs' name both their scoring and decode phases)")
     args = ap.parse_args(argv)
     only = set(args.only.split(","))
@@ -144,11 +151,27 @@ def main(argv=None) -> int:
         "dt_one_shot": lambda: infer.dnnfuser_infer_batch(
             model, packed, batches, budgets, hws, device=dev),
     }
+    nets = workloads[::len(parts) * 4]
+    corpus = lambda: dataset.generate_teacher_corpus(
+        nets, [accel.ACCEL_ZOO[p] for p in parts], batch=64,
+        budgets_mb=[8, 16, 32, 64], max_steps=64, top_k=8, seed=0,
+        augment_jitter=2, device=dev)
+    phases["corpus"] = corpus
     print(json.dumps({"device": torch.cuda.get_device_name(0),
                       "conditions": len(conds)}))
     for name, fn in phases.items():
         if name in only:
             print(json.dumps(profile_phase(name, fn, out_dir)))
+    if "train_step" in only:
+        ds = corpus()
+        cfg = train.TrainConfig(steps=TRAIN_STEPS, log_every=TRAIN_STEPS)
+        step = lambda: train.train_model(dtm.dt_loss, model, ds, cfg,
+                                         device=dev)
+        r = profile_phase("train_step", step, out_dir)
+        r.update(steps=TRAIN_STEPS,
+                 ms_per_step_unprofiled=r["wall_ms_unprofiled"] / TRAIN_STEPS,
+                 launches_per_step=r["kernel_launches"] / TRAIN_STEPS)
+        print(json.dumps(r))
     del model, packed
 
     rng = np.random.default_rng(1)

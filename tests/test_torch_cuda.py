@@ -508,3 +508,106 @@ def test_rwkv6_3b_width_decode_step_on_card(dev):
     tol = 2e-4 * float(out["dense"][0].abs().max())
     torch.testing.assert_close(out["kernel"][0], out["dense"][0], rtol=0,
                                atol=tol)
+
+
+def _small_corpus(dev, seed=0):
+    """A corpus of 2 nets x 2 parts x 2 budgets on ``dev`` and its grid."""
+    from repro_torch.core import dataset
+    nets, parts = [tiny_cnn(), resnet18()], [accel.ACCEL_ZOO["edge"],
+                                            accel.ACCEL_ZOO["datacenter"]]
+    ga = gs.GSamplerConfig(population=16, generations=6, seed=seed)
+    return dataset.generate_teacher_corpus(
+        nets, parts, batch=32, budgets_mb=[2.0, 16.0], max_steps=32,
+        top_k=4, ga_cfg=ga, seed=seed, augment_jitter=1, device=dev), ga
+
+
+def test_corpus_on_card_launches_the_grid_ga_and_rescores(dev):
+    """The corpus pipeline launches only the grid GA's fusion_eval calls
+    (the decoration is a prefix scan), is deterministic per seed, and the
+    decoration's final costs equal the kernel's re-score."""
+    from repro_torch.core import dataset
+    fe.reset_launches()
+    a, ga = _small_corpus(dev)
+    torch.cuda.synchronize()
+    assert fe.STATS.launches == 18 + ga.generations * (1 + ga.repair_tries) + 1
+    b, _ = _small_corpus(dev)
+    for k in ("rtg", "states", "actions", "mask", "hw"):
+        np.testing.assert_array_equal(getattr(a, k), getattr(b, k))
+    works = [w for w in (tiny_cnn(), resnet18()) for _ in range(4)]
+    hws = [accel.ACCEL_ZOO[p] for _ in range(2)
+           for p in ("edge", "edge", "datacenter", "datacenter")]
+    budgets = np.array([2.0, 16.0] * 4, np.float32) * MB
+    batches = np.full(8, 32.0, np.float32)
+    wl = cm.stack_workloads([cm.pack_workload(w, h, 32, device=dev)
+                             for w, h in zip(works, hws)])
+    rng = np.random.default_rng(1)
+    cand = np.stack([np.stack([cm.random_strategy(rng, w.n, 32, 32,
+                                                  p_sync=0.1 * k)
+                               for k in range(6)]) for w in works])
+    fin = dataset._decorate_grid(wl, cand, batches, budgets, hws)[4]
+    re = cm.evaluate_grid(wl, cand, batches, budgets, hws)
+    for k in ("latency", "peak_mem", "traffic"):
+        np.testing.assert_allclose(getattr(fin, k).cpu().numpy(),
+                                   getattr(re, k).cpu().numpy(), rtol=1e-5)
+    assert torch.equal(fin.valid, re.valid)
+    assert torch.equal(fin.n_groups, re.n_groups)
+
+
+def test_training_on_card_is_bit_exact(dev, tmp_path):
+    """Two runs of one seed, and a crash plus a resume, end on the same
+    parameters bit for bit (the embedding backward is deterministic)."""
+    from repro_torch.core import model as dtm, train
+    ds, _ = _small_corpus(dev)
+    cfg = dtm.DTConfig(max_steps=32, hw_dim=accel.HW_FEATURE_DIM)
+    tc = train.TrainConfig(steps=12, batch_size=32, log_every=4,
+                           ckpt_every=6, seed=3)
+    run = lambda **kw: train.train_model(
+        dtm.dt_loss, dtm.dt_init(cfg, seed=1, device=dev), ds, tc,
+        device=dev, **kw)
+    a, log = run()
+    b, _ = run()
+    run(ckpt_dir=tmp_path, crash_at=6)
+    c, rlog = run(ckpt_dir=tmp_path)
+    assert rlog["start_step"] == 6
+    assert log["losses"][-1][1] < log["losses"][0][1]
+    ta = dtm.param_tree(a)
+    for other in (b, c):
+        to = dtm.param_tree(other)
+        assert all(torch.equal(ta[k], to[k]) for k in ta)
+
+
+def test_host_search_on_card_equals_cpu(dev):
+    """The host G-Sampler draws the same numpy stream on either device, and
+    the kernel is bit-equal to the twin, so the card's search is the
+    CPU's."""
+    from repro_torch.core import env
+    cfg = gs.GSamplerConfig(population=10, generations=4, seed=2)
+    got = gs.gsampler_search(env.FusionEnv(resnet18(), accel.PAPER_ACCEL, 32,
+                                           4 * MB, nmax=32, device=dev), cfg)
+    want = gs.gsampler_search(env.FusionEnv(resnet18(), accel.PAPER_ACCEL,
+                                            32, 4 * MB, nmax=32,
+                                            device="cpu"), cfg)
+    np.testing.assert_array_equal(got.strategy, want.strategy)
+    assert len(got.elites) == len(want.elites)
+    for x, y in zip(got.elites, want.elites):
+        np.testing.assert_array_equal(x, y)
+
+
+@pytest.mark.parametrize("n", [1024, 4096, 16384])
+def test_time_embedding_backward_is_deterministic_on_card(dev, n):
+    """The DT's time-embedding lookup (a one-hot product) gives the same
+    gradient bit for bit in every run, past the 3072 indices where
+    ``F.embedding``'s CUDA backward starts to sum in a varying order."""
+    from repro_torch.core import model as dtm
+    model = dtm.dt_init(dtm.DTConfig(max_steps=64), seed=0, device=dev)
+    gen = torch.Generator(device=dev)
+    idx = torch.randint(0, 64, (n,), device=dev, generator=gen.manual_seed(1))
+    g = torch.randn(n, model.cfg.d_model, device=dev,
+                    generator=gen.manual_seed(2))
+    grads = []
+    for _ in range(3):
+        model.zero_grad()
+        (model.time_emb(idx) * g).sum().backward()
+        grads.append(model.time.emb.grad.clone())
+    assert all(torch.equal(grads[0], x) for x in grads[1:])
+    assert torch.equal(model.time_emb(idx), model.time.emb.detach()[idx])

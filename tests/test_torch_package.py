@@ -13,8 +13,8 @@ import torch
 
 from _torch_parity import CPU, MB
 import repro_torch
-from repro_torch.core import accel, cost_model as cm, env, gsampler, infer
-from repro_torch.core import model as dtm
+from repro_torch.core import accel, cost_model as cm, dataset, env, gsampler
+from repro_torch.core import infer, model as dtm, train
 from repro_torch.configs import get_config
 from repro_torch.kernels import _build, fusion_eval as fe
 from repro_torch.launch import serve_greedy
@@ -23,7 +23,8 @@ from repro_torch.workloads import tiny_cnn
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
-    [ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_cuda.py"]
+    [ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_cuda.py",
+     ROOT / "examples" / "quickstart_torch.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro", "_torch_parity")
 
 
@@ -46,7 +47,9 @@ def test_port_imports_no_jax_and_no_reference(path):
 
 @pytest.mark.parametrize("module", ["nn", "models.lm", "kernels.flash_attention",
                                     "kernels.fusion_eval", "core", "launch",
-                                    "models.rwkv_lm", "kernels.rwkv6_scan"])
+                                    "models.rwkv_lm", "kernels.rwkv6_scan",
+                                    "optim", "checkpoint", "core.train",
+                                    "core.dataset"])
 def test_each_layer_imports_first(module):
     """``nn`` imports the attention kernels, and ``kernels.fusion_eval``
     imports ``core``, whose DT imports ``nn``: each must import first in a
@@ -70,6 +73,15 @@ def test_resolve_device():
             repro_torch.resolve_device()
 
 
+_TINY_DT = dtm.DTConfig(n_blocks=1, d_model=8, d_ff=8, max_steps=8)
+
+
+def _tiny_dataset():
+    z = np.zeros((2, 8), np.float32)
+    return dataset.TrajectoryDataset(z, np.zeros((2, 8, 8), np.float32), z,
+                                     z + 1.0)
+
+
 _ENTRY_POINTS = {
     "pack_workload": lambda: cm.pack_workload(tiny_cnn(), accel.PAPER_ACCEL),
     "FusionEnv": lambda: env.FusionEnv(tiny_cnn(), accel.PAPER_ACCEL, 32,
@@ -85,6 +97,26 @@ _ENTRY_POINTS = {
         cm.pack_workload(tiny_cnn(), accel.PAPER_ACCEL, 8, device=CPU),
         [32], [8 * MB], accel.PAPER_ACCEL),
     "compiled_backend_supported": fe.compiled_backend_supported,
+    "gsampler_search": lambda: gsampler.gsampler_search(
+        env.FusionEnv(tiny_cnn(), accel.PAPER_ACCEL, 32, 8 * MB, nmax=8),
+        gsampler.GSamplerConfig(population=4, generations=1)),
+    "naive_uniform_mb": lambda: gsampler.naive_uniform_mb(
+        env.FusionEnv(tiny_cnn(), accel.PAPER_ACCEL, 32, 8 * MB, nmax=8)),
+    "generate_teacher_corpus": lambda: dataset.generate_teacher_corpus(
+        [tiny_cnn()], accel.PAPER_ACCEL, budgets_mb=[8.0], max_steps=8,
+        ga_cfg=gsampler.GSamplerConfig(population=4, generations=1)),
+    "collect_teacher_data": lambda: dataset.collect_teacher_data(
+        [tiny_cnn()], accel.PAPER_ACCEL, 32, [8.0], max_steps=8,
+        ga_cfg=gsampler.GSamplerConfig(population=4, generations=1)),
+    "train_model": lambda: train.train_model(
+        dtm.dt_loss, dtm.dt_init(_TINY_DT, device=CPU), _tiny_dataset(),
+        train.TrainConfig(steps=1, batch_size=2)),
+    "fine_tune": lambda: train.fine_tune(
+        dtm.dt_loss, dtm.dt_init(_TINY_DT, device=CPU), _tiny_dataset(),
+        train.TrainConfig(steps=1, batch_size=2)),
+    "dnnfuser_infer": lambda: infer.dnnfuser_infer(
+        dtm.dt_init(_TINY_DT, device=CPU),
+        env.FusionEnv(tiny_cnn(), accel.PAPER_ACCEL, 32, 8 * MB, nmax=8)),
     "lm.init": lambda: lm.init(get_config("qwen3_8b", reduced=True)),
     "lm.init_decode_state": lambda: lm.init_decode_state(
         get_config("qwen3_8b", reduced=True), 1, 8),
