@@ -41,7 +41,25 @@ Phases, each of which raises on failure (the script then exits non-zero):
    corpus never saw (12, 24, 48 MB, beside a G-Sampler search of them),
    and on a few conditions the host ``dnnfuser_infer`` is compared with
    the fused episode;
-7. attention kernels against their plain versions: ``flash_attention`` at
+7. serving on the card, with phase 6's trained DT: ``repro_torch.serve``
+   warmed over the 6 CNNs on the default ``ServingConfig``, then a seeded
+   stream of 480 requests in bursts of 16-64 (6 CNNs x 5 parts x budgets
+   8..64 MB x batch 16/64) through the async scheduler: no new signature
+   after warmup, repeats answered from the cache, every strategy equal to
+   ``dnnfuser_infer_batch``'s and every cost to a ``fusion_eval``
+   re-score (rtol 1e-5); 32 of the requests served alone by fresh engines
+   and a permuted replay, bit-identical; the strategy cache saved and
+   loaded by a fresh engine, which answers the stream with no episode
+   call; an engine with ``polish=True, escalate=True`` over the smoke grid
+   plus budgets 0.25-1 MB (at least 8 one-shot answers over budget),
+   never worse by the teacher's fitness (both re-scored by
+   ``fusion_eval``), ``fusion_eval`` launched, a second engine's answers
+   to every third condition bit-identical; the drift monitor fired by
+   the stream's undeclared
+   parts, a ``RefreshWorker.poll()`` (corpus, fine-tune, gate) and, on
+   accept, a swap with no new signature and the edge entries bit-exact;
+   req/s, p50/p99 latency, episode calls, hit rate, walls and launches;
+8. attention kernels against their plain versions: ``flash_attention`` at
    the JAX sweep's shapes (f32 and bf16; causal, non-causal, window 96),
    at qwen3_8b's head shape and at a ragged S; ``flash_decode`` at the
    sweep's shapes, the clamp and pad cases, the card's split plan at every
@@ -58,18 +76,18 @@ Phases, each of which raises on failure (the script then exits non-zero):
    paths (bf16 at the scoring shape, f32 at the self-check's),
    ``flash_decode`` by its device time a call (``device_ms``) and, apart,
    its wrapper's host time a call (``host_us``);
-8. scoring: qwen3_8b at full width and depth (bf16, seeded random
+9. scoring: qwen3_8b at full width and depth (bf16, seeded random
    weights) scores 2 x 4096 tokens through ``lm.forward``: exactly 36
    ``flash_attention`` launches, all on the tensor-core path, finite
    logits;
-9. serving: ``serve_greedy("qwen3_8b", batch=4, prompt_len=1024,
+10. serving: ``serve_greedy("qwen3_8b", batch=4, prompt_len=1024,
    gen_len=128)`` in f32: prefill (chunked, no kernel), then 127 greedy
    decode steps, exactly 36 x 127 ``flash_decode`` launches;
-10. full-width self-check: an f32 ``forward`` over the prompt and the
+11. full-width self-check: an f32 ``forward`` over the prompt and the
    generated tokens (36 ``flash_attention`` launches, all on the
    CUDA-core path) reproduces the served logits (within 1e-3 of the
    logits' largest magnitude) and the greedy tokens (near-ties counted);
-11. ``wkv6`` against ``wkv6_plain``, the sequential recurrence, in f32 at
+12. ``wkv6`` against ``wkv6_plain``, the sequential recurrence, in f32 at
    the JAX sweep's shapes, under strong decay, at a T that is not a whole
    number of chunks, on strided inputs, at the main path's shapes with
    the default tile (rwkv6_3b's scoring shape in f32 and in bf16 r/k/v,
@@ -79,15 +97,15 @@ Phases, each of which raises on failure (the script then exits non-zero):
    bit-equal in every case; then timed against its plain version at the
    scoring shape (f32 and bf16), the serving prefill's and a decode
    step's (device and host time);
-12. scoring: rwkv6_3b at full width and depth (bf16, seeded random
+13. scoring: rwkv6_3b at full width and depth (bf16, seeded random
    weights) scores 2 x 4096 tokens through ``rwkv_lm.forward``: exactly
    32 ``wkv6`` launches, finite logits;
-13. serving: ``serve_greedy("rwkv6_3b", batch=4, prompt_len=1024,
+14. serving: ``serve_greedy("rwkv6_3b", batch=4, prompt_len=1024,
    gen_len=128)`` in f32: exactly 32 + 32 x 127 = 4096 ``wkv6`` launches,
    32 in the prefill and one per layer in each decode step;
-14. RWKV self-check: an f32 ``forward`` through ``wkv6`` over the prompt
+15. RWKV self-check: an f32 ``forward`` through ``wkv6`` over the prompt
    and the generated tokens reproduces the served logits and greedy
-   tokens as in phase 10, and one prefill and one decode step each launch
+   tokens as in phase 11, and one prefill and one decode step each launch
    ``wkv6`` once per layer.
 
 The last lines are the card's ``nvidia-smi`` name and power limit, a JSON
@@ -285,7 +303,7 @@ def sdpa_ms(q, k, v, causal: bool, reps: int) -> float:
 
 
 def attention_kernels(dev) -> dict:
-    """Phase 7: both attention kernels against their plain versions, then
+    """Phase 8: both attention kernels against their plain versions, then
     timed at the main path's shapes.  Returns the JSON fields."""
     import numpy as np
     import torch
@@ -353,7 +371,7 @@ def attention_kernels(dev) -> dict:
             fa_strict, fa_gated = max(fa_strict, strict), max(fa_gated, ratio)
         fa_err[dt] = max(fa_err.get(dt, 0.0), err)
         del q, k, v, want, limit
-    print(f"[7/14] flash_attention == plain on {len(fa_cases)} shapes (JAX "
+    print(f"[8/15] flash_attention == plain on {len(fa_cases)} shapes (JAX "
           f"sweep x f32/bf16 x causal/non-causal/window 96, one tile of 64 "
           f"and 128 rows at hd 64 and 128, GQA 4:1 and 8:1, ragged S/T "
           f"77/150, qwen3_8b heads at S {SCORE_S} and at ragged S "
@@ -510,7 +528,7 @@ def expect_counts(label: str, n: dict, **want) -> None:
 
 
 def scoring(dev, arch: str, phase: int, **want) -> dict:
-    """Phases 8 and 12: ``arch`` (bf16, seeded random weights) scores
+    """Phases 9 and 13: ``arch`` (bf16, seeded random weights) scores
     SCORE_B x SCORE_S random tokens; the launches are ``want``."""
     import numpy as np
     import torch
@@ -537,7 +555,7 @@ def scoring(dev, arch: str, phase: int, **want) -> dict:
     check(tuple(logits.shape) == (SCORE_B, SCORE_S, cfg.vocab_padded)
           and bool(torch.isfinite(logits).all()), "scoring logits malformed "
           "or not finite")
-    print(f"[{phase}/14] scoring {arch} ({cfg.n_layers} layers, d "
+    print(f"[{phase}/15] scoring {arch} ({cfg.n_layers} layers, d "
           f"{cfg.d_model}, {n_params / 1e9:.2f}e9 params, bf16, "
           f"seeded random weights; init {t_init:.2f} s) over "
           f"{SCORE_B}x{SCORE_S} tokens: wall {wall:.4f} s, launches "
@@ -548,7 +566,7 @@ def scoring(dev, arch: str, phase: int, **want) -> dict:
 
 
 def serving(dev, arch: str, phase: int, **want) -> dict:
-    """Phases 9 and 13: greedy serving of ``arch`` in f32; the launches are
+    """Phases 10 and 14: greedy serving of ``arch`` in f32; the launches are
     ``want``."""
     import torch
     from repro_torch.configs import get_config
@@ -564,7 +582,7 @@ def serving(dev, arch: str, phase: int, **want) -> dict:
     toks = out["tokens"]
     check(toks.shape == (SERVE_B, GEN) and (toks >= 0).all()
           and (toks < cfg.vocab_padded).all(), "served tokens malformed")
-    print(f"[{phase}/14] serving {arch} f32, batch {SERVE_B}, prompt "
+    print(f"[{phase}/15] serving {arch} f32, batch {SERVE_B}, prompt "
           f"{PROMPT}, gen {GEN}: prefill {out['t_prefill_s']:.4f} s, decode "
           f"{out['t_decode_s']:.4f} s, {out['tok_per_s']:.2f} tok/s; wall "
           f"with init {wall:.2f} s; launches {launched(n)}")
@@ -575,7 +593,7 @@ def serving(dev, arch: str, phase: int, **want) -> dict:
 
 def self_check(dev, arch: str, served: dict, phase: int, *, want_fwd=None,
                want_prefill=None, want_step=None) -> None:
-    """Phases 10 and 14: an f32 forward over prompt + generated tokens
+    """Phases 11 and 15: an f32 forward over prompt + generated tokens
     reproduces the served logits and the greedy tokens.  With ``want_*``,
     the forward, one prefill of the prompt and one decode step after it
     launch exactly those kernels."""
@@ -622,7 +640,7 @@ def self_check(dev, arch: str, served: dict, phase: int, *, want_fwd=None,
     ties = int((diff & (gap <= 2 * err)).sum())
     check(int(diff.sum()) == ties, f"{int(diff.sum()) - ties} greedy tokens "
           f"differ from the forward's argmax beyond a near-tie")
-    print(f"[{phase}/14] self-check {arch}: f32 forward over {seq.shape[0]}x"
+    print(f"[{phase}/15] self-check {arch}: f32 forward over {seq.shape[0]}x"
           f"{seq.shape[1]} tokens (launches {launched(n_fwd)}) reproduces "
           f"the served logits at positions {PROMPT - 1}..{PROMPT + GEN - 2}: "
           f"max abs err {err:.4g} ({err_pre:.4g} at the prefill's position "
@@ -736,7 +754,7 @@ def wkv_kernel(dev) -> dict:
             main_err[case], tiles[case] = float(diff.max()), tile
         del got, ins, want
     sc32, sc16, pre = main_cases
-    print(f"[11/14] wkv6 == plain on {len(cases)} shapes (JAX sweep, strong "
+    print(f"[12/15] wkv6 == plain on {len(cases)} shapes (JAX sweep, strong "
           f"decay U{strong}, T not whole chunks, strided, bf16 r/k/v, "
           f"{RWKV} scoring in f32 and bf16 at tiles {tiles[sc32]} and "
           f"{tiles[sc16]}, the serving prefill at tile {tiles[pre]}, the "
@@ -793,12 +811,12 @@ UNSEEN_MB = (12, 24, 48)        # budgets the corpus never saw
 HOST_CONDS = (0, 37, 74, 111)   # conditions the host mapper answers too
 
 
-def paper_loop(dev, grid: dict, gsampler: dict, untrained: dict) -> int:
+def paper_loop(dev, grid: dict, gsampler: dict, untrained: dict):
     """Phase 6: corpus, training and answer on the card.  ``grid`` holds the
     smoke grid (workloads, hws, batches, budgets, packed, n_of),
     ``gsampler`` phase 4's wall and best speedups, ``untrained`` phase 5's
     valid share, speedup and wall.  Returns the ``fusion_eval`` launches of
-    the paths it drives."""
+    the paths it drives and the trained DT."""
     import shutil
     import numpy as np
     import torch
@@ -860,7 +878,7 @@ def paper_loop(dev, grid: dict, gsampler: dict, untrained: dict) -> int:
           np.array_equal(np.stack(kept), corpus.rtg),
           "corpus: a replay of the pipeline keeps other rows")
     sp = np.array([m[2] for m in corpus.meta])
-    print(f"[6/14] corpus: generate_teacher_corpus over {C} conditions "
+    print(f"[6/15] corpus: generate_teacher_corpus over {C} conditions "
           f"(GA pop {ga.population} x {ga.generations}, top {top_k} + "
           f"{jitter} jittered copies of the top {top_k // 2}, {cand.shape[1]}"
           f" candidates a condition): wall {corpus_wall:.3f} s, "
@@ -986,7 +1004,306 @@ def paper_loop(dev, grid: dict, gsampler: dict, untrained: dict) -> int:
           f"{same} of {len(HOST_CONDS)} strategies equal the fused "
           f"episode's; {host_launches} fusion_eval launches (one per env "
           f"state and guard probe)")
-    return corpus_launches + answer_launches + host_launches
+    return corpus_launches + answer_launches + host_launches, model
+
+
+STREAM_N = 480                  # requests of the serving stream
+ALONE_N = 32                    # of them served alone by fresh engines
+LOW_MB = (0.25, 0.5, 1)         # budgets low enough to be over budget
+SERVE_CACHE = ROOT / "build" / "smoke_strategies.json"
+
+
+def _same_response(a, b) -> bool:
+    """All five fields bit for bit."""
+    import numpy as np
+    return bool(np.array_equal(a.strategy, b.strategy) and
+                (a.latency, a.peak_mem, a.speedup, a.valid) ==
+                (b.latency, b.peak_mem, b.speedup, b.valid))
+
+
+def _rescore(eng, reqs, strategies):
+    """(latency, peak, valid) of each request's trimmed strategy, scored by
+    ``fusion_eval`` (one ``evaluate_grid`` call per nmax bucket, rows packed
+    as the engine packs them)."""
+    import numpy as np
+    from repro_torch.core import cost_model as cm
+    from repro_torch.serving import nmax_bucket
+    out = np.zeros((3, len(reqs)))
+    by_nb = {}
+    for i, r in enumerate(reqs):
+        by_nb.setdefault(nmax_bucket(r.workload.n + 1, eng.nmax_buckets),
+                         []).append(i)
+    for nb, idx in by_nb.items():
+        s = np.full((len(idx), 1, nb), cm.SYNC, np.int32)
+        for j, i in enumerate(idx):
+            s[j, 0, :len(strategies[i])] = strategies[i]
+        re = cm.evaluate_grid(
+            cm.stack_workloads([eng._pack(reqs[i].workload, reqs[i].accel,
+                                          nb) for i in idx]), s,
+            np.array([reqs[i].batch for i in idx], np.float32),
+            np.array([reqs[i].budget_bytes for i in idx], np.float32),
+            [reqs[i].accel for i in idx])
+        for k, f in enumerate(("latency", "peak_mem", "valid")):
+            out[k, idx] = getattr(re, f)[:, 0].cpu().numpy()
+    return out
+
+
+def _fitness(latency, peak, budget) -> float:
+    """The teacher's fitness (valid beats invalid, then latency, then
+    overshoot)."""
+    import numpy as np
+    from repro_torch.core.gsampler import _fitness as fit
+    return float(fit(np.float32(latency), np.float32(peak),
+                     np.float32(budget)))
+
+
+def mapper_serving(dev, model) -> int:
+    """Phase 7: the serving stack on the card with phase 6's trained DT.
+    Returns the ``fusion_eval`` launches of the paths it drives (the
+    refinement and the refresh; the one-shot stream launches none)."""
+    import numpy as np
+    import torch
+    import repro_torch
+    from repro_torch.core import accel, cost_model as cm, infer
+    from repro_torch.serving import (AsyncMapperScheduler, MapperEngine,
+                                     MapRequest, RefreshWorker,
+                                     ServingConfig, nmax_bucket)
+    from repro_torch.serving.engine import _accel_key
+    from repro_torch.workloads import CNN_ZOO
+    from repro_torch.workloads.grid import SERVE_BUDGETS_MB, serving_stream
+    parts = sorted(accel.ACCEL_ZOO)
+    nets = {n: CNN_ZOO[n]() for n in sorted(CNN_ZOO)}
+    zoo = accel.ACCEL_ZOO
+    req = lambda n, p, b, bt: MapRequest(nets[n], bt, b * MB, zoo[p])
+    launches = {}
+
+    # -- 1. warm up and stream ---------------------------------------------
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sched = repro_torch.serve(model, warm=list(nets.values()), device=dev)
+    torch.cuda.synchronize()
+    warm_wall = time.perf_counter() - t0
+    eng = sched.engine
+    sigs = eng.compile_count
+    conds, arrivals = serving_stream(parts, STREAM_N, seed=0)
+    reqs = [req(*c) for c in conds]
+    calls0, hist0 = eng.device_calls, dict(eng.coalesce_hist)
+    reset_counts()
+    t0 = time.perf_counter()
+    futs, last = [], 0.0
+    for r, a in zip(reqs, arrivals):
+        if a > last + sched.flush_s:    # the last burst's flush timer fires
+            sched.pump(now=last + sched.flush_s)
+        futs.append(sched.submit(r, now=a))
+        sched.pump(now=a)
+        last = a
+    sched.drain(now=last + sched.flush_s)
+    stream_wall = time.perf_counter() - t0
+    launches["stream"] = counts()
+    expect_counts("serving stream", launches["stream"])
+    resp = [f.result() for f in futs]
+    lat = np.array(sorted(f.latency_s for f in futs))
+    calls = eng.device_calls - calls0
+    lanes = sum(k * (v - hist0.get(k, 0))
+                for k, v in eng.coalesce_hist.items())
+    keys = [eng._strategy_key(r) for r in reqs]
+    unique = len(set(keys))
+    check(eng.compile_count == sigs, f"the stream added "
+          f"{eng.compile_count - sigs} signatures after warmup")
+    check(lanes == unique, f"{lanes} episode lanes for {unique} unique "
+          f"conditions: a repeat took a lane")
+    seen = set()
+    for k, r in zip(keys, resp):
+        check(k not in seen or r.cached, "a repeat was not answered from "
+              "the cache")
+        seen.add(k)
+    # against the batched episode and a kernel re-score, per nmax bucket
+    first = {}
+    for i, k in enumerate(keys):
+        first.setdefault(k, i)
+    by_nb = {}
+    for i in first.values():
+        by_nb.setdefault(nmax_bucket(reqs[i].workload.n + 1,
+                                     eng.nmax_buckets), []).append(i)
+    for nb, idx in sorted(by_nb.items()):
+        rows = [cm.pack_workload(reqs[i].workload, reqs[i].accel, nb,
+                                 device=dev) for i in idx]
+        wls = cm.stack_workloads(rows)
+        b = np.array([reqs[i].batch for i in idx], np.float32)
+        m = np.array([reqs[i].budget_bytes for i in idx], np.float32)
+        hw = [reqs[i].accel for i in idx]
+        out = infer.dnnfuser_infer_batch(model, wls, b, m, hw, device=dev)
+        strat = out["strategy"].cpu().numpy()
+        got = np.full((len(idx), nb), cm.SYNC, np.int32)
+        for j, i in enumerate(idx):
+            n1 = reqs[i].workload.n + 1
+            check(np.array_equal(resp[i].strategy, strat[j, :n1]),
+                  f"served strategy {conds[i]} differs from "
+                  f"dnnfuser_infer_batch's")
+            got[j, :n1] = resp[i].strategy
+        re = cm.evaluate_grid(wls, got[:, None, :], b, m, hw)
+        for f in ("latency", "peak_mem"):
+            a = getattr(re, f)[:, 0].cpu().numpy()
+            w = np.array([getattr(resp[i], f) for i in idx], np.float32)
+            check(np.allclose(w, a, rtol=1e-5, atol=0), f"served {f} differs "
+                  f"from the kernel re-score (bucket {nb})")
+        check(np.array_equal(re.valid[:, 0].cpu().numpy(),
+                             np.array([resp[i].valid for i in idx])),
+              f"served valid differs from the kernel re-score (bucket {nb})")
+    hits = sum(r.cached for r in resp)
+    print(f"[7/15] serving on the card: repro_torch.serve(trained DT, "
+          f"warm=6 CNNs), default ServingConfig: warmup {warm_wall:.3f} s, "
+          f"{sigs} signatures {sorted(eng._compiled)}; stream of "
+          f"{STREAM_N} requests (6 CNNs x 5 parts x budgets "
+          f"{list(SERVE_BUDGETS_MB)} MB x batch 16/64, bursts of 16-64 "
+          f"every 2 s of scheduler clock) in "
+          f"{stream_wall:.3f} s = {STREAM_N / stream_wall:.1f} req/s; "
+          f"request latency p50 {np.percentile(lat, 50) * 1e3:.1f} ms, "
+          f"p99 {np.percentile(lat, 99) * 1e3:.1f} ms (scheduler clock); "
+          f"{calls} episode calls for {unique} unique conditions, "
+          f"{hits} answered from the cache (hit rate "
+          f"{hits / STREAM_N:.4f}); 0 new signatures; strategies == "
+          f"dnnfuser_infer_batch, costs == fusion_eval re-score "
+          f"(rtol 1e-5)")
+
+    # -- 2. bit-identity: alone, and a permuted replay ----------------------
+    rng = np.random.default_rng(1)
+    alone = rng.choice(STREAM_N, ALONE_N, replace=False)
+    t0 = time.perf_counter()
+    for i in alone:
+        one = MapperEngine(model, device=dev).serve_one(reqs[i])
+        check(_same_response(one, resp[i]), f"request {conds[i]} alone "
+              f"differs from its answer in the stream")
+    alone_wall = time.perf_counter() - t0
+    order = rng.permutation(STREAM_N)
+    replay = AsyncMapperScheduler(MapperEngine(model, device=dev))
+    rfut = {}
+    for t, i in zip(arrivals, order):
+        rfut[i] = replay.submit(reqs[i], now=t)
+        replay.pump(now=t)
+    replay.drain(now=arrivals[-1])
+    for i in range(STREAM_N):
+        check(_same_response(rfut[i].result(), resp[i]), f"request "
+              f"{conds[i]} differs in the permuted replay")
+    print(f"      bit-identity: {ALONE_N} requests each served alone by a "
+          f"fresh engine ({alone_wall:.2f} s) and the permuted replay of "
+          f"all {STREAM_N}: every field bit-identical")
+
+    # -- 3. persisted cache --------------------------------------------------
+    SERVE_CACHE.unlink(missing_ok=True)
+    saved = eng.save_cache(SERVE_CACHE)
+    fresh = MapperEngine(model, device=dev,
+                         config=ServingConfig(cache_path=SERVE_CACHE))
+    t0 = time.perf_counter()
+    again = fresh.serve(reqs)
+    cache_wall = time.perf_counter() - t0
+    SERVE_CACHE.unlink(missing_ok=True)
+    check(fresh.device_calls == 0, f"warm restart made "
+          f"{fresh.device_calls} episode calls")
+    check(all(_same_response(a, b) for a, b in zip(again, resp)),
+          "warm restart answers differ from the stream's")
+    print(f"      persisted cache: {saved} entries saved, a fresh engine "
+          f"loaded them and answered the stream in {cache_wall:.4f} s with "
+          f"0 episode calls, bit-identical")
+
+    # -- 4. polish and escalation --------------------------------------------
+    grid = [(n, p, float(b), 64) for n in nets for p in parts
+            for b in BUDGETS_MB + LOW_MB]
+    greqs = [req(*c) for c in grid]
+    e = MapperEngine(model, device=dev,
+                     config=ServingConfig(polish=True, escalate=True))
+    # the one-shot answers: the engine's episode is dnnfuser_infer_batch's
+    # (checked on the stream above), so one call per nmax bucket
+    plain = [None] * len(greqs)
+    by_nb = {}
+    for i, r in enumerate(greqs):
+        by_nb.setdefault(nmax_bucket(r.workload.n + 1, e.nmax_buckets),
+                         []).append(i)
+    for nb, idx in by_nb.items():
+        out = infer.dnnfuser_infer_batch(
+            model, cm.stack_workloads([e._pack(greqs[i].workload,
+                                               greqs[i].accel, nb)
+                                       for i in idx]),
+            [64.0] * len(idx), [greqs[i].budget_bytes for i in idx],
+            [greqs[i].accel for i in idx], device=dev)
+        st, va = out["strategy"].cpu().numpy(), out["valid"].cpu().numpy()
+        for j, i in enumerate(idx):
+            plain[i] = (st[j, :greqs[i].workload.n + 1], bool(va[j]))
+    over = sum(not v for _, v in plain)
+    check(over >= 8, f"only {over} one-shot answers over budget")
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    refined = e.serve(greqs)
+    wall = time.perf_counter() - t0
+    launches["refine"] = counts()
+    rst = e.stats()
+    check(launches["refine"]["fusion_eval"] > 0,
+          "refinement launched no fusion_eval")
+    # a second run, over every third condition (other chunks, other lane
+    # neighbours): bit-identical answers
+    again = MapperEngine(model, device=dev, config=ServingConfig(
+        polish=True, escalate=True)).serve(greqs[::3])
+    check(all(_same_response(a, b) for a, b in zip(again, refined[::3])),
+          "polish + escalation differ between two runs")
+    # both answers scored by the same evaluator (the one-shot costs come
+    # from the episode's prefix carry, which agrees with fusion_eval to
+    # rtol 1e-5, not bit for bit)
+    pl = _rescore(e, greqs, [st for st, _ in plain])
+    rf = _rescore(e, greqs, [r.strategy for r in refined])
+    fixed = 0
+    for i, (a, b, r) in enumerate(zip(plain, refined, greqs)):
+        check(rf[0, i] == b.latency and rf[1, i] == b.peak_mem,
+              "refined costs differ from their fusion_eval re-score")
+        check(_fitness(*rf[:2, i], r.budget_bytes) >=
+              _fitness(*pl[:2, i], r.budget_bytes),
+              f"refinement worsened {r.workload.name} @ "
+              f"{r.budget_bytes / MB} MB")
+        fixed += int(b.valid and not a[1])
+    print(f"      polish + escalation: {len(greqs)} conditions (the smoke "
+          f"grid + budgets {list(LOW_MB)} MB), {over} one-shot answers "
+          f"over budget, {fixed} made valid; wall {wall:.3f} s (polish "
+          f"{e.polish_wall_s:.3f} s over {rst['polish_invocations']} "
+          f"lanes, {rst['polish_improved']} improved; escalation "
+          f"{e.escalate_wall_s:.3f} s over {rst['escalations']} lanes; "
+          f"{rst['device_calls']} episodes); "
+          f"{launched(launches['refine'])}; never worse by the teacher's "
+          f"fitness; a second run over every third condition "
+          f"bit-identical")
+
+    # -- 5. drift, refresh and swap -----------------------------------------
+    d = eng.stats()["drift"]
+    check(d["reports_fired"] >= 1, "traffic on undeclared parts did not "
+          "fire the drift monitor")
+    snap = eng.strategies.snapshot()
+    before = {k: v for k, v in snap.items() if k[3] == _accel_key(zoo["edge"])}
+    sigs = eng.compile_count
+    worker = RefreshWorker(eng, seed=0)
+    reset_counts()
+    t0 = time.perf_counter()
+    res = worker.poll()
+    refresh_wall = time.perf_counter() - t0
+    launches["refresh"] = counts()
+    check(res is not None, "no refresh ran on a fired report")
+    if res["accepted"]:
+        check(eng.compile_count == sigs, "the swap added signatures")
+        snap = eng.strategies.snapshot()
+        check(all(k in snap and np.array_equal(snap[k][0], v[0]) and
+                  snap[k][1:] == v[1:] for k, v in before.items()),
+              "cached answers outside the region changed across the swap")
+    print(f"      drift: {d['reports_fired']} report(s), last "
+          f"{d['last_report']['triggers']} on {d['last_report']['accels']}; "
+          f"refresh {refresh_wall:.2f} s (corpus {res['corpus_size']} rows, "
+          f"fine-tune loss {res['fine_tune_loss']:.5f}, probe live "
+          f"{res['live_score']:.4f} vs candidate "
+          f"{res['candidate_score']:.4f}): "
+          f"{'accepted, swapped' if res['accepted'] else 'rejected'}, "
+          f"{res['cache_invalidated']} entries invalidated, "
+          f"{len(before)} edge entries kept bit-exact, 0 new signatures; "
+          f"{launched(launches['refresh'])}")
+    print("      launches per sub-phase: " + "; ".join(
+        f"{k}: {launched(v)}" for k, v in launches.items()))
+    return sum(v["fusion_eval"] for v in launches.values())
 
 
 def main() -> int:
@@ -1010,7 +1327,7 @@ def main() -> int:
     # -- 1. device ----------------------------------------------------------
     kind = torch.cuda.get_device_name(0)
     smi = smi_line()
-    print(f"[1/14] device: {kind} | nvidia-smi: {smi} | torch "
+    print(f"[1/15] device: {kind} | nvidia-smi: {smi} | torch "
           f"{torch.__version__} CUDA {torch.version.cuda} | devices "
           f"{torch.cuda.device_count()}")
 
@@ -1020,7 +1337,7 @@ def main() -> int:
     _build.build(*sources)
     fe.compiled_backend_supported()
     infos = {src: _build.build_info(src) for src in sources}
-    print(f"[2/14] build: " + ", ".join(
+    print(f"[2/15] build: " + ", ".join(
         f"{src}.cu {infos[src]['build_s']:.2f} s" for src in sources) +
         f" (in parallel; cached={infos[fe.SOURCE]['cached']}), probe ok, "
         f"phase {time.perf_counter() - t0:.2f} s")
@@ -1112,7 +1429,7 @@ def main() -> int:
         raw = fe.fusion_eval_raw(*args)
         check(all(torch.equal(g, w) for g, w in zip(raw[:6], want[1:7])),
               f"{label}: fusion_eval_raw differs from the raw form")
-        print(f"[3/14] kernel == plain on {label} [{Cc}x{pop}x{P}], "
+        print(f"[3/15] kernel == plain on {label} [{Cc}x{pop}x{P}], "
               f"forms cost, stats, raw: bit-equal, CostOut included")
         if label.startswith("main-path"):
             main_args[pop] = args
@@ -1164,7 +1481,7 @@ def main() -> int:
           (C, 4, NMAX), "G-Sampler result malformed")
     check(res.valid[:, 0].mean() > 0.5, "G-Sampler found too few valid "
           "strategies")
-    print(f"[4/14] G-Sampler pop {cfg.population} x {cfg.generations} gens "
+    print(f"[4/15] G-Sampler pop {cfg.population} x {cfg.generations} gens "
           f"over {C} conditions: wall {gs_wall:.3f} s, fusion_eval launches "
           f"{gs_launches}, mean best speedup {best.mean():.4f}, valid share "
           f"{res.valid[:, 0].mean():.4f}")
@@ -1202,38 +1519,44 @@ def main() -> int:
           "DT n_groups differs")
     dt_valid = out["valid"].float().mean().item()
     dt_speed = out["speedup"][out["valid"]].mean().item() if dt_valid else 0.0
-    print(f"[5/14] DT one shot (3x2x128, hw_dim 10, seeded random weights) "
+    print(f"[5/15] DT one shot (3x2x128, hw_dim 10, seeded random weights) "
           f"over {C} conditions: wall {dt_wall:.4f} s, valid share "
           f"{dt_valid:.4f}, mean valid speedup {dt_speed:.4f}; re-score "
           f"matches (rtol 1e-5); G-Sampler/DT wall ratio "
           f"{gs_wall / dt_wall:.1f} (informative)")
 
     # -- 6. the paper loop: corpus, training, answer -----------------------
-    loop_launches = paper_loop(
+    loop_launches, trained = paper_loop(
         dev, dict(workloads=workloads, hws=hws, batches=batches,
                   budgets=budgets, packed=packed, n_of=n_of),
         dict(wall=gs_wall, best=best, valid=res.valid[:, 0].mean()),
         dict(wall=dt_wall, valid=dt_valid, speedup=dt_speed))
+
+    # -- 7. the serving stack on the card ------------------------------------
+    t0 = time.perf_counter()
+    serve_launches = mapper_serving(dev, trained)
+    print(f"      serving phase {time.perf_counter() - t0:.1f} s")
+    del trained
     torch.cuda.empty_cache()
 
-    # -- 7.-10. the dense LM: kernels, scoring, serving, self-check ---------
+    # -- 8.-11. the dense LM: kernels, scoring, serving, self-check ---------
     L = get_config(ARCH).n_layers
     attn = attention_kernels(dev)
     torch.cuda.empty_cache()
-    fa_launches = scoring(dev, ARCH, 8, flash_attention=L,
+    fa_launches = scoring(dev, ARCH, 9, flash_attention=L,
                           fa_tensor_core=L)["flash_attention"]
-    served = serving(dev, ARCH, 9, flash_decode=L * (GEN - 1))
-    self_check(dev, ARCH, served, 10,
+    served = serving(dev, ARCH, 10, flash_decode=L * (GEN - 1))
+    self_check(dev, ARCH, served, 11,
                want_fwd={"flash_attention": L, "fa_cuda_core": L})
     fd_launches = served["launches"]["flash_decode"]
     del served                          # qwen3_8b is gone before rwkv6_3b
 
-    # -- 11.-14. the RWKV6 LM: kernel, scoring, serving, self-check ---------
+    # -- 12.-15. the RWKV6 LM: kernel, scoring, serving, self-check ---------
     L = get_config(RWKV).n_layers
     wkv = wkv_kernel(dev)
-    wkv_launches = scoring(dev, RWKV, 12, wkv6=L)["wkv6"]
-    served = serving(dev, RWKV, 13, wkv6=L + L * (GEN - 1))
-    self_check(dev, RWKV, served, 14, want_fwd={"wkv6": L},
+    wkv_launches = scoring(dev, RWKV, 13, wkv6=L)["wkv6"]
+    served = serving(dev, RWKV, 14, wkv6=L + L * (GEN - 1))
+    self_check(dev, RWKV, served, 15, want_fwd={"wkv6": L},
                want_prefill={"wkv6": L}, want_step={"wkv6": L})
     wkv_served = served["launches"]["wkv6"]
     del served
@@ -1245,7 +1568,8 @@ def main() -> int:
         {"name": "fusion_eval", "route": "cuda",
          "source": f"{csrc}/fusion_eval.cu",
          "replaces": "src/repro/kernels/fusion_eval.py:57",
-         "launches": gs_launches + dt_launches + loop_launches,
+         "launches": gs_launches + dt_launches + loop_launches
+         + serve_launches,
          "max_abs_err": max_err,
          "ms": fe_ms[(fe.Form.STATS, 36)][0], "plain_ms": fe_plain,
          "bound_ms": fe_ms[(fe.Form.STATS, 36)][1],

@@ -9,6 +9,9 @@ Layout.  The subpackages mirror ``repro``'s: ``workloads/`` (numpy-only
 copies of the layer IR and the CNN zoo), ``core/`` (``accel``,
 ``cost_model``, ``env``, ``model``, ``backend``, ``infer``, ``gsampler``,
 and the paper loop's ``dataset`` -- the teacher corpus -- and ``train``),
+``core/polish`` and ``core/portfolio`` (the refiners the serving engine
+escalates to), ``serving/`` (the engine, its async scheduler, the
+strategy cache, drift detection and the refresh-and-swap loop),
 ``optim/`` (the hand-written AdamW and SGD and the learning-rate
 schedules), ``configs/`` (copies of the ten LM arch configs), ``nn/`` (dense,
 LayerNorm, RMSNorm, RoPE, GQA attention with windows, qk-norm, a KV cache
@@ -22,8 +25,10 @@ with the reference's, through which weights cross packages).
 Device policy.  Entry points that create tensors (``pack_workload``,
 ``FusionEnv``, ``dt_init``, ``gsampler_search_grid``,
 ``generate_teacher_corpus``, ``collect_teacher_data``,
-``dnnfuser_infer_batch``, ...) and the training loop (``train_model``,
-``fine_tune``) run on ``cuda`` unless the caller passes ``device="cpu"``; with no card and no
+``dnnfuser_infer_batch``, ``polish_grid``, ``de_search_grid``, ...), the
+training loop (``train_model``, ``fine_tune``) and the serving stack
+(``MapperEngine``, :func:`serve`) run on ``cuda`` unless the caller passes
+``device="cpu"``; with no card and no
 ``device="cpu"`` they raise (:func:`resolve_device`) instead of carrying on
 quietly on the CPU.  Functions that take tensors run where the tensors
 are.  TF32 is off for matmuls and cuDNN: parity needs full f32.
@@ -60,7 +65,50 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["DEFAULT_DEVICE", "resolve_device"]
+# name -> home submodule of every public symbol, resolved lazily on first
+# access (``import repro_torch`` stays cheap): the port's subset of the
+# reference's public table (no seq2seq baseline, no replicas).
+_PUBLIC = {
+    # the paper core: model + one-shot inference
+    "DTConfig": "core", "dt_init": "core", "dt_loss": "core",
+    "dnnfuser_infer": "core", "dnnfuser_infer_batch": "core",
+    "InferResult": "core",
+    # teacher + training
+    "GSamplerConfig": "core", "gsampler_search": "core",
+    "generate_teacher_corpus": "core", "TrajectoryDataset": "core",
+    "TrainConfig": "core", "train_model": "core", "fine_tune": "core",
+    "restore_params": "core",
+    # the hardware-condition space
+    "AccelConfig": "core", "ACCEL_ZOO": "core", "PAPER_ACCEL": "core",
+    "HW_FEATURE_DIM": "core", "accel_features": "core",
+    # the serving stack
+    "ServingConfig": "serving", "DriftConfig": "serving",
+    "MapperEngine": "serving", "MapRequest": "serving",
+    "MapResponse": "serving", "StrategyCache": "serving",
+    "AsyncMapperScheduler": "serving", "MapFuture": "serving",
+    "AdmissionError": "serving", "DriftMonitor": "serving",
+    "DriftReport": "serving", "RefreshWorker": "serving",
+    # workloads
+    "Workload": "workloads", "CNN_ZOO": "workloads",
+    "get_workload": "workloads", "vgg16": "workloads",
+    "resnet18": "workloads", "resnet50": "workloads",
+    "mobilenet_v2": "workloads", "mnasnet_b1": "workloads",
+    "tiny_cnn": "workloads",
+}
+
+__all__ = ["DEFAULT_DEVICE", "resolve_device", "serve"] + sorted(_PUBLIC)
+
+
+def __getattr__(name):
+    if name in _PUBLIC:
+        import importlib
+        mod = importlib.import_module(f".{_PUBLIC[name]}", __name__)
+        return getattr(mod, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+def __dir__():
+    return sorted(set(globals()) | set(__all__))
 
 DEFAULT_DEVICE = "cuda"
 
@@ -80,3 +128,20 @@ def resolve_device(device=None) -> torch.device:
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def serve(model, config=None, *, warm=None, accel=None, device=None):
+    """Build the serving stack -- engine + async scheduler -- from one frozen
+    ``ServingConfig`` (default ``ServingConfig()``).
+
+    ``model`` is the port's DT, on ``device`` (``cuda`` unless ``"cpu"``).
+    With ``warm`` (a list of workloads, optionally ``accel``) the engine is
+    warmed up first, so steady-state traffic over those shapes adds no
+    signature and the drift monitor knows the in-distribution conditions.
+    Returns the ``AsyncMapperScheduler``; its ``.engine`` is the
+    ``MapperEngine``."""
+    from . import serving
+    engine = serving.MapperEngine.from_config(model, config, device=device)
+    if warm:
+        engine.warmup(list(warm), accel)
+    return serving.AsyncMapperScheduler(engine, config=engine.serving_config)

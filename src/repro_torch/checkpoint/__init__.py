@@ -2,10 +2,10 @@
 a reader and the ``Checkpointer``, and the functions that carry the
 reference's DT and LM weights into the port."""
 from .checkpointer import (Checkpointer, restore_pytree, restore_subtree,
-                           save_pytree)
+                           save_pytree, upgrade_pytree)
 from .reference import (dt_params_from_reference, load_reference,
                         lm_params_from_reference)
 
 __all__ = ["Checkpointer", "save_pytree", "restore_pytree",
-           "restore_subtree", "load_reference", "dt_params_from_reference",
-           "lm_params_from_reference"]
+           "restore_subtree", "upgrade_pytree", "load_reference",
+           "dt_params_from_reference", "lm_params_from_reference"]

@@ -28,7 +28,7 @@ import numpy as np
 import torch
 
 __all__ = ["Checkpointer", "save_pytree", "restore_pytree",
-           "restore_subtree"]
+           "restore_subtree", "upgrade_pytree"]
 
 
 def _children(node):
@@ -160,6 +160,41 @@ def restore_subtree(path, prefix: str, template, *, verify: bool = True):
     structure (e.g. the params of a {params, opt_state} checkpoint)."""
     return _rebuild(restore_pytree(path, None, verify=verify), template,
                     prefix)
+
+
+def upgrade_pytree(path, template, *, prefix: str | None = None,
+                   verify: bool = True):
+    """Restore a checkpoint into a possibly NEWER architecture ``template``
+    (e.g. ``model.param_tree`` of a DT): leaves present in the checkpoint
+    restore as usual; leaves it lacks (e.g. the hw-condition embedding
+    ``emb_h`` of a ``DTConfig(hw_dim>0)`` model) are ZERO-filled in the
+    template leaf's shape, dtype and device.  The hw embedding enters
+    additively, so a zero-filled upgrade answers as the old mapper did
+    until fine-tuned.  ``prefix`` selects a subtree (``"params"`` of a
+    {params, opt_state} training checkpoint).  Returns ``(tree,
+    missing_keys)``; checkpoint leaves the template does not reference are
+    ignored, and a leaf whose shape differs from the template's raises
+    (an upgrade only ADDS leaves)."""
+    arrays = restore_pytree(path, None, verify=verify)
+    if prefix is not None:
+        pre = f"{prefix}/"
+        arrays = {k[len(pre):]: v for k, v in arrays.items()
+                  if k.startswith(pre)}
+    missing, sub = [], {}
+    for k, leaf in _flatten(template).items():
+        want = tuple(leaf.shape) if isinstance(leaf, torch.Tensor) \
+            else np.shape(leaf)
+        if k in arrays:
+            if tuple(arrays[k].shape) != tuple(want):
+                raise ValueError(
+                    f"checkpoint leaf {k} has shape {arrays[k].shape} but "
+                    f"the template expects {tuple(want)}; upgrade_pytree "
+                    f"only fills leaves the checkpoint lacks")
+            sub[k] = arrays[k]
+        else:
+            missing.append(k)
+            sub[k] = np.zeros(want, np.float32)
+    return _rebuild(sub, template), missing
 
 
 class Checkpointer:

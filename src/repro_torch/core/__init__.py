@@ -1,5 +1,6 @@
 """The mapper core: conditions, cost model, environment, DT, G-Sampler,
-the teacher corpus, training and inference."""
+the teacher corpus, training, inference, and the refiners (gradient
+polish, the DE/CMA-ES portfolio)."""
 from .accel import (ACCEL_ZOO, HW_FEATURE_DIM, HW_FIELDS, PAPER_ACCEL,
                     AccelConfig, accel_features, accel_from_features,
                     hw_array, stack_hw)
@@ -23,6 +24,9 @@ from .dataset import (TrajectoryDataset, collect_teacher_data,
                       window_dataset)
 from .train import (TrainConfig, fine_tune, make_train_step, restore_params,
                     train_model)
+from .polish import PolishConfig, PolishResult, polish_grid, polish_strategy
+from .portfolio import (PortfolioConfig, PortfolioResult, cmaes_search_grid,
+                        de_search_grid)
 
 __all__ = ["ACCEL_ZOO", "HW_FEATURE_DIM", "HW_FIELDS", "PAPER_ACCEL",
            "AccelConfig", "accel_features", "accel_from_features",
@@ -40,4 +44,7 @@ __all__ = ["ACCEL_ZOO", "HW_FEATURE_DIM", "HW_FIELDS", "PAPER_ACCEL",
            "gsampler_search_grid", "naive_uniform_mb", "TrajectoryDataset",
            "collect_teacher_data", "generate_teacher_corpus",
            "merge_datasets", "window_dataset", "TrainConfig", "fine_tune",
-           "make_train_step", "restore_params", "train_model"]
+           "make_train_step", "restore_params", "train_model",
+           "PolishConfig", "PolishResult", "polish_grid", "polish_strategy",
+           "PortfolioConfig", "PortfolioResult", "cmaes_search_grid",
+           "de_search_grid"]

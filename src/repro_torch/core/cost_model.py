@@ -35,7 +35,7 @@ __all__ = ["SYNC", "CostOut", "pack_workload", "stack_workloads",
            "evaluate_grid_stats", "baseline_no_fusion", "baseline_grid",
            "PrefixConsts", "PrefixCarry", "prefix_consts", "prefix_init",
            "prefix_step", "prefix_out", "prefix_probe_peak", "prefix_trace",
-           "prefix_scan", "random_strategy"]
+           "prefix_scan", "random_strategy", "fixed_sum"]
 
 SYNC = -1  # strategy sentinel: flush activation off-chip after this layer
 _UTIL_MIN = 1.0 / 4096.0
@@ -118,6 +118,23 @@ def finalize_groups(C_g, T_g, O_g, M_g, wave_g, glen, budget_bytes,
     return CostOut(latency, peak_mem, traffic, valid, n_groups)
 
 
+def fixed_sum(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """Sum over ``dim`` in one fixed order: zero-pad the axis to a power of
+    two, then add its upper half onto its lower half until one entry is
+    left.  Every step is elementwise, so a row's sum depends only on that
+    row -- not on how many rows the tensor has, nor on the device -- where
+    ``torch.sum`` may pick its reduction order by the tensor's shape."""
+    x = x.movedim(dim, -1)
+    n = x.shape[-1]
+    m = 1 << max(n - 1, 0).bit_length()
+    if m != n:
+        x = torch.nn.functional.pad(x, (0, m - n))
+    while x.shape[-1] > 1:
+        h = x.shape[-1] // 2
+        x = x[..., :h] + x[..., h:]
+    return x[..., 0]
+
+
 def _as_strategies(strategies, like: torch.Tensor) -> torch.Tensor:
     if isinstance(strategies, torch.Tensor) and \
             strategies.dtype is torch.int32 and strategies.is_contiguous() \
@@ -183,7 +200,9 @@ def evaluate(wl: dict, strategy, batch, budget_bytes, hw) -> CostOut:
 
 
 def _baseline_rows(wl: dict, B: torch.Tensor, hw: torch.Tensor) -> CostOut:
-    """No-fusion baseline of rows ``[R, P]``: B [R], hw [R, 10]."""
+    """No-fusion baseline of rows ``[R, P]``: B [R], hw [R, 10].  The sums
+    are :func:`fixed_sum`'s, so a row's baseline (the numerator of every
+    speedup) is the same in a batch of any size."""
     A, W = _scaled_AW(wl, hw)
     F, OE, UC, mask = wl["F"], wl["OE"], wl["UC"], wl["mask"]
     B = B[:, None]
@@ -196,8 +215,8 @@ def _baseline_rows(wl: dict, B: torch.Tensor, hw: torch.Tensor) -> CostOut:
     L_i = torch.maximum(torch.maximum(comp, t_i / _col(hw, BW_OFF)),
                         t_i / _col(hw, BW_ON)) + _col(hw, T_SYNC)
     R = A.shape[0]
-    return CostOut(torch.sum(L_i * fmask, dim=-1),
-                   hw[:, STREAM].clone(), torch.sum(t_i * fmask, dim=-1),
+    return CostOut(fixed_sum(L_i * fmask), hw[:, STREAM].clone(),
+                   fixed_sum(t_i * fmask),
                    torch.ones(R, dtype=torch.bool, device=A.device),
                    torch.sum(mask, dim=-1).to(torch.int32))
 

@@ -22,6 +22,11 @@ masked loop of floor(log2 max B) + 1 rounds (halving from at most B down
 to 1, then one step to SYNC), which is equivalent because a row whose
 probe fits never changes again. So the episode makes no host sync: no
 ``.item()`` and no Python branch on a device tensor.
+
+On the card a batch of rows runs as episodes of exactly ``LANE_BLOCK``
+lanes (the last block padded), so that every operation, the DT's GEMMs
+included, has one shape whatever the batch's size: a row's answer is then
+bit-identical in a batch of any size and in any company.
 """
 from __future__ import annotations
 
@@ -40,7 +45,16 @@ from .env import (STATE_DIM, FusionEnv, decode_action, encode_action,
                   env_final, env_make, env_observe, env_reset, env_step)
 
 __all__ = ["InferResult", "dnnfuser_infer", "dnnfuser_infer_batch",
-           "dnnfuser_infer_fused", "guard_rounds"]
+           "dnnfuser_infer_fused", "guard_rounds", "lane_block",
+           "LANE_BLOCK"]
+
+# Lanes of one batched episode on the card.  cuBLAS picks a GEMM's
+# algorithm (and with it the order of its sums) by the problem's shape, so
+# the DT's logits for a row could differ in the last bit between a batch of
+# 16 rows and one of 120, and a trained mapper's action, which often lands
+# near a rounding tie, could differ with them.  Run on blocks of this many
+# lanes, a row's answer is the same in any batch.
+LANE_BLOCK = 128
 
 
 @dataclass
@@ -208,12 +222,46 @@ def dnnfuser_infer_batch(model, env_or_wl, batches, budgets_bytes, hw=None,
                          f"runs on {dev}")
     hwv = stack_hw(hw, C, dev)
     hwf = accel_features(hwv) if model.cfg.hw_dim else None
-    B = torch.as_tensor(batches, device=dev)
-    budget = torch.as_tensor(budgets, device=dev)
+    return _fused_batch(model, wl, torch.as_tensor(batches, device=dev),
+                        torch.as_tensor(budgets, device=dev), hwv, hwf,
+                        repair=repair, max_batch=batches.max(initial=1.0))
+
+
+def lane_block(device) -> int | None:
+    """Lanes an episode runs on at once: :data:`LANE_BLOCK` on the card,
+    all of them (None) on the CPU."""
+    return LANE_BLOCK if torch.device(device).type == "cuda" else None
+
+
+def _fused_batch(model, wl: dict, batches, budgets, hw, hw_feats, *,
+                 repair: bool, max_batch) -> dict:
+    """The batched episode over pre-stacked rows, all on one device and
+    checked by the caller: ``wl`` [R, P] tensors, ``batches``/``budgets``
+    [R] f32, hw rows [R, 10], ``hw_feats`` [R, 10] (or None for an
+    unconditioned model); ``max_batch`` (a host number, at least every
+    row's batch) sizes the guard.  The entry the serving engine calls once
+    per chunk.  Returns stacked [R] tensors (strategy [R, P]) there.
+
+    The rows run in episodes of :func:`lane_block` lanes (the last block
+    padded with copies of its last row), so every operation of a block has
+    one shape whatever R is; on the CPU, one episode over the R rows."""
+    rounds, backend = guard_rounds(max_batch), backend_for(model.cfg)
+    lb = lane_block(batches.device)
+    R = batches.shape[0]
     with torch.inference_mode():
-        return _fused_episode(model, wl, B, budget, hwv, hwf, repair,
-                              guard_rounds(batches.max(initial=1.0)),
-                              backend_for(model.cfg))
+        if lb is None:
+            return _fused_episode(model, wl, batches, budgets, hw, hw_feats,
+                                  repair, rounds, backend)
+        outs = []
+        for start in range(0, R, lb):
+            idx = torch.arange(start, start + lb, device=batches.device)
+            idx = idx.clamp_max(R - 1)
+            take = lambda x: None if x is None else x.index_select(0, idx)
+            outs.append(_fused_episode(
+                model, {k: take(v) for k, v in wl.items()}, take(batches),
+                take(budgets), take(hw), take(hw_feats), repair, rounds,
+                backend))
+        return {k: torch.cat([o[k] for o in outs])[:R] for k in outs[0]}
 
 
 def dnnfuser_infer_fused(model, env: FusionEnv, *,

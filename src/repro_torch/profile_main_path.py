@@ -1,7 +1,8 @@
 """Where the time of the port's main path goes, on one CUDA card.
 
     PYTHONPATH=src python -m repro_torch.profile_main_path [--out DIR]
-        [--only gsampler,dt_one_shot,corpus,train_step,qwen3_8b,rwkv6_3b]
+        [--only gsampler,dt_one_shot,corpus,train_step,serving,qwen3_8b,
+                rwkv6_3b]
 
 Slice 1: answers the smoke grid (6 CNNs x 5 parts x 4 budgets, batch 64,
 nmax 64) with the G-Sampler (paper config) and with the DT one-shot
@@ -10,7 +11,11 @@ builds the teacher corpus of that grid (``generate_teacher_corpus``: the
 GA, top 8 elites and 2 jittered copies of the top 4, one ``prefix_scan``
 decoration; phase ``corpus``) and runs 20 training steps of the same DT on
 it (the reference's TrainConfig, batch 64; phase ``train_step``, which
-also reports launches and host milliseconds a step).  Slices 2
+also reports launches and host milliseconds a step).  Slice 8: the
+serving stream of the smoke run (``workloads.grid.serving_stream``; its
+first 64 requests, bursts of 16-64) through ``repro_torch.serve`` warmed
+over the 6 CNNs with the same DT (phase ``serving``; each run takes a
+freshly warmed engine, so its cache starts empty).  Slices 2
 and 3: qwen3_8b and rwkv6_3b at full width and depth (seeded random
 weights) each score 2 x 4096 tokens in bf16 (``forward``), and, in f32
 after a 1024-token prefill of batch 4, run 8 greedy decode steps
@@ -39,10 +44,12 @@ import numpy as np
 from .configs import get_config
 from .core import accel, cost_model as cm, dataset, gsampler as gs, infer
 from .core import model as dtm, train
+from .serving import MapRequest
 from .kernels import flash_attention as fa, flash_decode as fd
 from .kernels import fusion_eval as fe, rwkv6_scan as rk
 from .models import lm, rwkv_lm
-from .workloads.grid import paper_grid
+from .workloads import CNN_ZOO
+from .workloads.grid import paper_grid, serving_stream
 
 PORT_KERNELS = {"fusion_eval": fe, "flash_attention": fa,
                 "flash_decode": fd, "wkv6": rk}
@@ -50,6 +57,24 @@ PORT_KERNELS = {"fusion_eval": fe, "flash_attention": fa,
 __all__ = ["profile_phase", "main"]
 
 TRAIN_STEPS = 20
+
+
+SERVE_REQUESTS = 64   # the stream's first requests: 1.5M launches a full
+                      # stream of 480 is more than the profiler keeps up with
+
+
+def stream_phase(model, parts, dev):
+    """A function that runs the serving stream's first
+    :data:`SERVE_REQUESTS` requests once on a freshly warmed engine (three
+    are warmed up front, one for each run of :func:`profile_phase`)."""
+    from . import serve
+    nets = {n: CNN_ZOO[n]() for n in sorted(CNN_ZOO)}
+    conds, arrivals = serving_stream(parts, SERVE_REQUESTS)
+    reqs = [MapRequest(nets[n], bt, b * 2.0 ** 20, accel.ACCEL_ZOO[p])
+            for n, p, b, bt in conds]
+    scheds = [serve(model, warm=list(nets.values()), device=dev)
+              for _ in range(3)]
+    return lambda: scheds.pop().serve_stream(reqs, arrivals)
 
 
 def profile_phase(name: str, fn, out_dir: pathlib.Path, top: int = 8) -> dict:
@@ -129,7 +154,7 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default="chiprun_out/profile",
                     help="directory for the chrome traces")
     ap.add_argument("--only", default="gsampler,dt_one_shot,corpus,"
-                    "train_step,qwen3_8b,rwkv6_3b", help="comma-separated phases to run (the "
+                    "train_step,serving,qwen3_8b,rwkv6_3b", help="comma-separated phases to run (the "
                     "LMs' name both their scoring and decode phases)")
     args = ap.parse_args(argv)
     only = set(args.only.split(","))
@@ -171,6 +196,12 @@ def main(argv=None) -> int:
         r.update(steps=TRAIN_STEPS,
                  ms_per_step_unprofiled=r["wall_ms_unprofiled"] / TRAIN_STEPS,
                  launches_per_step=r["kernel_launches"] / TRAIN_STEPS)
+        print(json.dumps(r))
+    if "serving" in only:
+        r = profile_phase("serving", stream_phase(model, parts, dev), out_dir)
+        r.update(requests=SERVE_REQUESTS,
+                 req_per_s_unprofiled=SERVE_REQUESTS / (
+                     r["wall_ms_unprofiled"] / 1e3))
         print(json.dumps(r))
     del model, packed
 

@@ -204,3 +204,17 @@ def test_prefix_probe_peak_matches_composed_probe():
         assert torch.equal(ref, fast), t
         carry = tcm.prefix_step(consts, carry,
                                 torch.full((R,), int(s[t])), hw)
+
+
+def test_fixed_sum_sums_each_row_in_one_order():
+    """``fixed_sum`` is a sum (to f32 rounding), and a row's sum is the same
+    bits alone, in a stack of rows, and along another axis."""
+    rng = np.random.default_rng(0)
+    x = torch.as_tensor(rng.standard_normal((7, 37)).astype(np.float32))
+    full = tcm.fixed_sum(x)
+    np.testing.assert_allclose(full.numpy(), x.double().sum(-1).numpy(),
+                               rtol=1e-5, atol=1e-5)
+    for i in range(7):
+        assert torch.equal(tcm.fixed_sum(x[i:i + 1])[0], full[i])
+    assert torch.equal(tcm.fixed_sum(x.T.contiguous(), dim=0), full)
+    assert torch.equal(tcm.fixed_sum(x[:, :1]), x[:, 0])

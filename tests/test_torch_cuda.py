@@ -611,3 +611,172 @@ def test_time_embedding_backward_is_deterministic_on_card(dev, n):
         grads.append(model.time.emb.grad.clone())
     assert all(torch.equal(grads[0], x) for x in grads[1:])
     assert torch.equal(model.time_emb(idx), model.time.emb.detach()[idx])
+
+
+# --- slice 8: the serving stack, polish and the portfolio on the card -------
+
+def _serving_setup(dev, n=16, seed=0):
+    """The paper-width hw-conditioned DT (seeded random weights) and ``n``
+    seeded requests over the CNN zoo, every part, budgets and batches."""
+    from repro_torch.core import model as dtm
+    from repro_torch.serving import MapRequest
+    from repro_torch.workloads import CNN_ZOO
+    model = dtm.dt_init(dtm.DTConfig(hw_dim=accel.HW_FEATURE_DIM), seed=0,
+                        device=dev)
+    rng = np.random.default_rng(seed)
+    nets = [CNN_ZOO[k]() for k in sorted(CNN_ZOO)]
+    parts = sorted(accel.ACCEL_ZOO)
+    reqs = [MapRequest(nets[rng.integers(len(nets))],
+                       int(rng.choice([16, 64])),
+                       float(rng.choice([1, 8, 12, 24, 64])) * MB,
+                       accel.ACCEL_ZOO[parts[rng.integers(len(parts))]])
+            for _ in range(n)]
+    return model, reqs
+
+
+def _same(a, b):
+    assert np.array_equal(a.strategy, b.strategy)
+    assert (a.latency, a.peak_mem, a.speedup, a.valid) == \
+        (b.latency, b.peak_mem, b.speedup, b.valid)
+
+
+def test_engine_on_card_bit_identical_alone_tick_permuted(dev):
+    """A request served alone, in a tick of 16 and in three permuted
+    streams through the scheduler: all five fields bit-identical."""
+    from repro_torch.serving import (AsyncMapperScheduler, MapperEngine,
+                                     ServingConfig)
+    model, reqs = _serving_setup(dev)
+    alone = [MapperEngine(model, device=dev).serve_one(r) for r in reqs]
+    tick = MapperEngine(model, device=dev).serve(reqs)
+    for a, b in zip(alone, tick):
+        _same(a, b)
+    rng = np.random.default_rng(5)
+    for wave in (2, 4, 8):
+        order = rng.permutation(len(reqs))
+        sched = AsyncMapperScheduler(
+            MapperEngine(model, device=dev),
+            config=ServingConfig(flush_ms=0.0, max_wave=wave))
+        futs = {}
+        for t, i in enumerate(order):
+            futs[i] = sched.submit(reqs[i], now=t * 1e-3)
+            sched.pump(now=t * 1e-3)
+        sched.drain(now=1.0)
+        for i, a in enumerate(alone):
+            _same(futs[i].result(), a)
+
+
+def test_episode_rows_do_not_depend_on_width(dev):
+    """The batched episode over the 120 smoke-grid rows, over chunks of 16
+    and row by row (every 7th): each row's outputs bit-identical."""
+    from repro_torch.core import infer, model as dtm
+    model = dtm.dt_init(dtm.DTConfig(hw_dim=accel.HW_FEATURE_DIM), seed=0,
+                        device=dev)
+    parts = sorted(accel.ACCEL_ZOO)
+    conds, works, batches, budgets = paper_grid(parts)
+    hws = [accel.ACCEL_ZOO[p] for _, p, _ in conds]
+    rows = [cm.pack_workload(w, h, 64, device=dev)
+            for w, h in zip(works, hws)]
+    keys = ("strategy", "latency", "peak_mem", "speedup", "valid")
+
+    def run(idx):
+        out = infer.dnnfuser_infer_batch(
+            model, cm.stack_workloads([rows[i] for i in idx]), batches[idx],
+            budgets[idx], [hws[i] for i in idx], device=dev)
+        return {k: out[k].cpu() for k in keys}
+
+    full = run(np.arange(120))
+    for start in range(0, 120, 16):
+        idx = np.arange(start, min(start + 16, 120))
+        part = run(idx)
+        for k in keys:
+            assert torch.equal(part[k], full[k][idx]), (k, start)
+    for i in range(0, 120, 7):
+        one = run(np.array([i]))
+        for k in keys:
+            assert torch.equal(one[k][0], full[k][i]), (k, i)
+
+
+def test_polish_on_card_deterministic_and_lane_independent(dev):
+    from repro_torch.core.polish import polish_grid
+    parts = sorted(accel.ACCEL_ZOO)
+    conds, works, batches, budgets = paper_grid(parts, (2, 8, 16, 32))
+    idx = np.arange(0, 120, 5)
+    hws = [accel.ACCEL_ZOO[conds[i][1]] for i in idx]
+    wls = cm.stack_workloads([cm.pack_workload(works[i], h, 64, device=dev)
+                              for i, h in zip(idx, hws)])
+    rng = np.random.default_rng(0)
+    props = np.stack([cm.random_strategy(rng, works[i].n, 64, 64, 0.3)
+                      for i in idx])
+    a = polish_grid(wls, props, batches[idx], budgets[idx], hws, device=dev)
+    b = polish_grid(wls, props, batches[idx], budgets[idx], hws, device=dev)
+    for k in a:
+        assert np.array_equal(a[k], b[k]), k
+    assert a["improved"].any()
+    sub = [3, 11]
+    one = polish_grid({k: v[sub] for k, v in wls.items()}, props[sub],
+                      batches[idx][sub], budgets[idx][sub],
+                      [hws[i] for i in sub], device=dev)
+    for k in a:
+        assert np.array_equal(one[k], a[k][sub]), k
+
+
+def test_de_on_card_lanes_independent(dev):
+    """A lane's DE result does not depend on how many lanes run or which;
+    and the card's run equals the CPU's (same host draws, kernel bit-equal
+    to its twin)."""
+    from repro_torch.core.portfolio import PortfolioConfig, de_search_grid
+    cfg = PortfolioConfig(population=16, generations=12)
+    works = [resnet18(), tiny_cnn(), resnet18(), tiny_cnn()]
+    hws = [accel.ACCEL_ZOO[p] for p in ("edge", "nano", "datacenter",
+                                        "mobile")]
+    b = np.array([64, 16, 32, 64], np.float32)
+    m = np.array([2, 0.5, 8, 4], np.float32) * MB
+    init = np.full((4, 32), cm.SYNC, np.int32)
+    for c, w in enumerate(works):
+        init[c, : w.n + 1] = 8
+    salts = np.zeros(4, np.uint32)
+    full = de_search_grid(works, hws, b, m, nmax=32, cfg=cfg,
+                          init_strategies=init, salts=salts, device=dev)
+    for sub in ([0], [0, 2], [3, 0]):
+        part = de_search_grid([works[i] for i in sub],
+                              [hws[i] for i in sub], b[sub], m[sub],
+                              nmax=32, cfg=cfg, init_strategies=init[sub],
+                              salts=salts[sub], device=dev)
+        for j, i in enumerate(sub):
+            assert np.array_equal(part.strategies[j], full.strategies[i])
+            assert part.latency[j] == full.latency[i]
+            assert np.array_equal(part.history[:, j], full.history[:, i])
+    cpu = de_search_grid(works, hws, b, m, nmax=32, cfg=cfg,
+                         init_strategies=init, salts=salts, device="cpu")
+    assert np.array_equal(cpu.strategies, full.strategies)
+
+
+def test_escalating_engine_launches_fusion_eval(dev):
+    from repro_torch.serving import MapperEngine, ServingConfig
+    model, reqs = _serving_setup(dev, n=12, seed=2)
+    eng = MapperEngine(model, device=dev,
+                       config=ServingConfig(polish=True, escalate=True))
+    fe.reset_launches()
+    eng.serve(reqs)
+    torch.cuda.synchronize()
+    s = eng.stats()
+    assert s["polish_invocations"] == len(reqs)
+    assert fe.STATS.launches > 0
+    assert s["cost_evaluator"] == "fusion_eval"
+
+
+def test_card_engine_equals_cpu_engine(dev):
+    """The same weights on the card and on the CPU: equal strategies and
+    validity, floats within rtol 1e-5."""
+    import copy
+    from repro_torch.serving import MapperEngine
+    model, reqs = _serving_setup(dev, n=24, seed=3)
+    card = MapperEngine(model, device=dev).serve(reqs)
+    cpu = MapperEngine(copy.deepcopy(model).to("cpu"),
+                       device="cpu").serve(reqs)
+    for a, b in zip(card, cpu):
+        assert np.array_equal(a.strategy, b.strategy)
+        assert (a.valid, a.cached) == (b.valid, b.cached)
+        np.testing.assert_allclose([a.latency, a.peak_mem, a.speedup],
+                                   [b.latency, b.peak_mem, b.speedup],
+                                   rtol=1e-5)

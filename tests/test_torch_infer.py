@@ -151,3 +151,26 @@ def test_guard_rounds():
     assert tinf.guard_rounds(1) == 1
     assert tinf.guard_rounds(64) == 7
     assert tinf.guard_rounds(63) == 6
+
+
+def test_lane_blocks_change_no_row(weights, monkeypatch):
+    """Run in blocks of 4 lanes (the last padded with copies of its last
+    row), as the card runs blocks of ``LANE_BLOCK``, every row's outputs
+    equal one episode over all rows bit for bit; the CPU runs one
+    episode, the card fixed blocks."""
+    assert tinf.lane_block("cpu") is None
+    assert tinf.lane_block("cuda") == tinf.LANE_BLOCK == 128
+    _, _, model = weights
+    _, _, trows, batches, budgets, _, thw = _grid((tiny_cnn, resnet18), 32,
+                                                  [1, 4, 16])
+    C = 10
+    wl = tcm.stack_workloads(trows[:C])
+    hwv = taccel.stack_hw(thw[:C], C)
+    args = (model, wl, torch.as_tensor(batches[:C]),
+            torch.as_tensor(budgets[:C]), hwv, taccel.accel_features(hwv))
+    one = tinf._fused_batch(*args, repair=True, max_batch=32)
+    monkeypatch.setattr(tinf, "lane_block", lambda device: 4)
+    blocks = tinf._fused_batch(*args, repair=True, max_batch=32)
+    assert set(one) == set(blocks)
+    for k in one:
+        assert torch.equal(one[k], blocks[k]), k

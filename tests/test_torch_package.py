@@ -14,17 +14,19 @@ import torch
 from _torch_parity import CPU, MB
 import repro_torch
 from repro_torch.core import accel, cost_model as cm, dataset, env, gsampler
-from repro_torch.core import infer, model as dtm, train
+from repro_torch.core import infer, model as dtm, polish, portfolio, train
 from repro_torch.configs import get_config
 from repro_torch.kernels import _build, fusion_eval as fe
 from repro_torch.launch import serve_greedy
 from repro_torch.models import lm, rwkv_lm
+from repro_torch import serving
 from repro_torch.workloads import tiny_cnn
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
     [ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_cuda.py",
-     ROOT / "examples" / "quickstart_torch.py"]
+     ROOT / "examples" / "quickstart_torch.py",
+     ROOT / "examples" / "serve_mapper_torch.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro", "_torch_parity")
 
 
@@ -49,7 +51,8 @@ def test_port_imports_no_jax_and_no_reference(path):
                                     "kernels.fusion_eval", "core", "launch",
                                     "models.rwkv_lm", "kernels.rwkv6_scan",
                                     "optim", "checkpoint", "core.train",
-                                    "core.dataset"])
+                                    "core.dataset", "serving", "core.polish",
+                                    "core.portfolio"])
 def test_each_layer_imports_first(module):
     """``nn`` imports the attention kernels, and ``kernels.fusion_eval``
     imports ``core``, whose DT imports ``nn``: each must import first in a
@@ -127,6 +130,22 @@ _ENTRY_POINTS = {
         get_config("rwkv6_3b", reduced=True), 1, 8),
     "serve_greedy rwkv6_3b": lambda: serve_greedy("rwkv6_3b", batch=1,
                                                   prompt_len=4, gen_len=2),
+    "MapperEngine": lambda: serving.MapperEngine(
+        dtm.dt_init(_TINY_DT, device=CPU)),
+    "serve": lambda: repro_torch.serve(dtm.dt_init(_TINY_DT, device=CPU)),
+    "polish_grid": lambda: polish.polish_grid(
+        cm.stack_workloads([cm.pack_workload(tiny_cnn(), accel.PAPER_ACCEL, 8,
+                                             device=CPU)]),
+        np.full((1, 8), 4, np.int32), [32.0], [8 * MB], accel.PAPER_ACCEL),
+    "de_search_grid": lambda: portfolio.de_search_grid(
+        [tiny_cnn()], accel.PAPER_ACCEL, [32.0], [8 * MB], nmax=8,
+        cfg=portfolio.PortfolioConfig(population=4, generations=1)),
+    "cmaes_search_grid": lambda: portfolio.cmaes_search_grid(
+        [tiny_cnn()], accel.PAPER_ACCEL, [32.0], [8 * MB], nmax=8,
+        cfg=portfolio.PortfolioConfig(population=4, generations=1)),
+    "RefreshWorker": lambda: serving.RefreshWorker(serving.MapperEngine(
+        dtm.dt_init(_TINY_DT, device=CPU))).refresh(
+            [tiny_cnn()], [accel.PAPER_ACCEL], [8.0]),
 }
 
 
