@@ -10,7 +10,10 @@ copies of the layer IR and the CNN zoo), ``core/`` (``accel``,
 ``cost_model``, ``env``, ``model``, ``backend``, ``infer``, ``gsampler``,
 and the paper loop's ``dataset`` -- the teacher corpus -- and ``train``),
 ``core/polish`` and ``core/portfolio`` (the refiners the serving engine
-escalates to), ``serving/`` (the engine, its async scheduler, the
+escalates to), the paper's yardsticks (``core/baselines``, ``core/a2c``
+and ``core/seq2seq``: Table 1's black-box optimizers, A2C agent and
+Seq2Seq mapper; ``core/optimal`` with its f64 loop model
+``core/ref_model``: the exact optimum), ``serving/`` (the engine, its async scheduler, the
 strategy cache, drift detection and the refresh-and-swap loop),
 ``optim/`` (the hand-written AdamW and SGD and the learning-rate
 schedules), ``configs/`` (copies of the ten LM arch configs), ``nn/`` (dense,
@@ -25,7 +28,8 @@ with the reference's, through which weights cross packages).
 Device policy.  Entry points that create tensors (``pack_workload``,
 ``FusionEnv``, ``dt_init``, ``gsampler_search_grid``,
 ``generate_teacher_corpus``, ``collect_teacher_data``,
-``dnnfuser_infer_batch``, ``polish_grid``, ``de_search_grid``, ...), the
+``dnnfuser_infer_batch``, ``polish_grid``, ``de_search_grid``,
+``s2s_init``, ``optimal_grid``, ...), the
 training loop (``train_model``, ``fine_tune``) and the serving stack
 (``MapperEngine``, :func:`serve`) run on ``cuda`` unless the caller passes
 ``device="cpu"``; with no card and no
@@ -42,7 +46,9 @@ went through the kernel.
 Oracles and tolerances.  The port is held, on the same numpy-made inputs,
 against the reference's XLA paths (``evaluator="xla"``, ``impl="xla"``),
 against ``repro.kernels.ref`` and against the f64 loop model
-``repro.core.ref_model`` -- never against a Pallas interpret path.
+``repro.core.ref_model`` -- never against a Pallas interpret path.  The
+port's own f64 oracles (``ref_model``, the exact DP of ``optimal``) are
+host numpy and bit-equal to the reference's.
 Integer outputs (strategies, decoded actions, ``gid``, ``valid``,
 ``n_groups``, greedy tokens) are equal; cost-model floats agree within
 rtol 1e-5; DT logits within atol 1e-5; LM logits within 2e-4 (the
@@ -67,10 +73,11 @@ import torch
 
 # name -> home submodule of every public symbol, resolved lazily on first
 # access (``import repro_torch`` stays cheap): the port's subset of the
-# reference's public table (no seq2seq baseline, no replicas).
+# reference's public table (no replicas).
 _PUBLIC = {
     # the paper core: model + one-shot inference
     "DTConfig": "core", "dt_init": "core", "dt_loss": "core",
+    "S2SConfig": "core", "s2s_init": "core", "s2s_loss": "core",
     "dnnfuser_infer": "core", "dnnfuser_infer_batch": "core",
     "InferResult": "core",
     # teacher + training
@@ -134,7 +141,8 @@ def serve(model, config=None, *, warm=None, accel=None, device=None):
     """Build the serving stack -- engine + async scheduler -- from one frozen
     ``ServingConfig`` (default ``ServingConfig()``).
 
-    ``model`` is the port's DT, on ``device`` (``cuda`` unless ``"cpu"``).
+    ``model`` is the port's DT or S2S, on ``device`` (``cuda`` unless
+    ``"cpu"``).
     With ``warm`` (a list of workloads, optionally ``accel``) the engine is
     warmed up first, so steady-state traffic over those shapes adds no
     signature and the drift monitor knows the in-distribution conditions.

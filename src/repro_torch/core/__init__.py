@@ -1,6 +1,8 @@
 """The mapper core: conditions, cost model, environment, DT, G-Sampler,
-the teacher corpus, training, inference, and the refiners (gradient
-polish, the DE/CMA-ES portfolio)."""
+the teacher corpus, training, inference, the refiners (gradient polish,
+the DE/CMA-ES portfolio), and the paper's yardsticks: the Table-1
+baselines (black-box optimizers, A2C, the Seq2Seq mapper) and the exact
+optimum with its f64 loop model."""
 from .accel import (ACCEL_ZOO, HW_FEATURE_DIM, HW_FIELDS, PAPER_ACCEL,
                     AccelConfig, accel_features, accel_from_features,
                     hw_array, stack_hw)
@@ -13,9 +15,14 @@ from .env import FusionEnv, decode_action, encode_action, returns_to_go
 from .model import (DT, DTBackend, DTConfig, dt_apply, dt_cache_init,
                     dt_decode_step, dt_init, dt_loss, dt_prefill,
                     load_param_tree, param_tree)
+from .seq2seq import (S2S, S2SBackend, S2SConfig, s2s_apply,
+                      s2s_decode_start, s2s_decode_step, s2s_encode,
+                      s2s_init, s2s_loss, s2s_stream_init, s2s_stream_step)
 from .backend import backend_for
 from .infer import (InferResult, dnnfuser_infer, dnnfuser_infer_batch,
-                    dnnfuser_infer_fused)
+                    dnnfuser_infer_fused, s2s_infer, s2s_infer_fused)
+from .baselines import BASELINE_METHODS, SearchResult, run_baseline
+from .a2c import a2c_search
 from .gsampler import (GSamplerConfig, GSamplerResult, GridTeacherResult,
                        gsampler_search, gsampler_search_grid,
                        naive_uniform_mb)
@@ -27,6 +34,9 @@ from .train import (TrainConfig, fine_tune, make_train_step, restore_params,
 from .polish import PolishConfig, PolishResult, polish_grid, polish_strategy
 from .portfolio import (PortfolioConfig, PortfolioResult, cmaes_search_grid,
                         de_search_grid)
+from .optimal import (OptimalResult, brute_force_optimal,
+                      enumerate_strategies, optimal_grid, optimal_mapping,
+                      optimal_search, scaled_wl_np)
 
 __all__ = ["ACCEL_ZOO", "HW_FEATURE_DIM", "HW_FIELDS", "PAPER_ACCEL",
            "AccelConfig", "accel_features", "accel_from_features",
@@ -38,8 +48,13 @@ __all__ = ["ACCEL_ZOO", "HW_FEATURE_DIM", "HW_FIELDS", "PAPER_ACCEL",
            "encode_action", "returns_to_go", "DT", "DTBackend", "DTConfig",
            "dt_apply", "dt_cache_init", "dt_decode_step", "dt_init",
            "dt_loss", "dt_prefill", "load_param_tree", "param_tree",
-           "backend_for", "InferResult", "dnnfuser_infer",
-           "dnnfuser_infer_batch", "dnnfuser_infer_fused", "GSamplerConfig",
+           "S2S", "S2SBackend", "S2SConfig", "s2s_apply", "s2s_decode_start",
+           "s2s_decode_step", "s2s_encode", "s2s_init", "s2s_loss",
+           "s2s_stream_init", "s2s_stream_step", "backend_for",
+           "InferResult", "dnnfuser_infer",
+           "dnnfuser_infer_batch", "dnnfuser_infer_fused", "s2s_infer",
+           "s2s_infer_fused", "BASELINE_METHODS", "SearchResult",
+           "run_baseline", "a2c_search", "GSamplerConfig",
            "GSamplerResult", "GridTeacherResult", "gsampler_search",
            "gsampler_search_grid", "naive_uniform_mb", "TrajectoryDataset",
            "collect_teacher_data", "generate_teacher_corpus",
@@ -47,4 +62,6 @@ __all__ = ["ACCEL_ZOO", "HW_FEATURE_DIM", "HW_FIELDS", "PAPER_ACCEL",
            "make_train_step", "restore_params", "train_model",
            "PolishConfig", "PolishResult", "polish_grid", "polish_strategy",
            "PortfolioConfig", "PortfolioResult", "cmaes_search_grid",
-           "de_search_grid"]
+           "de_search_grid", "OptimalResult", "brute_force_optimal",
+           "enumerate_strategies", "optimal_grid", "optimal_mapping",
+           "optimal_search", "scaled_wl_np"]

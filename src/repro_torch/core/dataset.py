@@ -10,14 +10,15 @@ moves each batch to the model's device):
   searches every condition of the (workload x accelerator x budget) grid
   at once, and ``_decorate_grid`` (one ``cost_model.prefix_scan`` over all
   [C x K] candidates) relabels every elite into (returns-to-go, state,
-  action) trajectories.  Deterministic per seed on a given device.
+  action) trajectories.  Deterministic per seed on a given device.  With
+  ``teacher="optimal"`` the exact DP (``core/optimal.py``) gives each
+  condition's one optimal strategy in place of the GA's elites.
 
 ``window_dataset`` cuts long trajectories into fixed-length windows with
 absolute-time offsets (``t0``).
 
 Not carried over: the ``evaluator`` switch (the port has one population
-evaluator, the ``fusion_eval`` kernel) and ``teacher="optimal"``, which
-waits for the port of ``core/optimal.py``.
+evaluator, the ``fusion_eval`` kernel).
 """
 from __future__ import annotations
 
@@ -32,6 +33,7 @@ from .accel import HW_FEATURE_DIM, AccelConfig, accel_features, stack_hw
 from .env import (STATE_DIM, FusionEnv, _budget_feat, _shape_feats,
                   encode_action, returns_to_go)
 from .gsampler import GSamplerConfig, gsampler_search, gsampler_search_grid
+from .optimal import optimal_search
 
 __all__ = ["TrajectoryDataset", "collect_teacher_data", "merge_datasets",
            "generate_teacher_corpus", "window_dataset"]
@@ -226,6 +228,7 @@ def generate_teacher_corpus(workloads: list, hw, *,
                             ga_cfg: GSamplerConfig | None = None,
                             seed: int = 0, augment_jitter: int = 2,
                             teacher: str = "gsampler",
+                            front_cap: int = 4096,
                             extra_elites: dict | None = None,
                             device=None) -> TrajectoryDataset:
     """The grid teacher pipeline on ``device``: the scalable twin of
@@ -239,21 +242,24 @@ def generate_teacher_corpus(workloads: list, hw, *,
     normalized features (``TrajectoryDataset.hw``).  A fixed ``seed``
     reproduces the corpus bit for bit on a given device.
 
+    ``teacher`` selects the label source: ``"gsampler"`` (default) runs the
+    grid GA; ``"optimal"`` replaces its elites with the one provably
+    optimal strategy of each condition from the exact DP
+    (:func:`optimal.optimal_search`, host float64; ``front_cap`` is passed
+    on, and the DP raises rather than approximates past it, so keep
+    ``"optimal"`` to small and mid-sized chains).  Everything downstream --
+    jitter, decoration, the validity filter, the dataset's schema -- is the
+    same for both teachers.
+
     ``extra_elites`` injects strategies into the elite pool: a dict keyed
     ``(workload_name, accel_name, budget_mb)`` (budget matched after
     ``round(..., 6)``) whose values are lists of strategy arrays of length
     at most ``max_steps`` (the tail pads to SYNC).  Conditions without
     extras are padded with copies of their own first elite, which the
-    duplicate filter drops again.
-
-    Only ``teacher="gsampler"`` is ported; ``"optimal"`` needs the exact
-    DP oracle of ``core/optimal.py``, which is still to port (ROADMAP
-    queue 1, item 6)."""
-    if teacher == "optimal":
-        raise ValueError("teacher='optimal' needs core/optimal.py, which the "
-                         "port does not have yet (ROADMAP queue 1, item 6)")
-    if teacher != "gsampler":
-        raise ValueError(f"unknown teacher {teacher!r}; expected 'gsampler'")
+    duplicate filter drops again."""
+    if teacher not in ("gsampler", "optimal"):
+        raise ValueError(f"unknown teacher {teacher!r}; "
+                         "expected 'gsampler' or 'optimal'")
     accels = list(hw) if isinstance(hw, (list, tuple)) else [hw]
     if any(not isinstance(a, AccelConfig) for a in accels):
         raise TypeError("generate_teacher_corpus needs AccelConfig presets "
@@ -269,12 +275,23 @@ def generate_teacher_corpus(workloads: list, hw, *,
     cfg = ga_cfg or GSamplerConfig(seed=seed)
 
     # pack the grid once: the search and the decoration share it
-    wls = cm.stack_workloads([cm.pack_workload(w, a, max_steps, device=dev)
-                              for w, a, _ in conds])
-    res = gsampler_search_grid(wl_list, hw_list, batches, budgets,
-                               nmax=max_steps, cfg=cfg, top_k=top_k,
-                               packed=wls, device=dev)
-    elites, base_lat = res.strategies, res.baseline_latency
+    packed = [cm.pack_workload(w, a, max_steps, device=dev)
+              for w, a, _ in conds]
+    wls = cm.stack_workloads(packed)
+    if teacher == "optimal":
+        elites = np.stack([
+            optimal_search({k: v.cpu().numpy() for k, v in p.items()},
+                           batch, float(bud), a,
+                           front_cap=front_cap).strategy
+            for p, (_, a, _), bud in zip(packed, conds, budgets)
+        ])[:, None, :]                                    # [C, 1, P]
+        base_lat = cm.baseline_grid(wls, batches,
+                                    hw_list).latency.cpu().numpy()
+    else:
+        res = gsampler_search_grid(wl_list, hw_list, batches, budgets,
+                                   nmax=max_steps, cfg=cfg, top_k=top_k,
+                                   packed=wls, device=dev)
+        elites, base_lat = res.strategies, res.baseline_latency
     if extra_elites:
         per_cond = [extra_elites.get((w.name, a.name, round(float(b), 6)), ())
                     for w, a, b in conds]

@@ -45,8 +45,8 @@ from .env import (STATE_DIM, FusionEnv, decode_action, encode_action,
                   env_final, env_make, env_observe, env_reset, env_step)
 
 __all__ = ["InferResult", "dnnfuser_infer", "dnnfuser_infer_batch",
-           "dnnfuser_infer_fused", "guard_rounds", "lane_block",
-           "LANE_BLOCK"]
+           "dnnfuser_infer_fused", "s2s_infer", "s2s_infer_fused",
+           "guard_rounds", "lane_block", "LANE_BLOCK"]
 
 # Lanes of one batched episode on the card.  cuBLAS picks a GEMM's
 # algorithm (and with it the order of its sums) by the problem's shape, so
@@ -112,12 +112,17 @@ def _rollout(backend, model, env: FusionEnv, *, repair: bool) -> InferResult:
                        bool(out.valid), wall, calls)
 
 
+def _device_of(model) -> torch.device:
+    return next(model.parameters()).device
+
+
 def dnnfuser_infer(model, env: FusionEnv, *,
                    repair: bool = True) -> InferResult:
     """Conditional autoregressive inference of one condition, the host
-    reference path, on the env's device (the model must be there)."""
-    if model.head.w.device != env.device:
-        raise ValueError(f"model is on {model.head.w.device}, the env on "
+    reference path, on the env's device (the model must be there).  Any
+    registered backend's model works (the DT, the seq2seq baseline)."""
+    if _device_of(model) != env.device:
+        raise ValueError(f"model is on {_device_of(model)}, the env on "
                          f"{env.device}")
     return _rollout(backend_for(model.cfg), model, env, repair=repair)
 
@@ -217,8 +222,8 @@ def dnnfuser_infer_batch(model, env_or_wl, batches, budgets_bytes, hw=None,
     if wl["A"].device != dev:
         raise ValueError(f"workloads are on {wl['A'].device}, the episode "
                          f"runs on {dev}")
-    if model.head.w.device != dev:
-        raise ValueError(f"model is on {model.head.w.device}, the episode "
+    if _device_of(model) != dev:
+        raise ValueError(f"model is on {_device_of(model)}, the episode "
                          f"runs on {dev}")
     hwv = stack_hw(hw, C, dev)
     hwf = accel_features(hwv) if model.cfg.hw_dim else None
@@ -275,3 +280,9 @@ def dnnfuser_infer_fused(model, env: FusionEnv, *,
     return InferResult(strat, float(out["speedup"][0]),
                        float(out["latency"][0]), float(out["peak_mem"][0]),
                        bool(out["valid"][0]), wall, env.n + 1)
+
+
+# the backend is chosen by the model's config, so the seq2seq entry points
+# are the same functions (the reference keeps both names)
+s2s_infer = dnnfuser_infer
+s2s_infer_fused = dnnfuser_infer_fused

@@ -151,8 +151,9 @@ class MapperEngine:
     ``approx_budget_sharing``, ...) keep working through a deprecation
     shim that warns once per kwarg per process.
 
-    ``model`` is the port's ``DT`` (its config rides on it as ``.cfg``);
-    it must already be on ``device`` (``cuda`` unless ``"cpu"``).
+    ``model`` is a mapper of a registered backend -- the port's ``DT`` or
+    its ``S2S`` -- whose config rides on it as ``.cfg``; it must already
+    be on ``device`` (``cuda`` unless ``"cpu"``).
 
     Config fields: ``nmax_buckets`` -- the workload-length buckets
     (default ``bucketing.default_nmax_buckets``; ``cfg.max_steps`` caps

@@ -42,6 +42,7 @@ from ..core.dataset import generate_teacher_corpus
 from ..core.gsampler import GSamplerConfig
 from ..core.infer import dnnfuser_infer_batch
 from ..core.model import DTConfig, dt_loss, load_param_tree, param_tree
+from ..core.seq2seq import S2SConfig, s2s_loss
 from ..core.train import TrainConfig, fine_tune
 from .drift import region_key_predicate
 from .engine import _accel_key
@@ -52,14 +53,12 @@ MB = float(2 ** 20)
 
 
 def _loss_for(cfg):
-    """Imitation loss for a mapper config: the decision transformer's
-    ``dt_loss``.  The seq2seq baseline is not ported."""
+    """Imitation loss for a mapper config (mirrors ``backend_for``)."""
     if isinstance(cfg, DTConfig):
         return dt_loss
-    raise TypeError(
-        f"no imitation loss registered for {type(cfg).__name__}: the port "
-        f"has only the decision transformer; the seq2seq baseline "
-        f"(S2SConfig, core/seq2seq.py) is ROADMAP queue 1 item 5")
+    if isinstance(cfg, S2SConfig):
+        return s2s_loss
+    raise TypeError(f"no imitation loss registered for {type(cfg).__name__}")
 
 
 def probe_score(model, conds, *, repair: bool = True) -> float:

@@ -291,10 +291,17 @@ def test_grid_corpus_quality_holds_against_reference(corpora):
 
 
 def test_grid_corpus_rejects_the_optimal_teacher():
-    with pytest.raises(ValueError, match="queue 1, item 6"):
+    """Since slice 9 the grid corpus takes ``teacher="optimal"`` (held to
+    the reference in ``test_torch_optimal.py``) and rejects only a teacher
+    it does not know."""
+    kw = dict(budgets_mb=[4.0], batch=8, max_steps=8, device=CPU)
+    ds = tds.generate_teacher_corpus([port_workload(tiny_cnn())],
+                                     taccel.PAPER_ACCEL, teacher="optimal",
+                                     **kw)
+    assert len(ds) > 0
+    with pytest.raises(ValueError, match="teacher"):
         tds.generate_teacher_corpus([port_workload(tiny_cnn())],
-                                    taccel.PAPER_ACCEL, budgets_mb=[4.0],
-                                    teacher="optimal", device=CPU)
+                                    taccel.PAPER_ACCEL, teacher="dp", **kw)
 
 
 def test_grid_corpus_takes_extra_elites():

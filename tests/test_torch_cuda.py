@@ -780,3 +780,81 @@ def test_card_engine_equals_cpu_engine(dev):
         np.testing.assert_allclose([a.latency, a.peak_mem, a.speedup],
                                    [b.latency, b.peak_mem, b.speedup],
                                    rtol=1e-5)
+
+
+# --- slice 9: the Table-1 baselines and the exact optimum -------------------
+
+@pytest.mark.parametrize("method", ["CMA", "DE", "PSO", "Random", "TBPSA",
+                                    "stdGA"])
+def test_baseline_on_card_equals_cpu(dev, method):
+    """The optimizers draw the same numpy stream on either device, and the
+    kernel is bit-equal to its twin, so a run on the card is the CPU's: same
+    strategy and costs, 51 fusion_eval launches at 2000 samples."""
+    from repro_torch.core import baselines, env
+    from repro_torch.workloads import vgg16
+    args = (vgg16(batch=128), accel.PAPER_ACCEL, 128, 40 * MB)
+    fe.reset_launches()
+    got = baselines.run_baseline(env.FusionEnv(*args, nmax=20, device=dev),
+                                 method, budget=2000, seed=0)
+    assert fe.STATS.launches == 1 + 2000 // 40 + 1     # env reset + 50 + 1
+    want = baselines.run_baseline(env.FusionEnv(*args, nmax=20,
+                                                device="cpu"),
+                                  method, budget=2000, seed=0)
+    np.testing.assert_array_equal(got.strategy, want.strategy)
+    assert (got.latency, got.peak_mem, got.valid, got.n_evals) == \
+        (want.latency, want.peak_mem, want.valid, want.n_evals)
+
+
+def test_optimal_certification_on_card(dev):
+    """optimal_mapping certifies in one launch a condition, optimal_grid in
+    one for the grid, and both give the CPU's optimum and f32 costs."""
+    from repro_torch.core import env, optimal
+    nets = [tiny_cnn(), tiny_cnn()]
+    hws = [accel.ACCEL_ZOO["edge"], accel.ACCEL_ZOO["nano"]]
+    budgets = [2 * MB, 6 * MB]
+    fe.reset_launches()
+    grid = optimal.optimal_grid(nets, hws, [64, 64], budgets, device=dev)
+    assert fe.STATS.launches == 1
+    cpu = optimal.optimal_grid(nets, hws, [64, 64], budgets, device="cpu")
+    for g, c, w, h, b in zip(grid, cpu, nets, hws, budgets):
+        np.testing.assert_array_equal(g.strategy, c.strategy)
+        assert g.latency == c.latency and g.certified == c.certified
+        e = env.FusionEnv(w, h, 64, b, nmax=64, device=dev)
+        fe.reset_launches()
+        one = optimal.optimal_mapping(e)
+        assert fe.STATS.launches == 1
+        np.testing.assert_array_equal(one.strategy, g.strategy)
+        assert one.latency == g.latency
+        assert float(one.certified.latency) == float(g.certified.latency)
+
+
+def test_s2s_episode_rows_do_not_depend_on_width(dev):
+    """The S2S's batched episode on 128-lane blocks: the 120 smoke-grid rows
+    at once, in chunks of 16 and one by one give each row bit-identical
+    outputs."""
+    from repro_torch.core import infer, seq2seq
+    model = seq2seq.s2s_init(seq2seq.S2SConfig(hw_dim=accel.HW_FEATURE_DIM),
+                             seed=0, device=dev)
+    parts = sorted(accel.ACCEL_ZOO)
+    conds, works, batches, budgets = paper_grid(parts)
+    hws = [accel.ACCEL_ZOO[p] for _, p, _ in conds]
+    rows = [cm.pack_workload(w, h, 64, device=dev)
+            for w, h in zip(works, hws)]
+    keys = ("strategy", "latency", "peak_mem", "speedup", "valid")
+
+    def run(idx):
+        out = infer.dnnfuser_infer_batch(
+            model, cm.stack_workloads([rows[i] for i in idx]), batches[idx],
+            budgets[idx], [hws[i] for i in idx], device=dev)
+        return {k: out[k].cpu() for k in keys}
+
+    full = run(np.arange(120))
+    for start in range(0, 120, 16):
+        idx = np.arange(start, min(start + 16, 120))
+        part = run(idx)
+        for k in keys:
+            assert torch.equal(part[k], full[k][idx]), (k, start)
+    for i in range(0, 120, 11):
+        one = run(np.array([i]))
+        for k in keys:
+            assert torch.equal(one[k][0], full[k][i]), (k, i)

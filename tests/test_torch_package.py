@@ -15,6 +15,7 @@ from _torch_parity import CPU, MB
 import repro_torch
 from repro_torch.core import accel, cost_model as cm, dataset, env, gsampler
 from repro_torch.core import infer, model as dtm, polish, portfolio, train
+from repro_torch.core import a2c, baselines, optimal, seq2seq
 from repro_torch.configs import get_config
 from repro_torch.kernels import _build, fusion_eval as fe
 from repro_torch.launch import serve_greedy
@@ -52,7 +53,9 @@ def test_port_imports_no_jax_and_no_reference(path):
                                     "models.rwkv_lm", "kernels.rwkv6_scan",
                                     "optim", "checkpoint", "core.train",
                                     "core.dataset", "serving", "core.polish",
-                                    "core.portfolio"])
+                                    "core.portfolio", "core.optimal",
+                                    "core.baselines", "core.seq2seq",
+                                    "core.a2c"])
 def test_each_layer_imports_first(module):
     """``nn`` imports the attention kernels, and ``kernels.fusion_eval``
     imports ``core``, whose DT imports ``nn``: each must import first in a
@@ -146,6 +149,22 @@ _ENTRY_POINTS = {
     "RefreshWorker": lambda: serving.RefreshWorker(serving.MapperEngine(
         dtm.dt_init(_TINY_DT, device=CPU))).refresh(
             [tiny_cnn()], [accel.PAPER_ACCEL], [8.0]),
+    "run_baseline": lambda: baselines.run_baseline(
+        env.FusionEnv(tiny_cnn(), accel.PAPER_ACCEL, 32, 8 * MB, nmax=8),
+        "PSO", budget=80),
+    "a2c_search": lambda: a2c.a2c_search(
+        env.FusionEnv(tiny_cnn(), accel.PAPER_ACCEL, 32, 8 * MB, nmax=8),
+        budget=1),
+    "optimal_mapping": lambda: optimal.optimal_mapping(
+        env.FusionEnv(tiny_cnn(), accel.PAPER_ACCEL, 32, 8 * MB, nmax=8)),
+    "optimal_grid": lambda: optimal.optimal_grid(
+        [tiny_cnn()], [accel.PAPER_ACCEL], [32], [8 * MB], nmax=8),
+    "s2s_init": lambda: seq2seq.s2s_init(seq2seq.S2SConfig(hidden=8,
+                                                           max_steps=8)),
+    "s2s_infer_fused": lambda: infer.s2s_infer_fused(
+        seq2seq.s2s_init(seq2seq.S2SConfig(hidden=8, max_steps=8),
+                         device=CPU),
+        env.FusionEnv(tiny_cnn(), accel.PAPER_ACCEL, 32, 8 * MB, nmax=8)),
 }
 
 
