@@ -1,7 +1,11 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (``src/repro_torch``) on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent-fa TREE]
+
+With ``--parent-fa``, ``TREE``'s ``flash_attention.cu`` (a checkout of an
+earlier commit) is built beside this one's and its f32 kernel is timed in
+turns with this one in phases 8 and 11.
 
 Phases, each of which raises on failure (the script then exits non-zero):
 
@@ -71,9 +75,14 @@ Phases, each of which raises on failure (the script then exits non-zero):
    of the output); bf16 ``flash_attention`` (the tensor-core path, which
    rounds P to bf16 before P V) within ``fa.bf16_limit``, 1e-3 + 8e-3
    |plain| + 2^-8 plain(q, k, |v|), its worst ratio also printed against
-   the old limit; then each is timed against its plain version and one
-   ``scaled_dot_product_attention`` call, ``flash_attention`` on both
-   paths (bf16 at the scoring shape, f32 at the self-check's),
+   the old limit; f32 ``flash_attention`` (the 3xTF32 tensor-core path)
+   called twice a case, one launch a call and bit-identical, and at q, k
+   x 4 and x 8 (at the self-check's shape and a small one) within twice
+   the plain twin's error against an f64 attention; then each is timed
+   against its plain version and one ``scaled_dot_product_attention``
+   call, ``flash_attention`` on both paths (bf16 at the scoring shape, f32
+   at the self-check's and the scoring shape, beside its 3xTF32 bound and
+   the CUDA cores' 67 TFLOP/s one),
    ``flash_decode`` by its device time a call (``device_ms``) and, apart,
    its wrapper's host time a call (``host_us``);
 9. scoring: qwen3_8b at full width and depth (bf16, seeded random
@@ -84,9 +93,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
    gen_len=128)`` in f32: prefill (chunked, no kernel), then 127 greedy
    decode steps, exactly 36 x 127 ``flash_decode`` launches;
 11. full-width self-check: an f32 ``forward`` over the prompt and the
-   generated tokens (36 ``flash_attention`` launches, all on the
-   CUDA-core path) reproduces the served logits (within 1e-3 of the
-   logits' largest magnitude) and the greedy tokens (near-ties counted);
+   generated tokens (36 ``flash_attention`` launches, all on the 3xTF32
+   tensor-core path; its wall timed) reproduces the served logits (within
+   1e-3 of the logits' largest magnitude) and the greedy tokens
+   (near-ties counted);
 12. ``wkv6`` against ``wkv6_plain``, the sequential recurrence, in f32 at
    the JAX sweep's shapes, under strong decay, at a T that is not a whole
    number of chunks, on strided inputs, at the main path's shapes with
@@ -147,6 +157,8 @@ BUDGETS_MB = (8, 16, 32, 64)
 H100_BYTES_PER_S = 3.35e12      # HBM3, H100 SXM data sheet
 H100_F32_OPS_PER_S = 67e12      # f32 outside the tensor cores
 H100_BF16_OPS_PER_S = 989e12    # bf16 on the tensor cores, dense
+H100_TF32_OPS_PER_S = 495e12    # TF32 on the tensor cores, dense
+TF32X3_PRODUCTS = 3             # TF32 products per f32 one (3xTF32)
 FE_OPS_PER_POSITION = 48        # f32 operations of one live (candidate, pos)
 FE_POPS = (1, 36, 40)           # the naive search and re-score, repair, GA
 MB = 2.0 ** 20
@@ -291,13 +303,25 @@ def peak_ops(dtype) -> float:
 
 def fa_bound_ms(B, S, T, Hq, Hkv, hd, causal, window, dtype):
     """Least time for one flash_attention call: 4 * hd operations per
-    visible (query, key) pair and head over the peak of the input type;
-    q, k, v read once and the output written once over HBM."""
+    visible (query, key) pair and head over the peak of the input type
+    (for f32 the CUDA cores' 67 TFLOP/s, kept as a reference line beside
+    the f32 route's own bound, ``fa_tf32x3_bound_ms``); q, k, v read once
+    and the output written once over HBM."""
     import torch
     size = torch.finfo(dtype).bits // 8
     ops = 4 * hd * visible_pairs(S, T, causal, window) * B * Hq
     nbytes = size * (2 * B * S * Hq * hd + 2 * B * T * Hkv * hd)
     return roofline_ms(nbytes, ops, peak_ops(dtype))
+
+
+def fa_tf32x3_bound_ms(B, S, T, Hq, Hkv, hd, causal, window):
+    """Least time for one f32 flash_attention call on its route: each f32
+    operation is TF32X3_PRODUCTS TF32 ones, over the TF32 tensor-core
+    peak; f32 q, k, v read once and the output written once over HBM."""
+    ops = TF32X3_PRODUCTS * 4 * hd * visible_pairs(S, T, causal, window) \
+        * B * Hq
+    nbytes = 4 * (2 * B * S * Hq * hd + 2 * B * T * Hkv * hd)
+    return roofline_ms(nbytes, ops, H100_TF32_OPS_PER_S)
 
 
 def fd_bound_ms(B, Hq, Hkv, hd, kv_len, dtype):
@@ -318,11 +342,15 @@ def sdpa_ms(q, k, v, causal: bool, reps: int) -> float:
         qt, kt, vt, is_causal=causal, enable_gqa=True), reps)
 
 
-def attention_kernels(dev) -> dict:
+def attention_kernels(dev, parent=None) -> dict:
     """Phase 8: both attention kernels against their plain versions, then
-    timed at the main path's shapes.  Returns the JSON fields."""
+    timed at the main path's shapes, the f32 ``flash_attention`` in turns
+    with ``parent``'s (an ``ab_flash_attention.finish_build`` library)
+    where given.
+    Returns the JSON fields."""
     import numpy as np
     import torch
+    from repro_torch import ab_flash_attention as ab
     from repro_torch.kernels import flash_attention as fa, flash_decode as fd
     # (rtol, atol).  f32: the JAX sweep's 2e-5.  bf16: both sides compute in
     # f32 from the same bf16 inputs, so they may differ by one bf16 rounding
@@ -371,7 +399,7 @@ def attention_kernels(dev) -> dict:
                  (1, SCORE_S, SCORE_S, 32, 8, 128, torch.float32, True, -1)]
     fa_cases += [(SERVE_B, PROMPT + GEN - 1, PROMPT + GEN - 1, 32, 8, 128,
                   dt, True, -1) for dt in (torch.float32, torch.bfloat16)]
-    fa_err = {}
+    fa_err, fa_same = {}, 0
     for B, S, T, Hq, Hkv, hd, dt, c, w in fa_cases:
         q, k, v = qkv(dt, B, S, T, Hq, Hkv, hd)
         label = (f"flash_attention B{B} S{S} T{T} Hq{Hq}/{Hkv} hd{hd} "
@@ -380,13 +408,40 @@ def attention_kernels(dev) -> dict:
         limit = None
         if dt == torch.bfloat16:
             limit = fa.bf16_limit(q, k, v, causal=c, window=w, want=want)
-        err, strict, ratio = held(
-            label, fa.flash_attention(q, k, v, causal=c, window=w), want,
-            dt, limit)
+        before = fa.STATS.launches
+        got = fa.flash_attention(q, k, v, causal=c, window=w)
+        if dt == torch.float32:          # the 3xTF32 path: deterministic
+            again = fa.flash_attention(q, k, v, causal=c, window=w)
+            torch.cuda.synchronize()
+            check(fa.STATS.launches == before + 2, f"{label}: a call is not "
+                  f"one launch")
+            check(torch.equal(got, again), f"{label}: two calls differ")
+            fa_same += 1
+        err, strict, ratio = held(label, got, want, dt, limit)
         if limit is not None:
             fa_strict, fa_gated = max(fa_strict, strict), max(fa_gated, ratio)
         fa_err[dt] = max(fa_err.get(dt, 0.0), err)
-        del q, k, v, want, limit
+        del q, k, v, want, limit, got
+    # large scores (q, k x 4 and x 8): no f32 kernel holds the gate against
+    # the twin there, so both are held to an f64 attention, the kernel's
+    # error at most twice the twin's
+    big = {}
+    for B, S, Hq, Hkv, hd, c in ((SERVE_B, PROMPT + GEN - 1, 32, 8, 128, True),
+                                 (1, 300, 4, 4, 64, False)):
+        for scale in (4.0, 8.0):
+            q, k, v = qkv(torch.float32, B, S, S, Hq, Hkv, hd)
+            q, k = q * scale, k * scale
+            exact = ab.attention_f64(q, k, v, c)
+            got = float((fa.flash_attention(q, k, v, causal=c).double()
+                         - exact).abs().max())
+            twin = float((fa.flash_attention_plain(q, k, v, causal=c)
+                          .double() - exact).abs().max())
+            check(0 < got <= 2 * twin, f"flash_attention f32 B{B} S{S} "
+                  f"Hq{Hq}/{Hkv} hd{hd} x{scale:g}: error against f64 {got} "
+                  f"is over twice the plain twin's {twin}")
+            big[f"B{B} S{S} hd{hd} x{scale:g}"] = (got, twin)
+            del q, k, v, exact
+        torch.cuda.empty_cache()
     print(f"[8/16] flash_attention == plain on {len(fa_cases)} shapes (JAX "
           f"sweep x f32/bf16 x causal/non-causal/window 96, one tile of 64 "
           f"and 128 rows at hd 64 and 128, GQA 4:1 and 8:1, ragged S/T "
@@ -395,7 +450,12 @@ def attention_kernels(dev) -> dict:
           f", bf16 {fa_err[torch.bfloat16]:.3g}; bf16 (tensor-core path) "
           f"worst |got - want| / limit {fa_gated:.3g} against 1e-3 + 8e-3 "
           f"|plain| + 2^-8 plain(q, k, |v|), {fa_strict:.3g} against the "
-          f"old 1e-3 + 8e-3 |plain|")
+          f"old 1e-3 + 8e-3 |plain|; f32 (3xTF32 path) two calls "
+          f"bit-identical on all {fa_same}, one launch a call")
+    print("      flash_attention f32 at large scores, max abs err against "
+          "f64, kernel / twin: " + "; ".join(
+              f"{key} {g:.3g} / {t:.3g} ({g / t:.3f})"
+              for key, (g, t) in big.items()) + " (limit 2)")
 
     T_srv = PROMPT + GEN + 8
     fd_cases = [(B, T, Hq, Hkv, hd, kl, 256, dt, False)
@@ -448,7 +508,7 @@ def attention_kernels(dev) -> dict:
           f"bf16 {worst[torch.bfloat16]:.3g} (8e-3, 1e-3)")
 
     # times at the main path's shapes: bf16 (tensor-core path) at the
-    # scoring shape, f32 (CUDA-core path) at the self-check's
+    # scoring shape, then f32 below
     q, k, v = qkv(torch.bfloat16, SCORE_B, SCORE_S, SCORE_S, 32, 8, 128)
     fa_ms = time_ms(lambda: fa.flash_attention(q, k, v), 20)
     fa_plain = time_ms(lambda: fa.flash_attention_plain(q, k, v), 3)
@@ -460,15 +520,34 @@ def attention_kernels(dev) -> dict:
     fa_bound, fa_by = fa_bound_ms(SCORE_B, SCORE_S, SCORE_S, 32, 8, 128,
                                   True, -1, torch.bfloat16)
     del q, k, v, want
-    S32 = PROMPT + GEN - 1
-    q, k, v = qkv(torch.float32, SERVE_B, S32, S32, 32, 8, 128)
-    f32_ms = time_ms(lambda: fa.flash_attention(q, k, v), 5)
-    f32_plain = time_ms(lambda: fa.flash_attention_plain(q, k, v), 3)
-    f32_lib = sdpa_ms(q, k, v, True, 5)
-    f32_bound, f32_by = fa_bound_ms(SERVE_B, S32, S32, 32, 8, 128, True, -1,
-                                    torch.float32)
-    del q, k, v
-    torch.cuda.empty_cache()
+    # f32 (the 3xTF32 path) at the self-check's shape and at the scoring
+    # shape, in turns with the parent's kernel where given (parent,
+    # change, change, parent)
+    f32 = {}
+    for key, B, S in (("self_check", SERVE_B, PROMPT + GEN - 1),
+                      ("scoring", SCORE_B, SCORE_S)):
+        q, k, v = qkv(torch.float32, B, S, S, 32, 8, 128)
+        run = lambda: fa.flash_attention(q, k, v)
+        ms, par = [], []
+        for who in (("parent", "change", "change", "parent") if parent
+                    else ("change", "change")):
+            with ab.swap(parent if who == "parent" else None):
+                (par if who == "parent" else ms).append(time_ms(run, 10))
+        plain = time_ms(lambda: fa.flash_attention_plain(q, k, v), 3)
+        want = fa.flash_attention_plain(q, k, v)
+        err, ratio = held(f"flash_attention f32 at the {key} shape", run(),
+                          want, torch.float32)[::2]
+        bound, by = fa_tf32x3_bound_ms(B, S, S, 32, 8, 128, True, -1)
+        f32[key] = dict(
+            shape=[B, S, 32, 8, 128], ms=min(ms), ms_runs=ms,
+            parent_ms=min(par) if par else None, parent_runs=par or None,
+            plain_ms=plain, library_ms=sdpa_ms(q, k, v, True, 5),
+            bound_ms=bound, bound_by=by,
+            cuda_core_bound_ms=fa_bound_ms(B, S, S, 32, 8, 128, True, -1,
+                                           torch.float32)[0],
+            max_abs_err=err, gate_ratio=ratio)
+        del q, k, v, want, run
+        torch.cuda.empty_cache()
     kl = PROMPT + GEN // 2               # mean kv_len of the 127 steps
     q, k, v = qkv(torch.float32, SERVE_B, 1, T_srv, 32, 8, 128)
     fd_bk, fd_ns = fd.plan(q, k, kl)
@@ -488,10 +567,20 @@ def attention_kernels(dev) -> dict:
           f"S{SCORE_S} Hq32/8 hd128 causal]: kernel {fa_ms:.4f} ms "
           f"({tflops:.1f} TFLOP/s), plain {fa_plain:.4f} ms, sdpa "
           f"{fa_lib:.4f} ms, bound {fa_bound:.4f} ms ({fa_by})")
-    print(f"      flash_attention f32, CUDA-core path [B{SERVE_B} S{S32} "
-          f"Hq32/8 hd128 causal]: kernel {f32_ms:.4f} ms, plain "
-          f"{f32_plain:.4f} ms, sdpa {f32_lib:.4f} ms, bound "
-          f"{f32_bound:.4f} ms ({f32_by})")
+    for key, r in f32.items():
+        B, S = r["shape"][:2]
+        par = ("parent " + " / ".join(
+            f"{x:.4f}" for x in r["parent_runs"]) + " ms, "
+            if r["parent_runs"] else "parent not given, ")
+        print(f"      flash_attention f32, 3xTF32 path [B{B} S{S} Hq32/8 "
+              f"hd128 causal] ({key}): kernel " + " / ".join(
+                  f"{x:.4f}" for x in r["ms_runs"]) + f" ms, {par}plain "
+              f"{r['plain_ms']:.4f} ms, sdpa {r['library_ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}, 3xTF32 over "
+              f"{H100_TF32_OPS_PER_S / 1e12:.0f} TFLOP/s; "
+              f"{r['bound_ms'] / r['ms']:.3f} of it), CUDA-core bound "
+              f"{r['cuda_core_bound_ms']:.4f} ms; max abs err "
+              f"{r['max_abs_err']:.3g}, {r['gate_ratio']:.3g} x the gate")
     print(f"      flash_decode f32 [B{SERVE_B} T{T_srv} kv_len {kl} Hq32/8 "
           f"hd128], the card's plan bk {fd_bk} x {fd_ns} splits "
           f"({fd_ns * 8 * SERVE_B} blocks): kernel {fd_ms:.5f} ms of device "
@@ -501,13 +590,23 @@ def attention_kernels(dev) -> dict:
           f"x 300 calls enqueued before one synchronize), beside "
           f"{fd_ms * 1e3:.2f} us of device time, a {fd_bound * 1e3:.2f} us "
           f"bound and sdpa's {fd_lib * 1e3:.2f} us")
+    sc = f32["self_check"]
     return {"flash_attention": dict(
                 max_abs_err=fa_main_err, ms=fa_ms, plain_ms=fa_plain,
                 bound_ms=fa_bound, bound_by=fa_by, library_ms=fa_lib,
-                path={"bfloat16": "tensor_core", "float32": "cuda_core"},
-                worst_err_ratio_strict=fa_strict, worst_err_ratio=fa_gated,
-                f32_ms=f32_ms, f32_plain_ms=f32_plain,
-                f32_bound_ms=f32_bound, f32_library_ms=f32_lib),
+                path="tensor_core", worst_err_ratio_strict=fa_strict,
+                worst_err_ratio=fa_gated),
+            "flash_attention_f32": dict(
+                max_abs_err=sc["max_abs_err"], ms=sc["ms"],
+                plain_ms=sc["plain_ms"], bound_ms=sc["bound_ms"],
+                bound_by=sc["bound_by"], library_ms=sc["library_ms"],
+                path=fa.PATHS[torch.float32],
+                cuda_core_bound_ms=sc["cuda_core_bound_ms"],
+                parent_ms=sc["parent_ms"], shape=sc["shape"],
+                worst_gate_ratio=worst[torch.float32],
+                large_scores={k: {"err": g, "twin_err": t}
+                              for k, (g, t) in big.items()},
+                scoring=f32["scoring"]),
             "flash_decode": dict(max_abs_err=fd_main_err, ms=fd_ms,
                                  plain_ms=fd_plain, bound_ms=fd_bound,
                                  bound_by=fd_by, library_ms=fd_lib,
@@ -528,7 +627,7 @@ def counts() -> dict:
     return {"fusion_eval": fe.STATS.launches,
             "flash_attention": fa.STATS.launches,
             "fa_tensor_core": fa.STATS.tensor_core,
-            "fa_cuda_core": fa.STATS.cuda_core,
+            "fa_tensor_core_tf32x3": fa.STATS.tensor_core_tf32x3,
             "flash_decode": fd.STATS.launches,
             "wkv6": rk.STATS.launches}
 
@@ -608,13 +707,17 @@ def serving(dev, arch: str, phase: int, **want) -> dict:
 
 
 def self_check(dev, arch: str, served: dict, phase: int, *, want_fwd=None,
-               want_prefill=None, want_step=None) -> None:
+               want_prefill=None, want_step=None, parent=None) -> dict:
     """Phases 11 and 15: an f32 forward over prompt + generated tokens
     reproduces the served logits and the greedy tokens.  With ``want_*``,
     the forward, one prefill of the prompt and one decode step after it
-    launch exactly those kernels."""
+    launch exactly those kernels.  With ``parent`` (an
+    ``ab_flash_attention.finish_build`` library) the forward is also timed
+    with the parent's flash_attention, in turns.  Returns the forward's
+    launches and walls."""
     import numpy as np
     import torch
+    from repro_torch import ab_flash_attention as ab
     from repro_torch.configs import get_config
     from repro_torch.models import get_model
     cfg = get_config(arch)
@@ -623,11 +726,24 @@ def self_check(dev, arch: str, served: dict, phase: int, *, want_fwd=None,
     seq = torch.as_tensor(
         np.concatenate([served["prompt"], served["tokens"][:, :-1]], 1),
         device=dev)
+    torch.cuda.synchronize()
     reset_counts()
+    t0 = time.perf_counter()
     logits = mod.forward(model, {"tokens": seq})[:, PROMPT - 1:]
+    torch.cuda.synchronize()
+    walls = [time.perf_counter() - t0]
     n_fwd = counts()
     if want_fwd is not None:
         expect_counts(f"{arch} f32 forward", n_fwd, **want_fwd)
+    parent_walls = []
+    if parent is not None:               # parent, change, parent
+        for who in ("parent", "change", "parent"):
+            with ab.swap(parent if who == "parent" else None):
+                t0 = time.perf_counter()
+                mod.forward(model, {"tokens": seq})
+                torch.cuda.synchronize()
+                (parent_walls if who == "parent" else walls).append(
+                    time.perf_counter() - t0)
     note = ""
     if want_prefill is not None:
         reset_counts()
@@ -656,8 +772,12 @@ def self_check(dev, arch: str, served: dict, phase: int, *, want_fwd=None,
     ties = int((diff & (gap <= 2 * err)).sum())
     check(int(diff.sum()) == ties, f"{int(diff.sum()) - ties} greedy tokens "
           f"differ from the forward's argmax beyond a near-tie")
+    par = (", parent's flash_attention " + " / ".join(
+        f"{x:.4f}" for x in parent_walls) + " s" if parent_walls else "")
     print(f"[{phase}/16] self-check {arch}: f32 forward over {seq.shape[0]}x"
-          f"{seq.shape[1]} tokens (launches {launched(n_fwd)}) reproduces "
+          f"{seq.shape[1]} tokens (wall " + " / ".join(
+              f"{x:.4f}" for x in walls) + f" s{par}; launches "
+          f"{launched(n_fwd)}) reproduces "
           f"the served logits at positions {PROMPT - 1}..{PROMPT + GEN - 2}: "
           f"max abs err {err:.4g} ({err_pre:.4g} at the prefill's position "
           f"{PROMPT - 1}) vs max |logit| {scale:.4g} (limit "
@@ -665,6 +785,8 @@ def self_check(dev, arch: str, served: dict, phase: int, *, want_fwd=None,
           f"{ties} near-ties (top-2 gap <= 2 x err){note}")
     del logits, got
     torch.cuda.empty_cache()
+    return {"launches": n_fwd, "wall_s": walls,
+            "parent_wall_s": parent_walls or None}
 
 
 def wkv_bound_ms(B, T, H, n, dtype):
@@ -1604,7 +1726,15 @@ def paper_table(dev, trained) -> int:
 
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description="Smoke run of the PyTorch port "
+                                 "on one CUDA card.")
+    ap.add_argument("--parent-fa", type=pathlib.Path, default=None,
+                    help="a tree whose src/repro_torch/kernels/csrc/"
+                    "flash_attention.cu is built beside this one's, its f32 "
+                    "kernel timed in turns with this one (phases 8 and 11)")
+    args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1615,6 +1745,7 @@ def main() -> int:
     from repro_torch.kernels import _build, fusion_eval as fe
     from repro_torch.kernels import flash_attention as fa, flash_decode as fd
     from repro_torch.kernels import rwkv6_scan as rk
+    from repro_torch import ab_flash_attention as ab
     from repro_torch.configs import get_config
     from repro_torch.workloads import CNN_ZOO
     from repro_torch.workloads.grid import paper_grid
@@ -1632,7 +1763,10 @@ def main() -> int:
     # -- 2. build -----------------------------------------------------------
     t0 = time.perf_counter()
     sources = (fe.SOURCE, fa.SOURCE, fd.SOURCE, rk.SOURCE)
+    parent_job = (ab.start_build(args.parent_fa, "parent") if args.parent_fa
+                  else None)
     _build.build(*sources)
+    parent = ab.finish_build(parent_job) if parent_job else None
     fe.compiled_backend_supported()
     infos = {src: _build.build_info(src) for src in sources}
     print(f"[2/16] build: " + ", ".join(
@@ -1652,6 +1786,14 @@ def main() -> int:
               f"{info['producer_regs']} / consumers {info['consumer_regs']} "
               f"registers, {info['stages']} K/V stages, "
               f"{info['smem_bytes']} bytes of shared memory")
+        info = fa.tf32_info(hd)
+        print(f"      flash_attention 3xTF32 kernel at hd {hd}: "
+              f"{info['threads']} threads, {info['stages']} K/V stages of "
+              f"{info['keys']} keys, {info['smem_bytes']} bytes of shared "
+              f"memory")
+    if parent is not None:
+        print(f"      parent flash_attention.cu from {args.parent_fa} built "
+              f"with the same flags")
 
     # -- conditions ---------------------------------------------------------
     parts = sorted(accel.ACCEL_ZOO)
@@ -1838,13 +1980,14 @@ def main() -> int:
 
     # -- 8.-11. the dense LM: kernels, scoring, serving, self-check ---------
     L = get_config(ARCH).n_layers
-    attn = attention_kernels(dev)
+    attn = attention_kernels(dev, parent)
     torch.cuda.empty_cache()
     fa_launches = scoring(dev, ARCH, 9, flash_attention=L,
                           fa_tensor_core=L)["flash_attention"]
     served = serving(dev, ARCH, 10, flash_decode=L * (GEN - 1))
-    self_check(dev, ARCH, served, 11,
-               want_fwd={"flash_attention": L, "fa_cuda_core": L})
+    fwd = self_check(dev, ARCH, served, 11, parent=parent,
+                     want_fwd={"flash_attention": L,
+                               "fa_tensor_core_tf32x3": L})
     fd_launches = served["launches"]["flash_decode"]
     del served                          # qwen3_8b is gone before rwkv6_3b
 
@@ -1883,6 +2026,13 @@ def main() -> int:
          "source": f"{csrc}/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:27",
          "launches": fa_launches, **attn["flash_attention"]},
+        {"name": "flash_attention_f32", "route": "cuda",
+         "source": f"{csrc}/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:27",
+         "launches": fwd["launches"]["flash_attention"],
+         "forward_wall_s": fwd["wall_s"],
+         "parent_forward_wall_s": fwd["parent_wall_s"],
+         **attn["flash_attention_f32"]},
         {"name": "flash_decode", "route": "cuda",
          "source": f"{csrc}/flash_decode.cu",
          "replaces": "src/repro/kernels/flash_decode.py:24",

@@ -12,17 +12,27 @@
 // and S > T) is left at zero, where the dense reference averages V; the LM
 // never asks for one.
 //
-// What bounds it on this card.  Operations: 4 * hd multiply-adds per
-// visible (query, key) pair against 2 * hd * (S + T) elements of input, far
-// above the ~295 bf16 tensor-core operations the H100 does per byte of HBM.
-// Its bound is the pair count times 4 * hd over the peak of the input type:
-// 989 TFLOP/s for bf16 on the tensor cores, 67 TFLOP/s for f32 outside them.
+// What bounds it on this card.  Operations: 4 * hd per visible (query, key)
+// pair (2 * hd multiply-adds, in Q K^T and in P V) against 2 * hd * (S + T)
+// elements of input, far above the ~295 bf16 tensor-core operations the
+// H100 does per byte of HBM.  Its bound is the pair count times 4 * hd over
+// the peak of the route: 989 TFLOP/s for bf16 on the tensor cores; for
+// f32, three TF32 products per f32 one (below) over the 495 TFLOP/s TF32
+// peak, i.e. 165 TFLOP/s of f32 work (the 67 TFLOP/s of f32 outside the
+// tensor cores is the old route's).
 //
-// Two kernels, chosen by the input type:
+// Two kernels, chosen by the input type, both on the tensor cores and both
+// reading q, k and v through 4-D TMA maps over the JAX layout (hd, H, S, B),
+// built per call on the host by cuTensorMapEncodeTiled, reached through
+// cudaGetDriverEntryPoint, so the library is not linked against libcuda.  A
+// box is 128 bytes of columns (the 128-byte swizzle's span) by a tile's
+// rows; rows past S or T are filled with zeros by TMA, and a key >= T is
+// masked to -inf; only the diagonal, window-edge and ragged tiles are
+// masked, and KV tiles that the causal and window rules rule out are not
+// loaded at all.  The longest causal q-tiles are issued first.
 //
-// * bf16: `tc::fa_tc_kernel`, on the tensor cores.  One CTA of three
-//   warpgroups per (128 query rows, q-head, batch), the longest causal
-//   q-tiles issued first.  Warpgroup 0 is the producer: its registers are
+// * bf16: `tc::fa_tc_kernel`.  One CTA of three warpgroups per (128 query
+//   rows, q-head, batch).  Warpgroup 0 is the producer: its registers are
 //   lowered with `setmaxnreg`, and one of its threads issues TMA loads, the
 //   Q tile once, then the K and V tiles of the kv-head through a ring of
 //   three stages (224 KB at hd 128), each with a full barrier for K, one
@@ -36,197 +46,60 @@
 //   layout with the transpose bit set.  A consumer issues the next tile's
 //   Q K^T before the last tile's P V, and runs the next softmax while P V
 //   is on the tensor cores.  O is rescaled by alpha between the two
-//   products and divided by l in f32 at the end.  The TMA maps are 4-D
-//   over the JAX layout (hd, H, S, B), built per call on the host by
-//   cuTensorMapEncodeTiled, reached through cudaGetDriverEntryPoint, so the
-//   library is not linked against libcuda.  A box is 64 columns (128 bytes,
-//   the 128-byte swizzle's span) by 128 rows, so an hd-128 row is two
-//   boxes.  Rows past S or T are filled with zeros by TMA, and a key >= T is
-//   masked to -inf; only the diagonal, window-edge and ragged tiles are
-//   masked, and KV tiles that the causal and window rules rule out are not
-//   loaded at all.  P is rounded to bf16 before P V: one rounding more than
-//   the f32 path, which the card's gate allows for.
-// * f32: `cc::fa_cc_kernel`, on the CUDA cores.  One block of 256 threads
-//   per (64 query rows, q-head, batch); the scaled Q tile and each 64-key
-//   K/V tile in shared memory; each thread owns 4 rows x 4 keys of the
-//   score tile and 4 rows x hd/16 output columns, so m, l and the
-//   accumulator stay in registers.  Every product and sum is an f32 one
-//   (TF32 would break the f32 gate), pruned and masked as above.
+//   products and divided by l in f32 at the end.  A box is 64 columns by
+//   128 rows, so an hd-128 row is two boxes.  P is rounded to bf16 before
+//   P V: one rounding more than the f32 path, which the card's gate allows
+//   for.
+// * f32: `tf::fa_tf32_kernel`, 3xTF32 on the tensor cores.  It replaces a
+//   CUDA-core kernel that reached 21% of the 67 TFLOP/s f32 bound: its
+//   inner products were held by shared-memory loads (8 loads a 16 FMAs),
+//   one 8-warp block filled an SM and its K/V loads did not overlap its
+//   compute.  One TF32 product keeps 11 bits of each operand and misses the
+//   f32 gate (2e-5 + 2e-5 |plain|) by 26-41x at unit-normal inputs, so each
+//   operand is split, x = hi + lo with hi = x rounded to TF32 (to nearest,
+//   ties away, as cvt.rna.tf32.f32 rounds, but by integer ops on the bits,
+//   which issue faster than the conversion) and lo = x - hi rounded so, and
+//   a product is the sum hi lo + lo hi + hi hi, each 8-wide k-step's small
+//   terms before its big one.  Emulated on the CPU
+//   (tests/test_torch_flash_f32.py) that is as exact as f32 arithmetic;
+//   on the card its error against an f64 attention stays within twice the
+//   plain twin's, also at scores of std 16 and 32, where no f32 kernel
+//   holds the gate against the twin.  The tensor cores add in f32 with
+//   their own alignment and truncation, not IEEE rounding, so a product is
+//   summed on them only over a short run (kRun k-steps of Q K^T, one key
+//   tile of P V) and then added to its f32 accumulator by an FADD or FMA.
+//   Route: `wgmma` m64nNk8 .tf32, whose B operand (and A, where in shared
+//   memory) must be K-major.  One block of two warpgroups per (128 query
+//   rows, q-head, batch), 64 rows a warpgroup; 32-key K/V tiles through a
+//   ring of two stages filled by TMA on an mbarrier each.  Q stays raw in
+//   shared memory: each k-step's A fragments are read by `ldmatrix` and
+//   split in registers, so Q is read once a k-step rather than by three
+//   wgmmas, which leaves room for a split pass per tile that turns the raw
+//   K and V into what wgmma reads: K hi in place and K lo beside it (K is
+//   K-major as landed), and V transposed to V^T hi and lo [hd][keys] (keys
+//   contiguous, the 128-byte swizzle written by hand).  S = Q K^T is
+//   `wgmma` m64n32k8 (Q lo K hi, Q hi K lo, Q hi K hi), runs summed into
+//   two register sets by turns so one run is on the tensor cores while the
+//   last is added.  P stays in registers: P V's k index t stands for key
+//   2t of an 8-key step and t + 4 for key 2t + 1 (the split pass writes V^T
+//   in that order), so S's accumulator layout is P's A-fragment layout, and
+//   O += P V is `wgmma` m64n{hd}k8 with P hi and lo from registers.  While
+//   a tile's P V is on the tensor cores the block splits the next tile
+//   (whose stage and split tiles are its own), inside the same branch as
+//   the wgmma so that ptxas keeps the accumulator in flight.  The online
+//   softmax is the bf16 kernel's, in f32 registers, the scale applied after
+//   the product.  A warpgroup skips a tile its rows cannot see.  Shared
+//   memory at hd 128: Q 64 KB, the raw ring 64 KB, K lo, V^T hi and V^T lo
+//   for each stage 96 KB (225 KB with the alignment slack, one block an
+//   SM).  What bounds it next: the softmax between the products leaves the
+//   tensor cores idle, and 255 registers a thread leave no room to issue
+//   the next tile's Q K^T before this tile's P V.
 
 #include <cuda.h>            // CUtensorMap and its enums; libcuda is not linked
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
-
-namespace cc {
-
-constexpr int kBQ = 64;          // query rows per block
-constexpr int kBK = 64;          // keys per staged tile
-constexpr int kThreads = 256;    // 16 x 16: rows in groups of 4, cols by 16
-constexpr float kNegInf = -1e30f;
-
-template <int HD>
-constexpr size_t smem_bytes() {
-  return sizeof(float) * ((size_t)kBQ * (HD + 1) + (size_t)kBK * (HD + 1) +
-                          (size_t)kBK * HD + (size_t)kBQ * (kBK + 1));
-}
-
-template <int HD>
-__global__ void __launch_bounds__(kThreads)
-fa_cc_kernel(const float* __restrict__ q, const float* __restrict__ k,
-             const float* __restrict__ v, float* __restrict__ out, int S,
-             int Tk, int Hq, int G, long long qsb, long long qss,
-             long long qsh, long long ksb, long long kst, long long ksh,
-             long long vsb, long long vst, long long vsh, int causal,
-             int window, float scale) {
-  constexpr int QP = HD + 1;     // padded rows: conflict-free column reads
-  constexpr int PP = kBK + 1;
-  constexpr int DPT = HD / 16;   // output columns per thread
-  extern __shared__ float smem[];
-  float* Qs = smem;              // [kBQ][QP], pre-scaled
-  float* Ks = Qs + kBQ * QP;     // [kBK][QP]
-  float* Vs = Ks + kBK * QP;     // [kBK][HD]
-  float* Ps = Vs + kBK * HD;     // [kBQ][PP]
-
-  const int b = blockIdx.z, h = blockIdx.y, hk = h / G;
-  const int q0 = blockIdx.x * kBQ;
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const float* qb = q + b * qsb + h * qsh;
-  const float* kb = k + b * ksb + hk * ksh;
-  const float* vb = v + b * vsb + hk * vsh;
-
-  for (int e = tid; e < kBQ * HD; e += kThreads) {
-    const int r = e / HD, d = e % HD;
-    Qs[r * QP + d] = (q0 + r < S) ? qb[(q0 + r) * qss + d] * scale : 0.0f;
-  }
-
-  // KV tiles [lo, hi) that can hold a visible key for rows q0..q0+kBQ-1
-  const int nkv = (Tk + kBK - 1) / kBK;
-  int hi = nkv;
-  if (causal) hi = min(nkv, (q0 + kBQ - 1) / kBK + 1);
-  int lo = 0;
-  if (window > 0 && q0 - window + 1 > 0) lo = (q0 - window + 1) / kBK;
-
-  float m[4], l[4], acc[4][DPT];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.0f;
-#pragma unroll
-    for (int dd = 0; dd < DPT; ++dd) acc[i][dd] = 0.0f;
-  }
-
-  for (int jt = lo; jt < hi; ++jt) {
-    const int k0 = jt * kBK;
-    __syncthreads();             // Q staged / previous tile fully read
-    for (int e = tid; e < kBK * HD; e += kThreads) {
-      const int r = e / HD, d = e % HD;
-      const bool in = k0 + r < Tk;
-      Ks[r * QP + d] = in ? kb[(k0 + r) * kst + d] : 0.0f;
-      Vs[r * HD + d] = in ? vb[(k0 + r) * vst + d] : 0.0f;
-    }
-    __syncthreads();
-
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) s[i][c] = 0.0f;
-#pragma unroll 8
-    for (int d = 0; d < HD; ++d) {
-      float qv[4], kv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = Qs[(ty * 4 + i) * QP + d];
-#pragma unroll
-      for (int c = 0; c < 4; ++c) kv[c] = Ks[(tx + 16 * c) * QP + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) s[i][c] = fmaf(qv[i], kv[c], s[i][c]);
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qi = q0 + ty * 4 + i;
-      float rmax = kNegInf;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int kj = k0 + tx + 16 * c;
-        float x = s[i][c];
-        if (kj >= Tk) {
-          x = -INFINITY;         // padding: excluded outright
-        } else if ((causal && kj > qi) || (window > 0 && qi - kj >= window)) {
-          x = kNegInf;
-        }
-        s[i][c] = x;
-        rmax = fmaxf(rmax, x);
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        rmax = fmaxf(rmax, __shfl_xor_sync(0xffffffffu, rmax, off));
-      const float m_new = fmaxf(m[i], rmax);
-      const float alpha = expf(m[i] - m_new);
-      float rsum = 0.0f;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const float p = expf(s[i][c] - m_new);
-        Ps[(ty * 4 + i) * PP + tx + 16 * c] = p;
-        rsum += p;
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        rsum += __shfl_xor_sync(0xffffffffu, rsum, off);
-      l[i] = l[i] * alpha + rsum;
-      m[i] = m_new;
-#pragma unroll
-      for (int dd = 0; dd < DPT; ++dd) acc[i][dd] *= alpha;
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int c = 0; c < kBK; ++c) {
-      float pv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = Ps[(ty * 4 + i) * PP + c];
-#pragma unroll
-      for (int dd = 0; dd < DPT; ++dd) {
-        const float vv = Vs[c * HD + tx + 16 * dd];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][dd] = fmaf(pv[i], vv, acc[i][dd]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = q0 + ty * 4 + i;
-    if (r >= S) continue;
-    const float den = fmaxf(l[i], 1e-30f);
-    float* o = out + (((long long)b * S + r) * Hq + h) * HD;
-#pragma unroll
-    for (int dd = 0; dd < DPT; ++dd) o[tx + 16 * dd] = acc[i][dd] / den;
-  }
-}
-
-template <int HD>
-int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int S, int Tk, int Hq, int Hkv, const long long* st, int causal,
-           int window, cudaStream_t stream) {
-  const size_t shmem = smem_bytes<HD>();
-  cudaError_t err = cudaFuncSetAttribute(
-      fa_cc_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)shmem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((S + kBQ - 1) / kBQ, Hq, B);
-  fa_cc_kernel<HD><<<grid, kThreads, shmem, stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (float*)out, S, Tk,
-      Hq, Hq / Hkv, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7],
-      st[8], causal, window, 1.0f / sqrtf((float)HD));
-  return (int)cudaGetLastError();
-}
-
-}  // namespace cc
 
 namespace tc {
 
@@ -630,20 +503,24 @@ EncodeTiled encode_fn() {
   return fn;
 }
 
-// A 4-D map over [B, L, H, hd] (strides in elements) as (hd, H, L, B), boxes
-// of 64 columns x 1 head x 128 rows x 1 batch, 128-byte swizzle, zeros past
-// the edges.  Returns a CUresult (0 on success).
-int make_map(CUtensorMap* map, EncodeTiled fn, const void* ptr, int hd, int H,
-             int L, int B, long long sb, long long sl, long long sh) {
+// A 4-D map over [B, L, H, hd] (strides in elements of `size` bytes) as
+// (hd, H, L, B), boxes of 128 bytes of columns x 1 head x `rows` rows x 1
+// batch, 128-byte swizzle, zeros past the edges.  Returns a CUresult (0 on
+// success).
+int make_map(CUtensorMap* map, EncodeTiled fn, CUtensorMapDataType type,
+             int size, int rows, const void* ptr, int hd, int H, int L, int B,
+             long long sb, long long sl, long long sh) {
   const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)H, (cuuint64_t)L,
                               (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)sl * 2,
-                                 (cuuint64_t)sb * 2};
-  const cuuint32_t box[4] = {kBoxCols, 1, 128, 1};
+  const cuuint64_t strides[3] = {(cuuint64_t)(sh * size),
+                                 (cuuint64_t)(sl * size),
+                                 (cuuint64_t)(sb * size)};
+  const cuuint32_t box[4] = {(cuuint32_t)(128 / size), 1, (cuuint32_t)rows,
+                             1};
   const cuuint32_t estr[4] = {1, 1, 1, 1};
-  return (int)fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, (void*)ptr, dims,
-                 strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                 CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+  return (int)fn(map, type, 4, (void*)ptr, dims, strides, box, estr,
+                 CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
@@ -659,9 +536,12 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
   EncodeTiled fn = encode_fn();
   if (fn == nullptr) return kNoEntryPoint;
   CUtensorMap qm, km, vm;
-  int r = make_map(&qm, fn, q, HD, Hq, S, B, st[0], st[1], st[2]);
-  if (r == 0) r = make_map(&km, fn, k, HD, Hkv, Tk, B, st[3], st[4], st[5]);
-  if (r == 0) r = make_map(&vm, fn, v, HD, Hkv, Tk, B, st[6], st[7], st[8]);
+  const CUtensorMapDataType bf = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  int r = make_map(&qm, fn, bf, 2, kBQ, q, HD, Hq, S, B, st[0], st[1], st[2]);
+  if (r == 0)
+    r = make_map(&km, fn, bf, 2, kBK, k, HD, Hkv, Tk, B, st[3], st[4], st[5]);
+  if (r == 0)
+    r = make_map(&vm, fn, bf, 2, kBK, v, HD, Hkv, Tk, B, st[6], st[7], st[8]);
   if (r != 0) return kMapError + r;
   const int shmem = Cfg<HD>::kSmem;
   cudaError_t err = cudaFuncSetAttribute(
@@ -676,28 +556,477 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
 
 }  // namespace tc
 
+namespace tf {
+
+constexpr int kBQ = 128;             // query rows per block, 64 a warpgroup
+constexpr int kBK = 32;              // keys per K/V stage
+constexpr int kThreads = 256;        // two warpgroups
+constexpr int kStages = 2;
+constexpr int kRun = 2;              // Q K^T k-steps a run on the tensor cores
+constexpr int kBoxCols = 32;         // f32 columns of one 128-byte box row
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int HD>
+struct Cfg {
+  static constexpr int kBoxes = HD / kBoxCols;        // boxes per tile row
+  static constexpr int kQBytes = kBoxes * kBQ * 128;  // the raw Q tile
+  static constexpr int kTileBytes = HD * kBK * 4;     // a K or V tile
+  // 1024 bytes of slack to align the tiles to the swizzle's 1024-byte atom;
+  // Q, the raw K/V ring, K lo, V^T hi and V^T lo of each stage, the
+  // barriers
+  static constexpr int kSmem = 1024 + kQBytes + 5 * kStages * kTileBytes +
+                               8 * (1 + kStages);
+};
+
+// Byte offset of 16-byte chunk `chunk` of row r in rows of 128 bytes that
+// TMA's 128-byte swizzle permutes by r mod 8.
+__device__ __forceinline__ uint32_t swz_row(int r, int chunk) {
+  return r * 128 + ((chunk ^ (r & 7)) << 4);
+}
+
+// Byte offset of (row r, column c) in a tile of R rows held as boxes of 32
+// columns, one 128-byte swizzled row each.
+template <int R>
+__device__ __forceinline__ uint32_t swz(int r, int c) {
+  return (c / kBoxCols) * (R * 128) + swz_row(r, (c % kBoxCols) >> 2) +
+         ((c & 3) << 2);
+}
+
+// x rounded to TF32 (nearest, ties away from zero): what cvt.rna.tf32.f32
+// gives, by integer ops on the bits (add half a TF32 ulp, clear the 13
+// dropped bits), which issue at the integer pipe's rate where the
+// conversion runs on the slower conversion pipe.
+__device__ __forceinline__ uint32_t rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+}
+
+// x = hi + lo: hi = rna(x), lo = rna(x - hi).  hi * hi is exact in f32,
+// and hi * lo + lo * hi carries what one TF32 product drops.
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = rna(x);
+  lo = rna(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void split4(float4 x, uint4& hi, uint4& lo) {
+  split(x.x, hi.x, lo.x);
+  split(x.y, hi.y, lo.y);
+  split(x.z, hi.z, lo.z);
+  split(x.w, hi.w, lo.w);
+}
+
+// Returns once the phase of parity `parity` of the barrier has completed;
+// traps (a launch error, not a hang) if it has not within ~2 s.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  const long long t0 = clock64();
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+    if (!done && clock64() - t0 > 4000000000LL) __trap();
+  } while (!done);
+}
+
+template <int M>
+__device__ __forceinline__ void reg_fence(uint32_t (&a)[M][4]) {
+#pragma unroll
+  for (int i = 0; i < M; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
+}
+
+#define F4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
+#define F16(i) F4(i), F4(i + 4), F4(i + 8), F4(i + 12)
+#define R16                                                                  \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+#define R32                                                                  \
+  R16 ", %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "  \
+      "%29, %30, %31"
+#define R64                                                                  \
+  R32 ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, "  \
+      "%45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "    \
+      "%58, %59, %60, %61, %62, %63"
+
+// Four 8x4 f32 matrices (8x8 in b16 terms): lane l gets word (l / 4, l % 4)
+// of each, the rows addressed by lanes 8i..8i+7 for matrix i.
+__device__ __forceinline__ void ldsm4(uint32_t (&d)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, "
+               "[%4];"
+               : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3])
+               : "r"(addr));
+}
+
+// d[N/2] (+)= A[64x8] B[8xN], TF32, A in registers, B K-major in shared
+// memory (N = 32 for S, hd for O).
+__device__ __forceinline__ void mma_rs(float (&d)[16], const uint32_t (&a)[4],
+                                       uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {" R16
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : F16(0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(accumulate));
+}
+__device__ __forceinline__ void mma_rs(float (&d)[64], const uint32_t (&a)[4],
+                                       uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {" R64
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : F16(0), F16(16), F16(32), F16(48)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(accumulate));
+}
+__device__ __forceinline__ void mma_rs(float (&d)[32], const uint32_t (&a)[4],
+                                       uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {" R32
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : F16(0), F16(16)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(accumulate));
+}
+
+#undef F4
+#undef F16
+#undef R16
+#undef R32
+#undef R64
+
+template <int HD>
+__global__ void __launch_bounds__(kThreads, 1)
+fa_tf32_kernel(const __grid_constant__ CUtensorMap qmap,
+               const __grid_constant__ CUtensorMap kmap,
+               const __grid_constant__ CUtensorMap vmap,
+               float* __restrict__ out, int S, int Tk, int Hq, int G,
+               int causal, int window, float scale_log2) {
+  using C = Cfg<HD>;
+  constexpr int TB = C::kTileBytes;
+  constexpr int KU = TB / 16 / kThreads;  // 16-byte units a thread splits
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = smem_raw + ((1024 - (tc::smem_u32(smem_raw) & 1023)) & 1023);
+  const uint32_t q_s = tc::smem_u32(base);        // raw Q
+  const uint32_t ring = q_s + C::kQBytes;         // per stage: K, then V
+  // per stage: K lo, V^T hi, V^T lo
+  const uint32_t spl = ring + 2 * kStages * TB;
+  const uint32_t bar = spl + 3 * kStages * TB;    // 8 bytes each
+  const uint32_t q_full = bar;
+  auto full = [&](int s) { return bar + 8 * (1 + s); };     // K and V
+  auto at = [&](uint32_t a) { return base + (a - q_s); };   // generic
+
+  const int h = blockIdx.x % Hq, b = blockIdx.x / Hq, hk = h / G;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;        // longest first
+  const int nkv = (Tk + kBK - 1) / kBK;
+  int hi = nkv;
+  if (causal) hi = min(nkv, (q0 + kBQ - 1) / kBK + 1);
+  int lo = 0;
+  if (window > 0 && q0 - window + 1 > 0) lo = (q0 - window + 1) / kBK;
+  const int n = max(hi - lo, 0);
+  const int tid = threadIdx.x;
+
+  auto issue = [&](int it) {           // one thread: tile it into its stage
+    const int st = it % kStages, k0 = (lo + it) * kBK;
+    const uint32_t ks = ring + 2 * st * TB;
+    tc::mbar_expect_tx(full(st), 2 * TB);
+#pragma unroll
+    for (int c = 0; c < C::kBoxes; ++c) {
+      tc::tma_load(ks + c * kBK * 128, &kmap, full(st), c * kBoxCols, hk, k0,
+                   b);
+      tc::tma_load(ks + TB + c * kBK * 128, &vmap, full(st), c * kBoxCols,
+                   hk, k0, b);
+    }
+  };
+  // Split pass of tile it (all threads): K hi in place and K lo beside it
+  // (K is K-major as landed); V transposed to V^T [hd][keys], keys
+  // contiguous as wgmma's K-major B wants, in the key order P's registers
+  // hold (P V's k index t is key 2t of an 8-key step, t + 4 key 2t + 1),
+  // hi and lo beside the raw V.  The split tiles are read by wgmma (the
+  // async proxy) and the ring's stage is refilled by TMA, hence the proxy
+  // fence.
+  auto split_tile = [&](int it) {
+    const int st = it % kStages;
+    const uint32_t ks = ring + 2 * st * TB, vs = ks + TB;
+    const uint32_t kl = spl + 3 * st * TB, vh = kl + TB, vl = vh + TB;
+    mbar_wait(full(st), (it / kStages) & 1);
+#pragma unroll
+    for (int i = 0; i < KU; ++i) {
+      const int u = tid + kThreads * i;
+      const int col = u % HD, q4 = u / HD;  // V^T row, 16-byte chunk
+      const int key0 = 8 * (q4 / 2) + (q4 & 1);
+      float4 x;
+      x.x = *reinterpret_cast<const float*>(at(vs + swz<kBK>(key0, col)));
+      x.y = *reinterpret_cast<const float*>(at(vs + swz<kBK>(key0 + 2, col)));
+      x.z = *reinterpret_cast<const float*>(at(vs + swz<kBK>(key0 + 4, col)));
+      x.w = *reinterpret_cast<const float*>(at(vs + swz<kBK>(key0 + 6, col)));
+      uint4 h4, l4;
+      split4(x, h4, l4);
+      *reinterpret_cast<uint4*>(at(vh + swz_row(col, q4))) = h4;
+      *reinterpret_cast<uint4*>(at(vl + swz_row(col, q4))) = l4;
+      const uint32_t off = 16 * u;
+      split4(*reinterpret_cast<const float4*>(at(ks + off)), h4, l4);
+      *reinterpret_cast<uint4*>(at(ks + off)) = h4;
+      *reinterpret_cast<uint4*>(at(kl + off)) = l4;
+    }
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  };
+
+  if (tid == 0) {
+    tc::mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) tc::mbar_init(full(s), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    tc::mbar_expect_tx(q_full, C::kQBytes);
+#pragma unroll
+    for (int c = 0; c < C::kBoxes; ++c)
+      tc::tma_load(q_s + c * kBQ * 128, &qmap, q_full, c * kBoxCols, h, q0,
+                   b);
+    for (int it = 0; it < min(n, kStages); ++it) issue(it);
+  }
+
+  const int cw = tid / 128, warp = (tid % 128) / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int row_lo = q0 + 64 * cw;     // this warpgroup's first row
+  const int r0 = row_lo + 16 * warp + g;   // rows of d[4j], d[4j+1]; +8
+  // ldmatrix row addresses for Q's A fragments: matrix i holds rows + 8
+  // (i & 1) and columns + 4 (i >> 1) of the warp's 16 rows
+  const int qrow = 64 * cw + 16 * warp + (lane & 7) + 8 * ((lane >> 3) & 1);
+  const int qcol = 4 * (lane >> 4);
+  float o[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) o[i] = 0.0f;
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.0f, l1 = 0.0f;
+
+  mbar_wait(q_full, 0);
+  if (n > 0) split_tile(0);
+  __syncthreads();
+  for (int it = 0; it < n; ++it) {
+    const int st = it % kStages, k0 = (lo + it) * kBK;
+    const uint32_t ks = ring + 2 * st * TB;
+    const uint32_t kl = spl + 3 * st * TB, vh = kl + TB, vl = vh + TB;
+    // a warpgroup whose rows see no key of this tile skips it
+    const bool skip = row_lo >= S || (causal && k0 > row_lo + 63) ||
+                      (window > 0 && k0 + kBK - 1 <= row_lo - window);
+    if (!skip) {
+      // ---- S = Q K^T, 3xTF32: Q's A fragments read raw by ldmatrix and
+      // split in registers; runs of kRun k-steps (8 kRun columns of hd),
+      // each k-step's small terms before its big one, summed on the tensor
+      // cores into ta or tb by turns and then added to s in f32 ----
+      constexpr int NR = HD / 8 / kRun;      // runs
+      float s[16], ta[16], tb[16];
+      uint32_t ah[2][kRun][4], al[2][kRun][4];   // A of a run, by turns
+#pragma unroll
+      for (int i = 0; i < 16; ++i) s[i] = 0.0f;
+#pragma unroll
+      for (int c = 0; c < NR; ++c) {
+        float(&tr)[16] = (c & 1) ? tb : ta;
+#pragma unroll
+        for (int j = 0; j < kRun; ++j) {
+          uint32_t raw[4];
+          ldsm4(raw, q_s + swz<kBQ>(qrow, 8 * (kRun * c + j) + qcol));
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            split(__uint_as_float(raw[i]), ah[c & 1][j][i], al[c & 1][j][i]);
+        }
+        tc::wg_fence();
+#pragma unroll
+        for (int j = 0; j < kRun; ++j) {
+          const int kk = kRun * c + j;
+          const uint32_t ko = (kk / 4) * (kBK * 128) + (kk % 4) * 32;
+          const uint64_t dkh = tc::desc(ks + ko, 16, 1024);
+          mma_rs(tr, al[c & 1][j], dkh, j);
+          mma_rs(tr, ah[c & 1][j], tc::desc(kl + ko, 16, 1024), 1);
+          mma_rs(tr, ah[c & 1][j], dkh, 1);
+        }
+        tc::wg_commit();
+        if (c > 0) {                   // run c - 1 is done: add it
+          float(&pr)[16] = (c & 1) ? ta : tb;
+          tc::wg_wait1();
+          tc::reg_fence(pr);
+          reg_fence(ah[(c - 1) & 1]);
+          reg_fence(al[(c - 1) & 1]);
+#pragma unroll
+          for (int i = 0; i < 16; ++i) s[i] += pr[i];
+        }
+      }
+      {
+        float(&pr)[16] = ((NR - 1) & 1) ? tb : ta;
+        tc::wg_wait0();
+        tc::reg_fence(pr);
+        reg_fence(ah[(NR - 1) & 1]);
+        reg_fence(al[(NR - 1) & 1]);
+#pragma unroll
+        for (int i = 0; i < 16; ++i) s[i] += pr[i];
+      }
+
+      // mask the diagonal, window-edge and ragged tiles only
+      const bool need = k0 + kBK > Tk || (causal && k0 + kBK - 1 > row_lo) ||
+                        (window > 0 && row_lo + 63 - k0 >= window);
+      if (need) {
+#pragma unroll
+        for (int i = 0; i < 16; ++i) {
+          const int col = k0 + 8 * (i / 4) + 2 * t + (i & 1);
+          const int row = r0 + 8 * ((i >> 1) & 1);
+          const bool vis = col < Tk && (!causal || col <= row) &&
+                           (window <= 0 || row - col < window);
+          if (!vis) s[i] = -INFINITY;
+        }
+      }
+
+      // ---- online softmax in f32: scores scaled by log2(e) / sqrt(hd) ----
+      float x0 = m0, x1 = m1;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        x0 = fmaxf(x0, fmaxf(s[4 * j], s[4 * j + 1]));
+        x1 = fmaxf(x1, fmaxf(s[4 * j + 2], s[4 * j + 3]));
+      }
+#pragma unroll
+      for (int off = 1; off <= 2; off <<= 1) {
+        x0 = fmaxf(x0, __shfl_xor_sync(0xffffffffu, x0, off));
+        x1 = fmaxf(x1, __shfl_xor_sync(0xffffffffu, x1, off));
+      }
+      const float n0 = x0 == -INFINITY ? 0.0f : x0 * scale_log2;
+      const float n1 = x1 == -INFINITY ? 0.0f : x1 * scale_log2;
+      const float a0 = tc::ex2(m0 * scale_log2 - n0);
+      const float a1 = tc::ex2(m1 * scale_log2 - n1);
+      m0 = x0;
+      m1 = x1;
+      float sum0 = 0.0f, sum1 = 0.0f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        s[4 * j] = tc::ex2(fmaf(s[4 * j], scale_log2, -n0));
+        s[4 * j + 1] = tc::ex2(fmaf(s[4 * j + 1], scale_log2, -n0));
+        s[4 * j + 2] = tc::ex2(fmaf(s[4 * j + 2], scale_log2, -n1));
+        s[4 * j + 3] = tc::ex2(fmaf(s[4 * j + 3], scale_log2, -n1));
+        sum0 += s[4 * j] + s[4 * j + 1];
+        sum1 += s[4 * j + 2] + s[4 * j + 3];
+      }
+      l0 = l0 * a0 + sum0;       // this thread's share of the row sum
+      l1 = l1 * a1 + sum1;
+
+      // ---- O = alpha O + P V, 3xTF32: P split in registers as wgmma A
+      // fragments (key step kk is accumulator columns 8 kk .. 8 kk + 7,
+      // s[4 kk .. 4 kk + 3]), the tile's sum on the tensor cores (each
+      // k-step's small terms before its big one), issued here and added to
+      // alpha O once the next tile's split pass has run beside it ----
+      uint32_t ph[kBK / 8][4], pl[kBK / 8][4];
+#pragma unroll
+      for (int kk = 0; kk < kBK / 8; ++kk) {
+        split(s[4 * kk], ph[kk][0], pl[kk][0]);
+        split(s[4 * kk + 2], ph[kk][1], pl[kk][1]);
+        split(s[4 * kk + 1], ph[kk][2], pl[kk][2]);
+        split(s[4 * kk + 3], ph[kk][3], pl[kk][3]);
+      }
+      float d[HD / 2];
+      tc::wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBK / 8; ++kk) {
+        const uint64_t dvh = tc::desc(vh + kk * 32, 16, 1024);
+        mma_rs(d, pl[kk], dvh, kk);
+        mma_rs(d, ph[kk], tc::desc(vl + kk * 32, 16, 1024), 1);
+        mma_rs(d, ph[kk], dvh, 1);
+      }
+      tc::wg_commit();
+      // the next tile's split pass (its stage and split tiles are not this
+      // tile's), while this tile's P V is on the tensor cores
+      if (it + 1 < n) split_tile(it + 1);
+      tc::wg_wait0();
+      tc::reg_fence(d);
+      reg_fence(ph);
+      reg_fence(pl);
+#pragma unroll
+      for (int j = 0; j < HD / 8; ++j) {
+        o[4 * j] = fmaf(o[4 * j], a0, d[4 * j]);
+        o[4 * j + 1] = fmaf(o[4 * j + 1], a0, d[4 * j + 1]);
+        o[4 * j + 2] = fmaf(o[4 * j + 2], a1, d[4 * j + 2]);
+        o[4 * j + 3] = fmaf(o[4 * j + 3], a1, d[4 * j + 3]);
+      }
+    } else if (it + 1 < n) {
+      split_tile(it + 1);
+    }
+    __syncthreads();   // this tile is done with, and the next one is split
+    if (tid == 0 && it + kStages < n) issue(it + kStages);
+  }
+
+#pragma unroll
+  for (int off = 1; off <= 2; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+  const float i0 = l0 > 0.0f ? 1.0f / l0 : 0.0f;
+  const float i1 = l1 > 0.0f ? 1.0f / l1 : 0.0f;
+  float* o0 = out + (((long long)b * S + r0) * Hq + h) * HD + 2 * t;
+  float* o1 = o0 + (long long)8 * Hq * HD;
+#pragma unroll
+  for (int j = 0; j < HD / 8; ++j) {
+    if (r0 < S)
+      *reinterpret_cast<float2*>(o0 + 8 * j) =
+          make_float2(o[4 * j] * i0, o[4 * j + 1] * i0);
+    if (r0 + 8 < S)
+      *reinterpret_cast<float2*>(o1 + 8 * j) =
+          make_float2(o[4 * j + 2] * i1, o[4 * j + 3] * i1);
+  }
+}
+
+template <int HD>
+int launch(const void* q, const void* k, const void* v, void* out, int B,
+           int S, int Tk, int Hq, int Hkv, const long long* st, int causal,
+           int window, cudaStream_t stream) {
+  tc::EncodeTiled fn = tc::encode_fn();
+  if (fn == nullptr) return tc::kNoEntryPoint;
+  CUtensorMap qm, km, vm;
+  const CUtensorMapDataType f = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  int r = tc::make_map(&qm, fn, f, 4, kBQ, q, HD, Hq, S, B, st[0], st[1],
+                       st[2]);
+  if (r == 0)
+    r = tc::make_map(&km, fn, f, 4, kBK, k, HD, Hkv, Tk, B, st[3], st[4],
+                     st[5]);
+  if (r == 0)
+    r = tc::make_map(&vm, fn, f, 4, kBK, v, HD, Hkv, Tk, B, st[6], st[7],
+                     st[8]);
+  if (r != 0) return tc::kMapError + r;
+  const int shmem = Cfg<HD>::kSmem;
+  cudaError_t err = cudaFuncSetAttribute(
+      fa_tf32_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, shmem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(Hq * B, (S + kBQ - 1) / kBQ);
+  fa_tf32_kernel<HD><<<grid, kThreads, shmem, stream>>>(
+      qm, km, vm, (float*)out, S, Tk, Hq, Hq / Hkv, causal, window,
+      kLog2e / sqrtf((float)HD));
+  return (int)cudaGetLastError();
+}
+
+}  // namespace tf
+
 extern "C" {
 
 // strides: q (b, s, h), k (b, t, h), v (b, t, h) in elements.  Launch on
 // `stream`; return cudaGetLastError() (0 on success), cudaErrorInvalidValue
 // for a head dim they do not take, or (bf16) one of tc's codes above.
 
-// f32 inputs, the CUDA-core kernel.
-int flash_attention_cc_launch(const void* q, const void* k, const void* v,
-                              void* out, int B, int S, int Tk, int Hq,
-                              int Hkv, int hd, long long qsb, long long qss,
-                              long long qsh, long long ksb, long long kst,
-                              long long ksh, long long vsb, long long vst,
-                              long long vsh, int causal, int window,
-                              void* stream) {
+// f32 inputs, the 3xTF32 tensor-core kernel.  Base addresses and strides
+// must be 16-byte aligned (the wrapper checks).
+int flash_attention_tf32_launch(const void* q, const void* k, const void* v,
+                                void* out, int B, int S, int Tk, int Hq,
+                                int Hkv, int hd, long long qsb, long long qss,
+                                long long qsh, long long ksb, long long kst,
+                                long long ksh, long long vsb, long long vst,
+                                long long vsh, int causal, int window,
+                                void* stream) {
   const long long st[9] = {qsb, qss, qsh, ksb, kst, ksh, vsb, vst, vsh};
   cudaStream_t s = (cudaStream_t)stream;
   if (B == 0 || S == 0) return 0;
   if (hd == 64)
-    return cc::launch<64>(q, k, v, out, B, S, Tk, Hq, Hkv, st, causal,
+    return tf::launch<64>(q, k, v, out, B, S, Tk, Hq, Hkv, st, causal,
                           window, s);
   if (hd == 128)
-    return cc::launch<128>(q, k, v, out, B, S, Tk, Hq, Hkv, st, causal,
+    return tf::launch<128>(q, k, v, out, B, S, Tk, Hq, Hkv, st, causal,
                            window, s);
   return (int)cudaErrorInvalidValue;
 }
@@ -732,6 +1061,17 @@ int flash_attention_tc_info(int hd, int* info) {
   info[2] = tc::kConsumerRegs;
   info[3] = hd == 64 ? tc::Cfg<64>::kStages : tc::Cfg<128>::kStages;
   info[4] = hd == 64 ? tc::Cfg<64>::kSmem : tc::Cfg<128>::kSmem;
+  return 0;
+}
+
+// The 3xTF32 kernel's shape at head dim `hd`: threads, keys a K/V tile,
+// K/V stages, dynamic shared memory bytes.
+int flash_attention_tf32_info(int hd, int* info) {
+  if (hd != 64 && hd != 128) return (int)cudaErrorInvalidValue;
+  info[0] = tf::kThreads;
+  info[1] = tf::kBK;
+  info[2] = tf::kStages;
+  info[3] = hd == 64 ? tf::Cfg<64>::kSmem : tf::Cfg<128>::kSmem;
   return 0;
 }
 

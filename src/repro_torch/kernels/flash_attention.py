@@ -8,15 +8,19 @@ per input type:
 - bf16 takes the **tensor-core** path: one CTA per (128 query rows,
   q-head, batch), a producer warpgroup feeding a TMA ring of K/V tiles and
   two consumer warpgroups running both products on ``wgmma``, P in bf16
-  registers.  TMA needs 16-byte-aligned base addresses and strides, which
-  :func:`check_tma` checks; a bf16 input that fails raises.
-- f32 takes the **CUDA-core** path: one block per (64 query rows, q-head,
-  batch), every product in f32.
+  registers.
+- f32 takes the **3xTF32 tensor-core** path: one CTA of two warpgroups
+  per (128 query rows, q-head, batch), a two-stage TMA ring of 32-key K/V
+  tiles, a split pass that turns each tile into TF32 ``hi + lo`` halves
+  (V transposed), and both products on ``wgmma`` TF32 summed as ``hi lo +
+  lo hi + hi hi``, which holds the f32 gate that one TF32 product misses.
 
-Both read the JAX layout ``[B, S, H, hd]`` through strides and mask a
-ragged S or T edge, so unlike the reference they need no padding and write
-every row.  ``STATS.launches`` counts every launch, ``STATS.tensor_core``
-and ``STATS.cuda_core`` each path's.
+Both read the JAX layout ``[B, S, H, hd]`` through TMA, so both need
+16-byte-aligned base addresses and strides, which :func:`check_tma`
+checks (an input that fails raises), and both mask a ragged S or T edge,
+so unlike the reference they need no padding and write every row.
+``STATS.launches`` counts every launch, ``STATS.tensor_core`` and
+``STATS.tensor_core_tf32x3`` each path's.
 
 :func:`flash_attention_plain` is the same function in plain PyTorch
 (masked dense softmax in f32): the kernels' oracle on the card and their
@@ -33,15 +37,16 @@ from . import _build
 from .dense_attention import attend_dense
 
 __all__ = ["flash_attention", "flash_attention_plain", "check_qkv",
-           "check_tma", "route", "tc_info", "bf16_limit", "reset_launches",
-           "STATS", "SOURCE", "HEAD_DIMS", "DTYPES", "PATHS"]
+           "check_tma", "route", "tc_info", "tf32_info", "bf16_limit",
+           "reset_launches", "STATS", "SOURCE", "HEAD_DIMS", "DTYPES",
+           "PATHS"]
 
 SOURCE = "flash_attention"        # csrc/flash_attention.cu
 HEAD_DIMS = (64, 128)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-PATHS = {torch.bfloat16: "tensor_core", torch.float32: "cuda_core"}
+PATHS = {torch.bfloat16: "tensor_core", torch.float32: "tensor_core_tf32x3"}
 TMA_ALIGN = 16                    # bytes: TMA's base address and strides
-# flash_attention_tc_launch's return codes past CUDA's own
+# the launch functions' return codes past CUDA's own
 _NO_ENTRY_POINT, _MAP_ERROR = 10000, 20000
 
 
@@ -51,26 +56,27 @@ class _Stats:
     def __init__(self):
         self.launches = 0
         self.tensor_core = 0
-        self.cuda_core = 0
+        self.tensor_core_tf32x3 = 0
 
 
 STATS = _Stats()
 
 
 def reset_launches() -> None:
-    STATS.launches = STATS.tensor_core = STATS.cuda_core = 0
+    STATS.launches = STATS.tensor_core = STATS.tensor_core_tf32x3 = 0
 
 
 def _lib() -> ctypes.CDLL:
     lib = _build.load(SOURCE)
     if not getattr(lib, "_argtypes_set", False):
         vp, ci, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        for fn in (lib.flash_attention_cc_launch,
+        for fn in (lib.flash_attention_tf32_launch,
                    lib.flash_attention_tc_launch):
             fn.argtypes = [vp] * 4 + [ci] * 6 + [ll] * 9 + [ci] * 2 + [vp]
             fn.restype = ci
-        lib.flash_attention_tc_info.argtypes = [ci, ctypes.POINTER(ci)]
-        lib.flash_attention_tc_info.restype = ci
+        for fn in (lib.flash_attention_tc_info, lib.flash_attention_tf32_info):
+            fn.argtypes = [ci, ctypes.POINTER(ci)]
+            fn.restype = ci
         lib._argtypes_set = True
     return lib
 
@@ -86,9 +92,19 @@ def tc_info(hd: int) -> dict:
                      "smem_bytes"), buf))
 
 
+def tf32_info(hd: int) -> dict:
+    """The 3xTF32 kernel's launch shape at head dim ``hd``, as the built
+    library reports it."""
+    buf = (ctypes.c_int * 4)()
+    rc = _lib().flash_attention_tf32_info(hd, buf)
+    if rc != 0:
+        raise ValueError(f"flash_attention: head dim {hd} not in {HEAD_DIMS}")
+    return dict(zip(("threads", "keys", "stages", "smem_bytes"), buf))
+
+
 def route(q: torch.Tensor) -> str:
     """The kernel path a CUDA tensor of q's type takes: ``"tensor_core"``
-    for bf16, ``"cuda_core"`` for f32."""
+    for bf16, ``"tensor_core_tf32x3"`` for f32."""
     if q.dtype not in PATHS:
         raise TypeError(f"flash_attention: no kernel for dtype {q.dtype}")
     return PATHS[q.dtype]
@@ -111,12 +127,12 @@ def check_tma(name: str, q, k, v) -> None:
         if t.data_ptr() % TMA_ALIGN:
             raise ValueError(f"{name}: {nm}'s base address is not "
                              f"{TMA_ALIGN}-byte aligned, which the "
-                             f"tensor-core kernel's TMA loads need")
+                             f"tensor-core kernels' TMA loads need")
         bad = [s for s in _tma_strides(t) if (s * size) % TMA_ALIGN]
         if bad:
             raise ValueError(f"{name}: {nm}'s strides {tuple(t.stride())} "
                              f"are not all multiples of {TMA_ALIGN} bytes, "
-                             f"which the tensor-core kernel's TMA loads "
+                             f"which the tensor-core kernels' TMA loads "
                              f"need")
 
 
@@ -174,8 +190,7 @@ def bf16_limit(q, k, v, *, causal: bool = True, window: int = -1,
 def _launch(q, k, v, causal: bool, window: int) -> torch.Tensor:
     check_qkv("flash_attention", q, k, v)
     path = route(q)
-    if path == "tensor_core":
-        check_tma("flash_attention", q, k, v)
+    check_tma("flash_attention", q, k, v)
     B, S, Hq, hd = q.shape
     T, Hkv = k.shape[1], k.shape[2]
     out = torch.empty((B, S, Hq * hd), dtype=q.dtype, device=q.device)
@@ -185,7 +200,7 @@ def _launch(q, k, v, causal: bool, window: int) -> torch.Tensor:
         raise ValueError("flash_attention: no keys to attend over")
     lib = _lib()
     fn = (lib.flash_attention_tc_launch if path == "tensor_core"
-          else lib.flash_attention_cc_launch)
+          else lib.flash_attention_tf32_launch)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),

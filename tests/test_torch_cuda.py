@@ -149,14 +149,19 @@ def _close(got, want, dtype):
     torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
 
 
+def _paths():
+    return (fa.STATS.launches, fa.STATS.tensor_core,
+            fa.STATS.tensor_core_tf32x3)
+
+
 def _fa_held(q, k, v, causal=True, window=-1):
     """flash_attention on the card against its plain twin: 2e-5 + 2e-5
-    |plain| in f32, fa.bf16_limit in bf16; one launch, on q's path."""
-    before = (fa.STATS.launches, fa.STATS.tensor_core, fa.STATS.cuda_core)
+    |plain| in f32 (the 3xTF32 path), fa.bf16_limit in bf16; one launch,
+    on q's path."""
+    before = _paths()
     got = fa.flash_attention(q, k, v, causal=causal, window=window)
     tc = q.dtype == torch.bfloat16
-    assert (fa.STATS.launches, fa.STATS.tensor_core, fa.STATS.cuda_core) \
-        == (before[0] + 1, before[1] + tc, before[2] + (not tc))
+    assert _paths() == (before[0] + 1, before[1] + tc, before[2] + (not tc))
     want = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
     assert got.shape == want.shape and got.dtype == want.dtype
     if not tc:
@@ -216,13 +221,38 @@ def test_flash_attention_raises_on_a_misaligned_bf16_view(dev):
     with pytest.raises(ValueError, match="multiples of 16"):
         fa.flash_attention(wide[..., :64], k, v)
     assert (fa.STATS.launches, fa.STATS.tensor_core) == before
-    # the f32 path reads through plain loads and takes such views
+    # the f32 path reads through TMA too, and raises on such views
     q32 = torch.zeros(q.numel() + 1, device=dev)[1:].view(q.shape)
     q32.copy_(q)                                 # base 4 bytes off
-    _fa_held(q32, k.float(), v.float())
+    with pytest.raises(ValueError, match="aligned"):
+        fa.flash_attention(q32, k.float(), v.float())
     w32 = torch.zeros(1, 128, 2, 66, device=dev)
     w32[..., :64] = q                            # row stride 264 bytes
-    _fa_held(w32[..., :64], k.float(), v.float())
+    with pytest.raises(ValueError, match="multiples of 16"):
+        fa.flash_attention(w32[..., :64], k.float(), v.float())
+    assert _paths()[0] == before[0]
+
+
+def test_flash_attention_f32_takes_aligned_views_and_raises_on_others(dev):
+    """The 3xTF32 path reads q, k and v by TMA: views whose bases and
+    strides are 16-byte multiples are read in place, others raise before
+    any launch."""
+    q, k, v = _qkv(dev, torch.float32, 1, 130, 130, 2, 2, 64)
+    flat = torch.zeros(q.numel() + 4, device=dev)
+    q16 = flat[4:].view(q.shape)                 # base 16 bytes off
+    q16.copy_(q)
+    _fa_held(q16, k, v)
+    wide = torch.zeros(1, 130, 2, 68, device=dev)
+    wide[..., :64] = k                           # row stride 544 bytes
+    _fa_held(q, wide[..., :64], v)
+    before = _paths()
+    with pytest.raises(ValueError, match="aligned"):
+        fa.flash_attention(flat[1:1 + q.numel()].view(q.shape), k, v)
+    odd = torch.zeros(1, 130, 2, 65, device=dev)
+    odd[..., :64] = v                            # row stride 260 bytes
+    with pytest.raises(ValueError, match="multiples of 16"):
+        fa.flash_attention(q, k, odd[..., :64])
+    assert _paths() == before
 
 
 def test_flash_attention_counts_each_path(dev):
@@ -231,12 +261,66 @@ def test_flash_attention_counts_each_path(dev):
         q, k, v = _qkv(dev, dtype, 1, 100, 100, 2, 1, 64)
         for _ in range(n):
             fa.flash_attention(q, k, v)
-    assert (fa.STATS.launches, fa.STATS.tensor_core, fa.STATS.cuda_core) \
-        == (5, 3, 2)
+    assert _paths() == (5, 3, 2)
     info = fa.tc_info(128)
     assert info["threads"] == 384 and info["stages"] >= 2
     assert 128 * info["producer_regs"] + 256 * info["consumer_regs"] \
         <= 65536
+    smem = torch.cuda.get_device_properties(dev) \
+        .shared_memory_per_block_optin
+    for hd in fa.HEAD_DIMS:
+        info = fa.tf32_info(hd)
+        assert info["threads"] == 256 and info["stages"] >= 2
+        assert info["keys"] % 8 == 0 and info["smem_bytes"] <= smem
+
+
+@pytest.mark.parametrize("B,S,T,Hq,Hkv,hd,causal,window", [
+    (4, 1151, 1151, 32, 8, 128, True, -1),               # the self-check's
+    (1, 4096, 4096, 32, 8, 128, True, -1),               # f32 scoring rows
+    (1, 64, 64, 1, 1, 128, True, -1), (1, 64, 64, 1, 1, 64, False, -1),
+    (2, 384, 384, 8, 1, 64, True, 96), (1, 300, 300, 8, 2, 128, False, -1),
+    (1, 1, 200, 2, 1, 64, False, -1), (2, 130, 70, 4, 4, 128, False, -1)])
+def test_flash_attention_f32_is_deterministic_at_model_shapes(
+        dev, B, S, T, Hq, Hkv, hd, causal, window):
+    """The 3xTF32 path at qwen3_8b's heads and at the tile edges: within
+    the f32 gate, one launch a call, two calls bit-identical."""
+    q, k, v = _qkv(dev, torch.float32, B, S, T, Hq, Hkv, hd)
+    _fa_held(q, k, v, causal, window)
+    before = _paths()
+    a = fa.flash_attention(q, k, v, causal=causal, window=window)
+    b = fa.flash_attention(q, k, v, causal=causal, window=window)
+    assert _paths() == (before[0] + 2, before[1], before[2] + 2)
+    assert torch.equal(a, b)
+
+
+def _attention_f64(q, k, v, causal):
+    B, S, Hq, hd = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    qg = q.double().reshape(B, S, Hkv, Hq // Hkv, hd)
+    s = torch.einsum("bskgh,btkh->bkgst", qg, k.double()) / hd ** 0.5
+    if causal:
+        ok = torch.ones(S, T, dtype=torch.bool, device=q.device).tril()
+        s = s.masked_fill(~ok, float("-inf"))
+    out = torch.einsum("bkgst,btkh->bskgh", torch.softmax(s, -1), v.double())
+    return out.reshape(B, S, Hq * hd)
+
+
+@pytest.mark.parametrize("scale", [4.0, 8.0])
+@pytest.mark.parametrize("B,S,Hq,Hkv,hd,causal", [
+    (1, 1024, 8, 2, 128, True), (1, 300, 4, 4, 64, False)])
+def test_flash_attention_f32_as_exact_as_f32_at_large_scores(
+        dev, B, S, Hq, Hkv, hd, causal, scale):
+    """q and k scaled by 4 and 8: no f32 kernel holds the 2e-5 gate
+    against the twin there, so both are held to an f64 attention, the
+    kernel's error at most twice the twin's."""
+    q, k, v = _qkv(dev, torch.float32, B, S, S, Hq, Hkv, hd)
+    q, k = q * scale, k * scale
+    exact = _attention_f64(q, k, v, causal)
+    got = fa.flash_attention(q, k, v, causal=causal).double()
+    twin = fa.flash_attention_plain(q, k, v, causal=causal).double()
+    got_err = float((got - exact).abs().max())
+    twin_err = float((twin - exact).abs().max())
+    assert 0 < got_err <= 2 * twin_err, (got_err, twin_err)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -133,22 +133,24 @@ def test_tma_check_raises_on_a_misaligned_view():
     rows = torch.zeros(1, 128, 2 * 64 + 4, dtype=q.dtype)[..., :128]
     with pytest.raises(ValueError, match="multiples of 16"):
         fa.check_tma("t", q, k, rows.unflatten(2, (2, 64)))  # rows 264 B
-    # only the tensor-core path needs TMA's alignment
+    # check_qkv leaves TMA's alignment to check_tma
     fa.check_qkv("t", shifted, wide, v)
 
 
-@pytest.mark.parametrize("dtype,path", [(torch.bfloat16, "tensor_core"),
-                                        (torch.float32, "cuda_core")])
+@pytest.mark.parametrize("dtype,path",
+                         [(torch.bfloat16, "tensor_core"),
+                          (torch.float32, "tensor_core_tf32x3")])
 def test_routing_by_dtype(dtype, path):
     q, k, v = _qkv(5, 1, 64, 64, 2, 1, 64, dtype)
     assert fa.route(q) == path == fa.PATHS[dtype]
-    before = (fa.STATS.launches, fa.STATS.tensor_core, fa.STATS.cuda_core)
+    before = (fa.STATS.launches, fa.STATS.tensor_core,
+              fa.STATS.tensor_core_tf32x3)
     out = fa.flash_attention(q, k, v)                    # CPU: plain twin
     assert torch.equal(out, fa.flash_attention_plain(q, k, v))
     assert (fa.STATS.launches, fa.STATS.tensor_core,
-            fa.STATS.cuda_core) == before
+            fa.STATS.tensor_core_tf32x3) == before
     with pytest.raises(TypeError):
         fa.route(q.half())
     fa.reset_launches()
     assert (fa.STATS.launches, fa.STATS.tensor_core,
-            fa.STATS.cuda_core) == (0, 0, 0)
+            fa.STATS.tensor_core_tf32x3) == (0, 0, 0)
