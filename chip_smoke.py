@@ -84,7 +84,12 @@ Phases, each of which raises on failure (the script then exits non-zero):
    at the self-check's and the scoring shape, beside its 3xTF32 bound and
    the CUDA cores' 67 TFLOP/s one),
    ``flash_decode`` by its device time a call (``device_ms``) and, apart,
-   its wrapper's host time a call (``host_us``);
+   its wrapper's host time a call (``host_us``), also at qwen3_moe's
+   decode shape (G 16: 64 q-heads over 4 kv-heads); the new families'
+   shapes are among the cases: ``flash_attention`` non-causal at S 1 and
+   187 over T 1500 (whisper's cross-attention) and at 25/5 heads with a
+   1024 window (hymba), ``flash_decode`` at G 16, 5 and 6, kv_len 1 to T,
+   and at G 16's largest split (bk 2048);
 9. scoring: qwen3_8b at full width and depth (bf16, seeded random
    weights) scores 2 x 4096 tokens through ``lm.forward``: exactly 36
    ``flash_attention`` launches, all on the tensor-core path, finite
@@ -132,7 +137,37 @@ Phases, each of which raises on failure (the script then exits non-zero):
    certified in one launch, each cell's ``optimal_mapping`` the same in
    one launch, the G-Sampler never below the optimum, the optimal-teacher
    corpus equal to a replay whose elites are the DP's optima, and phase
-   6's trained DT's gap to the optimum (informative).
+   6's trained DT's gap to the optimum (informative);
+17. qwen3_moe_235b at full width (d 4096, 64/4 heads, 128 experts top-8),
+   4 of 94 layers: bf16 scoring 2 x 4096 (exactly 4 tensor-core
+   ``flash_attention`` launches, finite logits and aux loss, a second run
+   bit-identical); ``serve_greedy`` f32, batch 4, prompt 1024, 32 tokens
+   (exactly 4 x 31 ``flash_decode`` at G 16); a self-check: an f32
+   forward over the prompt reproduces the prefill's row, and a serve at
+   ``impl="dense"`` (same routing groups) the 32 served rows and tokens
+   (a forward over prompt and generated tokens routes them as one group,
+   whose capacity keeps other tokens, so it is no oracle for MoE);
+18. grok1_314b at full width (d 6144, 48/8 heads, 8 experts top-2), 2 of
+   64 layers: bf16 scoring 2 x 4096 (2 ``flash_attention``), the
+   experts' loads and dropped share a layer;
+19. qwen2_vl_72b at full width (d 8192, 64/8 heads, M-RoPE (16, 24, 24)),
+   4 of 80 layers, on embeddings: bf16 scoring 2 x 4096 with a 32 x 32
+   image grid in ``pos_thw`` (4 ``flash_attention``); serving f32
+   (prompt 1024 embeddings, a zero embedding a step: 4 x 31
+   ``flash_decode``); a self-check by an f32 forward over the replay;
+20. hymba_15b whole (32 layers, 25/5 heads, SSM state 16): bf16 scoring
+   2 x 2048 (32 ``flash_attention``, 30 at window 1024) and the SSM scan
+   loop's share of a forward's wall; serving f32 (2 x 31 ``flash_decode``:
+   only the two full-attention layers); a self-check;
+21. whisper_base whole (6 + 6 layers): ``serve_greedy`` f32 over 1500
+   frames and a 187-token decoder prompt, 32 tokens (encoder 6, the
+   prefill's cross-attention 6 and each step's 6 ``flash_attention`` at
+   S 1, and 6 ``flash_decode`` a step); a self-check; then the LM
+   mapping: the ten archs' prefill chains (``lm_workload``, seq 4096,
+   batch 32) searched by the host G-Sampler at 48 MB, nmax 128 through
+   ``fusion_eval``, each equal to the same search on the CPU (run in
+   worker processes beside the card's work).  Phases 17-21 free each
+   model before the next.
 
 The last lines are the card's ``nvidia-smi`` name and power limit, a JSON
 line with each kernel's launches, error and times, and
@@ -164,6 +199,17 @@ FE_POPS = (1, 36, 40)           # the naive search and re-score, repair, GA
 MB = 2.0 ** 20
 ARCH = "qwen3_8b"
 RWKV = "rwkv6_3b"
+MOE, GROK, VLM = "qwen3_moe_235b", "grok1_314b", "qwen2_vl_72b"
+HYMBA, WHISPER = "hymba_15b", "whisper_base"
+# layers kept of the configs one card cannot hold whole (80 GB): bf16
+# scoring needs 22.4 GB (4 of 94 qwen3_moe layers), 22.9 GB (2 of 64 grok1
+# layers) and 12 GB (4 of 80 qwen2_vl layers); f32 serving twice that
+DEPTH = {MOE: 4, GROK: 2, VLM: 4}
+NEW_GEN = 32                    # tokens served by phases 17-21
+HYMBA_S = 2048                  # hymba's scoring length (its window 1024)
+WHISPER_T = 1500                # 30 s of audio: the encoder's frames
+WHISPER_DEC = WHISPER_T // 8    # the decoder's prompt (187)
+MAP_BUDGET_MB, MAP_NMAX = 48.0, 128     # benchmarks/lm_mapping.py's
 SCORE_B, SCORE_S = 2, 4096
 SERVE_B, PROMPT, GEN = 4, 1024, 128
 SELF_CHECK_REL = 1e-3           # served vs forward logits, x max |logit|
@@ -342,6 +388,79 @@ def sdpa_ms(q, k, v, causal: bool, reps: int) -> float:
         qt, kt, vt, is_causal=causal, enable_gqa=True), reps)
 
 
+def family_attention_shapes():
+    """The shapes at which phases 9-11 and 17-21 launch the attention
+    kernels, from the configs: ``flash_attention`` cases (B, S, T, Hq, Hkv,
+    hd, dtype, causal, window) and ``flash_decode`` groups (B, T, Hq, Hkv,
+    hd, dtype, the served kv_lens), decode under the card's plan."""
+    import torch
+    from repro_torch.configs import get_config
+    f32, bf16 = torch.float32, torch.bfloat16
+    fa_cases, fd_groups = [], []
+    for arch in (ARCH, MOE, GROK, VLM, HYMBA):
+        cfg = get_config(arch)
+        h = (cfg.n_heads, cfg.kv_heads, cfg.hd)
+        S = HYMBA_S if arch == HYMBA else SCORE_S
+        gen = GEN if arch == ARCH else NEW_GEN
+        # the self-check's forward: the replayed prompt and tokens (a MoE
+        # config's replays the prompt alone), none for grok1 (not served)
+        fwd = {ARCH: PROMPT + GEN - 1, MOE: PROMPT, GROK: None}.get(
+            arch, PROMPT + NEW_GEN - 1)
+        for w in sorted({w if w > 0 else -1 for w in cfg.windows()}):
+            fa_cases += [(SCORE_B, n, n, *h, bf16, True, w)   # warm-up, scoring
+                         for n in (128, S)]
+            if fwd:
+                fa_cases.append((SERVE_B, fwd, fwd, *h, f32, True, w))
+        if arch != GROK:
+            fd_groups.append((SERVE_B, PROMPT + gen + 8, *h, f32,
+                              range(PROMPT + 1, PROMPT + gen)))
+    cfg = get_config(WHISPER)
+    h = (cfg.n_heads, cfg.kv_heads, cfg.hd)
+    fwd = WHISPER_DEC + NEW_GEN - 1
+    fa_cases += [(SERVE_B, WHISPER_T, WHISPER_T, *h, f32, False, -1),  # encoder
+                 (SERVE_B, fwd, fwd, *h, f32, True, -1)]    # decoder, replayed
+    fa_cases += [(SERVE_B, S, WHISPER_T, *h, f32, False, -1)   # cross-attention
+                 for S in (1, WHISPER_DEC, fwd)]
+    fd_groups.append((SERVE_B, WHISPER_DEC + NEW_GEN + 8, *h, f32,
+                      range(WHISPER_DEC + 1, WHISPER_DEC + NEW_GEN)))
+    return fa_cases, fd_groups
+
+
+# attention-kernel shapes: those phase 8 held against the plain versions,
+# and those the main path launched after it (every one must be held)
+HELD, USED = set(), set()
+
+
+def fa_shape(q, k, causal, window) -> tuple:
+    B, S, Hq, hd = q.shape
+    return ("flash_attention", str(q.dtype)[6:], B, S, k.shape[1], Hq,
+            k.shape[2], hd, bool(causal), int(window))
+
+
+def fd_shape(q, k, kv_len, bk) -> tuple:
+    from repro_torch.kernels import flash_decode as fd
+    return ("flash_decode", str(q.dtype)[6:], q.shape[0], k.shape[1],
+            q.shape[2], k.shape[2], q.shape[3], int(kv_len),
+            fd.plan(q, k, kv_len, bk))
+
+
+def record_main_path_shapes() -> None:
+    """From here on each launch of an attention kernel adds its shape to
+    USED (the wrappers' ``_launch``, wrapped; the counts are unchanged)."""
+    from repro_torch.kernels import flash_attention as fa, flash_decode as fd
+    fa_launch, fd_launch = fa._launch, fd._launch
+
+    def fa_logged(q, k, v, causal, window):
+        USED.add(fa_shape(q, k, causal, window))
+        return fa_launch(q, k, v, causal, window)
+
+    def fd_logged(q, k, v, kv_len, bk):
+        USED.add(fd_shape(q, k, kv_len, bk))
+        return fd_launch(q, k, v, kv_len, bk)
+
+    fa._launch, fd._launch = fa_logged, fd_logged
+
+
 def attention_kernels(dev, parent=None) -> dict:
     """Phase 8: both attention kernels against their plain versions, then
     timed at the main path's shapes, the f32 ``flash_attention`` in turns
@@ -399,6 +518,22 @@ def attention_kernels(dev, parent=None) -> dict:
                  (1, SCORE_S, SCORE_S, 32, 8, 128, torch.float32, True, -1)]
     fa_cases += [(SERVE_B, PROMPT + GEN - 1, PROMPT + GEN - 1, 32, 8, 128,
                   dt, True, -1) for dt in (torch.float32, torch.bfloat16)]
+    # the new families: whisper's cross-attention (a decode step's S 1 and
+    # the prefill's S 187 over 1500 frames, non-causal), hymba's windowed
+    # layers (25/5 heads, window 1024)
+    new_fa = [(SERVE_B, S, WHISPER_T, 8, 8, 64, dt, False, -1)
+              for S in (1, WHISPER_DEC)
+              for dt in (torch.float32, torch.bfloat16)]
+    new_fa += [(2, HYMBA_S, HYMBA_S, 25, 5, 64, dt, True, 1024)
+               for dt in (torch.float32, torch.bfloat16)]
+    # the wide GQA heads (qwen3_moe 64/4, grok1 48/8, qwen2_vl 64/8) in f32
+    # at the scoring length, beside the main path's shapes below
+    new_fa += [(1, SCORE_S, SCORE_S, Hq, Hkv, 128, torch.float32, True, -1)
+               for Hq, Hkv in ((64, 4), (48, 8), (64, 8))]
+    # every shape at which phases 9-11 and 17-21 launch the kernels
+    fam_fa, fam_fd = family_attention_shapes()
+    new_fa += [c for c in fam_fa if c not in fa_cases + new_fa]
+    fa_cases += new_fa
     fa_err, fa_same = {}, 0
     for B, S, T, Hq, Hkv, hd, dt, c, w in fa_cases:
         q, k, v = qkv(dt, B, S, T, Hq, Hkv, hd)
@@ -418,6 +553,7 @@ def attention_kernels(dev, parent=None) -> dict:
             check(torch.equal(got, again), f"{label}: two calls differ")
             fa_same += 1
         err, strict, ratio = held(label, got, want, dt, limit)
+        HELD.add(fa_shape(q, k, c, w))
         if limit is not None:
             fa_strict, fa_gated = max(fa_strict, strict), max(fa_gated, ratio)
         fa_err[dt] = max(fa_err.get(dt, 0.0), err)
@@ -442,7 +578,7 @@ def attention_kernels(dev, parent=None) -> dict:
             big[f"B{B} S{S} hd{hd} x{scale:g}"] = (got, twin)
             del q, k, v, exact
         torch.cuda.empty_cache()
-    print(f"[8/16] flash_attention == plain on {len(fa_cases)} shapes (JAX "
+    print(f"[8/21] flash_attention == plain on {len(fa_cases)} shapes (JAX "
           f"sweep x f32/bf16 x causal/non-causal/window 96, one tile of 64 "
           f"and 128 rows at hd 64 and 128, GQA 4:1 and 8:1, ragged S/T "
           f"77/150, qwen3_8b heads at S {SCORE_S} and at ragged S "
@@ -465,9 +601,10 @@ def attention_kernels(dev, parent=None) -> dict:
                 for dt in (torch.float32, torch.bfloat16)]
     fd_cases += [(1, 72, 4, 2, 64, kl, bk, torch.float32, False)
                  for kl, bk in ((72, 512), (50, 32), (7, 16))]
-    # the card's plan (bk None) at every kv_len of the 127 served steps
-    fd_cases += [(SERVE_B, T_srv, 32, 8, 128, kl, None, torch.float32, False)
-                 for kl in range(PROMPT + 1, PROMPT + GEN)]
+    # the card's plan (bk None) at every kv_len a served family decodes
+    # (qwen3_8b's 127 steps, 31 of each new family's)
+    fd_cases += [(B, T, Hq, Hkv, hd, kl, None, dt, False)
+                 for B, T, Hq, Hkv, hd, dt, kls in fam_fd for kl in kls]
     fd_cases += [(SERVE_B, T_srv, 32, 8, 128, kl, bk, dt, False)
                  for kl, bk in ((PROMPT + 1, None), (PROMPT + GEN - 1, None),
                                 (1, None), (T_srv, None), (64, None),
@@ -475,9 +612,22 @@ def attention_kernels(dev, parent=None) -> dict:
                  for dt in (torch.float32, torch.bfloat16)]
     fd_cases += [(SERVE_B, T_srv, 32, 8, 128, PROMPT // 2 + 1, bk,
                   torch.float32, True) for bk in (256, None)]
-    fd_err, fd_plans, fd_same = {}, set(), 0
+    # the new families' decode heads: G 16 (qwen3_moe, the 16-head build),
+    # 5 (hymba) and 6 (grok1), kv_len 1 to T under the card's plan
+    new_fd = [(SERVE_B, T_srv, Hq, Hkv, hd, kl, None, dt, False)
+              for Hq, Hkv, hd in ((64, 4, 128), (25, 5, 64), (48, 8, 128))
+              for kl in (1, PROMPT + 1, PROMPT + NEW_GEN - 1, T_srv)
+              for dt in (torch.float32, torch.bfloat16)]
+    fd_cases += new_fd + [(SERVE_B, 2100, 64, 4, 128, 2100, 2048,
+                           torch.float32, False)]    # G 16's largest split
+    fd_err, fd_plans, fd_same, made = {}, set(), 0, {}
     for B, T, Hq, Hkv, hd, kl, bk, dt, poison in fd_cases:
-        q, k, v = qkv(dt, B, 1, T, Hq, Hkv, hd)
+        shape = (dt, B, 1, T, Hq, Hkv, hd)
+        if shape not in made:            # one draw for a run of one shape
+            made = {shape: qkv(*shape)}
+        q, k, v = made[shape]
+        if poison:
+            k, v = k.clone(), v.clone()
         used = fd.plan(q, k, kl, bk)             # the kernel's (bk, ns)
         fd_plans.add(used)
         want = fd.flash_decode_plain(q, k, v, kl, bk=used[0])
@@ -495,14 +645,28 @@ def attention_kernels(dev, parent=None) -> dict:
               f"merge depends on block order)")
         fd_same += 1
         err = held(label, got, want, dt)[0]
+        HELD.add(fd_shape(q, k, kl, bk))
         fd_err[dt] = max(fd_err.get(dt, 0.0), err)
+    del made, q, k, v
+    served = sum(len(g[-1]) for g in fam_fd)
     print(f"      flash_decode == plain on {len(fd_cases)} shapes (JAX sweep "
-          f"x f32/bf16 at bk 256, clamp/pad T 72, the card's plan at every "
-          f"served kv_len {PROMPT + 1}..{PROMPT + GEN - 1}, kv_len 1, 64 (one "
-          f"split) and T, bk 100 (not dividing T), bf16, poisoned tail; "
+          f"x f32/bf16 at bk 256, clamp/pad T 72, the card's plan at each of "
+          f"the {served} kv_lens the served families decode, kv_len 1, 64 "
+          f"(one split) and T, bk 100 (not dividing T), bf16, poisoned tail; "
           f"plans {sorted(fd_plans)[:4]}...): max abs err f32 "
           f"{fd_err[torch.float32]:.3g}, bf16 {fd_err[torch.bfloat16]:.3g}; "
           f"two calls bit-identical on all {fd_same}, one launch a call")
+    print(f"      of which the new families' shapes: flash_attention "
+          f"{len(new_fa)} (whisper's encoder, decoder and cross-attention "
+          f"over T {WHISPER_T}, hymba's windowed and global layers, the wide "
+          f"GQA heads 64/4, 48/8 and 64/8 at S {SCORE_S} in bf16 and f32, "
+          f"each family's scoring, warm-up and self-check forward), "
+          f"flash_decode {len(new_fd) + 1} (G 16 = 64/4 at hd 128, G 5 = "
+          f"25/5 at hd 64, G 6 = 48/8 at hd 128; kv_len 1, {PROMPT + 1}, "
+          f"{PROMPT + NEW_GEN - 1}, T {T_srv}; f32 and bf16; G 16 at bk "
+          f"2048) beside the served kv_lens: " + "; ".join(
+              f"{Hq}/{Hkv} hd {hd} T {T} kv_len {kls[0]}..{kls[-1]}"
+              for _, T, Hq, Hkv, hd, _, kls in fam_fd))
     print(f"      worst |got - want| / (atol + rtol |want|) outside bf16 "
           f"flash_attention: f32 {worst[torch.float32]:.3g} (2e-5, 2e-5), "
           f"bf16 {worst[torch.bfloat16]:.3g} (8e-3, 1e-3)")
@@ -561,6 +725,40 @@ def attention_kernels(dev, parent=None) -> dict:
                        fd.flash_decode_plain(q, k, v, kl, bk=fd_bk),
                        torch.float32)[0]
     fd_bound, fd_by = fd_bound_ms(SERVE_B, 32, 8, 128, kl, torch.float32)
+    del q, k, v
+    # qwen3_moe's decode shape: G 16 (64 q-heads over 4 kv-heads), the
+    # mean kv_len of phase 17's 31 steps
+    kl16, T16 = PROMPT + NEW_GEN // 2, PROMPT + NEW_GEN + 8
+    q, k, v = qkv(torch.float32, SERVE_B, 1, T16, 64, 4, 128)
+    bk16, ns16 = fd.plan(q, k, kl16)
+    g16 = dict(
+        shape=[SERVE_B, T16, kl16, 64, 4, 128], bk=bk16, ns=ns16,
+        ms=device_ms(lambda: fd.flash_decode(q, k, v, kl16), 300),
+        host_us=min(host_us(lambda: fd.flash_decode(q, k, v, kl16), 300)
+                    for _ in range(3)),
+        plain_ms=time_ms(lambda: fd.flash_decode_plain(q, k, v, kl16), 50),
+        library_ms=sdpa_ms(q, k[:, :kl16], v[:, :kl16], False, 200),
+        max_abs_err=held("flash_decode at qwen3_moe's decode shape",
+                         fd.flash_decode(q, k, v, kl16),
+                         fd.flash_decode_plain(q, k, v, kl16, bk=bk16),
+                         torch.float32)[0])
+    g16["bound_ms"], g16["bound_by"] = fd_bound_ms(SERVE_B, 64, 4, 128, kl16,
+                                                   torch.float32)
+    del q, k, v
+    # the other served decode heads, each at its family's mid kv_len
+    by_head = {}
+    for arch, (B, T, Hq, Hkv, hd, dt, kls) in zip(
+            (ARCH, MOE, VLM, HYMBA, WHISPER), fam_fd):
+        if arch in (ARCH, MOE):          # timed above
+            continue
+        kl_h = kls[len(kls) // 2]
+        q, k, v = qkv(dt, B, 1, T, Hq, Hkv, hd)
+        bk_h, ns_h = fd.plan(q, k, kl_h)
+        by_head[arch] = dict(
+            shape=[B, T, kl_h, Hq, Hkv, hd], bk=bk_h, ns=ns_h,
+            ms=device_ms(lambda: fd.flash_decode(q, k, v, kl_h), 300),
+            bound_ms=fd_bound_ms(B, Hq, Hkv, hd, kl_h, dt)[0])
+        del q, k, v
     tflops = 4 * 128 * visible_pairs(SCORE_S, SCORE_S, True, -1) \
         * SCORE_B * 32 / fa_ms / 1e9
     print(f"      flash_attention bf16, tensor-core path [B{SCORE_B} "
@@ -590,6 +788,20 @@ def attention_kernels(dev, parent=None) -> dict:
           f"x 300 calls enqueued before one synchronize), beside "
           f"{fd_ms * 1e3:.2f} us of device time, a {fd_bound * 1e3:.2f} us "
           f"bound and sdpa's {fd_lib * 1e3:.2f} us")
+    print(f"      flash_decode f32 at G 16 [B{SERVE_B} T{T16} kv_len {kl16} "
+          f"Hq64/4 hd128] (qwen3_moe's decode), plan bk {bk16} x {ns16} "
+          f"splits ({ns16 * 4 * SERVE_B} blocks): kernel {g16['ms']:.5f} ms "
+          f"of device time a call, host {g16['host_us']:.2f} us, plain "
+          f"{g16['plain_ms']:.4f} ms, sdpa {g16['library_ms']:.4f} ms, bound "
+          f"{g16['bound_ms']:.5f} ms ({g16['bound_by']}); max abs err "
+          f"{g16['max_abs_err']:.3g}")
+    print("      flash_decode f32 at the other served heads, device time a "
+          "call: " + "; ".join(
+              f"{a} [B{r['shape'][0]} T{r['shape'][1]} kv_len "
+              f"{r['shape'][2]} Hq{r['shape'][3]}/{r['shape'][4]} hd"
+              f"{r['shape'][5]}] plan {r['bk']} x {r['ns']}: "
+              f"{r['ms']:.5f} ms, bound {r['bound_ms']:.5f} ms"
+              for a, r in by_head.items()))
     sc = f32["self_check"]
     return {"flash_attention": dict(
                 max_abs_err=fa_main_err, ms=fa_ms, plain_ms=fa_plain,
@@ -610,7 +822,8 @@ def attention_kernels(dev, parent=None) -> dict:
             "flash_decode": dict(max_abs_err=fd_main_err, ms=fd_ms,
                                  plain_ms=fd_plain, bound_ms=fd_bound,
                                  bound_by=fd_by, library_ms=fd_lib,
-                                 host_us=fd_host, bk=fd_bk, ns=fd_ns)}
+                                 host_us=fd_host, bk=fd_bk, ns=fd_ns,
+                                 g16=g16, heads=by_head)}
 
 
 def reset_counts() -> None:
@@ -642,116 +855,59 @@ def expect_counts(label: str, n: dict, **want) -> None:
     check(n == full, f"{label} launched {n}, expected {full}")
 
 
-def scoring(dev, arch: str, phase: int, **want) -> dict:
-    """Phases 9 and 13: ``arch`` (bf16, seeded random weights) scores
-    SCORE_B x SCORE_S random tokens; the launches are ``want``."""
-    import numpy as np
-    import torch
-    from repro_torch.configs import get_config
-    from repro_torch.models import get_model
-    cfg = get_config(arch)
-    mod = get_model(cfg)
-    t0 = time.perf_counter()
-    model = mod.init(cfg, seed=0, dtype=torch.bfloat16, device=dev)
-    torch.cuda.synchronize()
-    t_init = time.perf_counter() - t0
-    n_params = sum(p.numel() for p in model.parameters())
-    toks = torch.as_tensor(np.random.default_rng(1).integers(
-        0, cfg.vocab, (SCORE_B, SCORE_S)), device=dev)
-    mod.forward(model, {"tokens": toks[:, :128]})         # warm-up
-    torch.cuda.synchronize()
-    reset_counts()
-    t0 = time.perf_counter()
-    logits = mod.forward(model, {"tokens": toks})
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    n = counts()
-    expect_counts(f"scoring {arch}", n, **want)
-    check(tuple(logits.shape) == (SCORE_B, SCORE_S, cfg.vocab_padded)
-          and bool(torch.isfinite(logits).all()), "scoring logits malformed "
-          "or not finite")
-    print(f"[{phase}/16] scoring {arch} ({cfg.n_layers} layers, d "
-          f"{cfg.d_model}, {n_params / 1e9:.2f}e9 params, bf16, "
-          f"seeded random weights; init {t_init:.2f} s) over "
-          f"{SCORE_B}x{SCORE_S} tokens: wall {wall:.4f} s, launches "
-          f"{launched(n)}, logits {tuple(logits.shape)} finite")
-    del model, logits
-    torch.cuda.empty_cache()
-    return n
-
-
-def serving(dev, arch: str, phase: int, **want) -> dict:
-    """Phases 10 and 14: greedy serving of ``arch`` in f32; the launches are
-    ``want``."""
-    import torch
-    from repro_torch.configs import get_config
-    from repro_torch.launch import serve_greedy
-    cfg = get_config(arch)
-    reset_counts()
-    t0 = time.perf_counter()
-    out = serve_greedy(arch, batch=SERVE_B, prompt_len=PROMPT, gen_len=GEN,
-                       reduced=False, seed=0, device=dev, keep_logits=True)
-    wall = time.perf_counter() - t0
-    n = counts()
-    expect_counts(f"serving {arch}", n, **want)
-    toks = out["tokens"]
-    check(toks.shape == (SERVE_B, GEN) and (toks >= 0).all()
-          and (toks < cfg.vocab_padded).all(), "served tokens malformed")
-    print(f"[{phase}/16] serving {arch} f32, batch {SERVE_B}, prompt "
-          f"{PROMPT}, gen {GEN}: prefill {out['t_prefill_s']:.4f} s, decode "
-          f"{out['t_decode_s']:.4f} s, {out['tok_per_s']:.2f} tok/s; wall "
-          f"with init {wall:.2f} s; launches {launched(n)}")
-    out["launches"] = n
-    torch.cuda.empty_cache()
-    return out
-
-
-def self_check(dev, arch: str, served: dict, phase: int, *, want_fwd=None,
-               want_prefill=None, want_step=None, parent=None) -> dict:
-    """Phases 11 and 15: an f32 forward over prompt + generated tokens
-    reproduces the served logits and the greedy tokens.  With ``want_*``,
-    the forward, one prefill of the prompt and one decode step after it
-    launch exactly those kernels.  With ``parent`` (an
-    ``ab_flash_attention.finish_build`` library) the forward is also timed
-    with the parent's flash_attention, in turns.  Returns the forward's
-    launches and walls."""
-    import numpy as np
+def self_check(dev, arch: str, served: dict, phase: int, *,
+               want_prefill=None, want_step=None, parent=None,
+               **want) -> dict:
+    """Phases 11, 15, 17 and 19-21: an f32 ``forward`` over
+    ``replay_batch`` (the prompt and the tokens fed back) reproduces the
+    served logits and tokens (``logits_held``); its launches are ``want``.
+    With ``want_prefill`` and ``want_step``, one prefill of the prompt and
+    one decode step after it launch exactly those kernels.  With
+    ``parent`` (an ``ab_flash_attention.finish_build`` library) the
+    forward is also timed with the parent's flash_attention, in turns.
+    For a MoE config the forward covers the prompt alone (capacity is per
+    routing group, so a longer group keeps other tokens) and the decode
+    rows are held to a serve at ``impl="dense"`` instead.  Returns the
+    forward's launches and walls."""
     import torch
     from repro_torch import ab_flash_attention as ab
-    from repro_torch.configs import get_config
+    from repro_torch.launch import replay_batch
     from repro_torch.models import get_model
-    cfg = get_config(arch)
+    cfg = family_config(arch)
     mod = get_model(cfg)
+    batch, first = replay_batch(cfg, served)
+    got, toks = served["logits"], served["tokens"]
+    if cfg.n_experts:
+        batch = {"tokens": batch["tokens"][:, :first + 1]}
+        got, toks = got[:, :1], toks[:, :1]
     model = mod.init(cfg, seed=0, dtype=torch.float32, device=dev)
-    seq = torch.as_tensor(
-        np.concatenate([served["prompt"], served["tokens"][:, :-1]], 1),
-        device=dev)
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
     torch.cuda.synchronize()
     reset_counts()
     t0 = time.perf_counter()
-    logits = mod.forward(model, {"tokens": seq})[:, PROMPT - 1:]
+    logits = mod.forward(model, batch)[:, first:]
     torch.cuda.synchronize()
     walls = [time.perf_counter() - t0]
-    n_fwd = counts()
-    if want_fwd is not None:
-        expect_counts(f"{arch} f32 forward", n_fwd, **want_fwd)
+    n = counts()
+    expect_counts(f"{arch} f32 forward", n, **want)
     parent_walls = []
     if parent is not None:               # parent, change, parent
         for who in ("parent", "change", "parent"):
             with ab.swap(parent if who == "parent" else None):
                 t0 = time.perf_counter()
-                mod.forward(model, {"tokens": seq})
+                mod.forward(model, batch)
                 torch.cuda.synchronize()
                 (parent_walls if who == "parent" else walls).append(
                     time.perf_counter() - t0)
     note = ""
     if want_prefill is not None:
+        seq = batch["tokens"]
         reset_counts()
-        lg, state = mod.prefill(model, {"tokens": seq[:, :PROMPT]},
-                                PROMPT + 8, cache_dtype=torch.float32)
+        lg, state = mod.prefill(model, {"tokens": seq[:, :first + 1]},
+                                first + 9, cache_dtype=torch.float32)
         n_pre = counts()
         reset_counts()
-        mod.decode_step(model, state, {"tokens": seq[:, PROMPT:PROMPT + 1]})
+        mod.decode_step(model, state, {"tokens": seq[:, first + 1:first + 2]})
         n_step = counts()
         expect_counts(f"{arch} prefill", n_pre, **want_prefill)
         expect_counts(f"{arch} decode step", n_step, **want_step)
@@ -759,33 +915,31 @@ def self_check(dev, arch: str, served: dict, phase: int, *, want_fwd=None,
                 f"{launched(n_step)}")
         del lg, state
     del model
-    got = served["logits"]
-    scale = float(logits.abs().max())
-    err = float((logits - got).abs().max())
-    err_pre = float((logits[:, 0] - got[:, 0]).abs().max())
-    check(err <= SELF_CHECK_REL * scale, f"served logits differ from the "
-          f"forward's by {err} (limit {SELF_CHECK_REL} x {scale})")
-    arg = logits.argmax(-1).cpu().numpy()
-    top2 = logits.topk(2, dim=-1).values
-    gap = (top2[..., 0] - top2[..., 1]).cpu().numpy()
-    diff = arg != served["tokens"]
-    ties = int((diff & (gap <= 2 * err)).sum())
-    check(int(diff.sum()) == ties, f"{int(diff.sum()) - ties} greedy tokens "
-          f"differ from the forward's argmax beyond a near-tie")
+    torch.cuda.empty_cache()
+    rows = (f"the prefill's row (a forward over the {first + 1}-token "
+            "prompt)" if cfg.n_experts else
+            f"positions {first}..{first + toks.shape[1] - 1}")
+    text = logits_held(f"self-check {arch}", got, logits, toks)
     par = (", parent's flash_attention " + " / ".join(
         f"{x:.4f}" for x in parent_walls) + " s" if parent_walls else "")
-    print(f"[{phase}/16] self-check {arch}: f32 forward over {seq.shape[0]}x"
-          f"{seq.shape[1]} tokens (wall " + " / ".join(
+    print(f"[{phase}/21] self-check {arch}: f32 forward over "
+          f"{tuple(next(iter(batch.values())).shape)} (wall " + " / ".join(
               f"{x:.4f}" for x in walls) + f" s{par}; launches "
-          f"{launched(n_fwd)}) reproduces "
-          f"the served logits at positions {PROMPT - 1}..{PROMPT + GEN - 2}: "
-          f"max abs err {err:.4g} ({err_pre:.4g} at the prefill's position "
-          f"{PROMPT - 1}) vs max |logit| {scale:.4g} (limit "
-          f"{SELF_CHECK_REL} relative); argmax == greedy tokens except "
-          f"{ties} near-ties (top-2 gap <= 2 x err){note}")
-    del logits, got
+          f"{launched(n)}) reproduces the served logits at {rows}: "
+          f"{text}{note}")
+    del logits, batch
+    if cfg.n_experts:
+        dense = serving(dev, arch, phase, prompt=first + 1,
+                        gen=served["tokens"].shape[1], impl="dense",
+                        label=" (plain attention)")
+        text = logits_held(f"{arch} kernel vs dense serve", served["logits"],
+                           dense["logits"], served["tokens"])
+        print(f"      {arch}: the kernel serve's {len(dense['tokens'][0])} rows "
+              f"against the plain-attention serve's (same routing groups): "
+              f"{text}")
+        del dense
     torch.cuda.empty_cache()
-    return {"launches": n_fwd, "wall_s": walls,
+    return {"launches": n, "wall_s": walls,
             "parent_wall_s": parent_walls or None}
 
 
@@ -892,7 +1046,7 @@ def wkv_kernel(dev) -> dict:
             main_err[case], tiles[case] = float(diff.max()), tile
         del got, ins, want
     sc32, sc16, pre = main_cases
-    print(f"[12/16] wkv6 == plain on {len(cases)} shapes (JAX sweep, strong "
+    print(f"[12/21] wkv6 == plain on {len(cases)} shapes (JAX sweep, strong "
           f"decay U{strong}, T not whole chunks, strided, bf16 r/k/v, "
           f"{RWKV} scoring in f32 and bf16 at tiles {tiles[sc32]} and "
           f"{tiles[sc16]}, the serving prefill at tile {tiles[pre]}, the "
@@ -1024,7 +1178,7 @@ def paper_loop(dev, grid: dict, gsampler: dict, untrained: dict):
           np.array_equal(np.stack(kept), corpus.rtg),
           "corpus: a replay of the pipeline keeps other rows")
     sp = np.array([m[2] for m in corpus.meta])
-    print(f"[6/16] corpus: generate_teacher_corpus over {C} conditions "
+    print(f"[6/21] corpus: generate_teacher_corpus over {C} conditions "
           f"(GA pop {ga.population} x {ga.generations}, top {top_k} + "
           f"{jitter} jittered copies of the top {top_k // 2}, {cand.shape[1]}"
           f" candidates a condition): wall {corpus_wall:.3f} s, "
@@ -1297,7 +1451,7 @@ def mapper_serving(dev, model) -> int:
                              np.array([resp[i].valid for i in idx])),
               f"served valid differs from the kernel re-score (bucket {nb})")
     hits = sum(r.cached for r in resp)
-    print(f"[7/16] serving on the card: repro_torch.serve(trained DT, "
+    print(f"[7/21] serving on the card: repro_torch.serve(trained DT, "
           f"warm=6 CNNs), default ServingConfig: warmup {warm_wall:.3f} s, "
           f"{sigs} signatures {sorted(eng._compiled)}; stream of "
           f"{STREAM_N} requests (6 CNNs x 5 parts x budgets "
@@ -1619,7 +1773,7 @@ def paper_table(dev, trained) -> int:
                       for k in twice[0]),
                   "two S2S trainings of one seed differ on the card")
     table_wall = time.perf_counter() - t_phase
-    print(f"[16/16] Table 1 on VGG16 (PAPER_ACCEL, nmax {TABLE1_NMAX}; "
+    print(f"[16/21] Table 1 on VGG16 (PAPER_ACCEL, nmax {TABLE1_NMAX}; "
           f"baselines at {TABLE1_SAMPLES} samples, pop {BASELINE_POP}, seed 0"
           f"; A2C {A2C_EPISODES} episodes; sequence models trained "
           f"{SEQ_STEPS} steps on {TRAIN_MB} MB, one shot by the fused "
@@ -1726,6 +1880,300 @@ def paper_table(dev, trained) -> int:
 
 
 
+def family_config(arch: str):
+    """``arch``'s full-width config, cut to DEPTH layers where one card
+    cannot hold it whole."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    return dataclasses.replace(cfg, n_layers=DEPTH[arch]) if arch in DEPTH \
+        else cfg
+
+
+def family_batch(cfg, B: int, S: int, dev, *, grid: int = 0) -> dict:
+    """A scoring batch from a seeded numpy stream: tokens, or embeddings
+    for an ``embed_inputs`` config (with an M-RoPE grid: the first
+    ``grid``^2 positions an image of grid x grid patches, then text
+    positions after its largest id)."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(1)
+    if not cfg.embed_inputs:
+        return {"tokens": torch.as_tensor(
+            rng.integers(0, cfg.vocab, (B, S)), device=dev)}
+    e = rng.standard_normal((B, S, cfg.d_model), dtype=np.float32)
+    batch = {"embeds": torch.as_tensor(e, device=dev).to(torch.bfloat16)}
+    if grid:
+        n = grid * grid
+        thw = np.zeros((3, S), np.int64)
+        thw[1, :n], thw[2, :n] = np.divmod(np.arange(n), grid)
+        thw[:, n:] = np.arange(S - n) + grid
+        batch["pos_thw"] = torch.as_tensor(
+            np.broadcast_to(thw[:, None], (3, B, S)).copy(), device=dev)
+    return batch
+
+
+def scoring(dev, arch: str, phase: int, B: int = SCORE_B, S: int = SCORE_S,
+            *, repeat: bool = False, grid: int = 0, probe=None,
+            **want) -> dict:
+    """Phases 9, 13 and 17-20: ``arch`` (bf16, seeded random weights, cut
+    in depth by DEPTH) scores a B x S batch; the launches are ``want``.  With
+    ``repeat`` a second identical run must give bit-identical logits.
+    ``probe(model, batch)`` runs after, its text printed."""
+    import torch
+    from repro_torch.models import get_model
+    cfg = family_config(arch)
+    mod = get_model(cfg)
+    t0 = time.perf_counter()
+    model = mod.init(cfg, seed=0, dtype=torch.bfloat16, device=dev)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    batch = family_batch(cfg, B, S, dev, grid=grid)
+    warm = {k: (v[:, :, :128] if k == "pos_thw" else v[:, :128])
+            for k, v in batch.items()}
+    mod.forward(model, warm)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    logits = mod.forward(model, batch)
+    torch.cuda.synchronize()
+    walls = [time.perf_counter() - t0]
+    n = counts()
+    expect_counts(f"scoring {arch}", n, **want)
+    check(tuple(logits.shape) == (B, S, cfg.vocab_padded)
+          and bool(torch.isfinite(logits).all()), f"scoring {arch}: logits "
+          "malformed or not finite")
+    note = ""
+    if cfg.n_experts:
+        aux = float(mod.forward_aux(model, batch)[1])
+        check(aux == aux and aux > 0, f"{arch}: aux loss {aux}")
+        note += f", aux loss {aux:.6g}"
+    if repeat:
+        t0 = time.perf_counter()
+        again = mod.forward(model, batch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        check(torch.equal(logits, again), f"scoring {arch}: a second "
+              "identical run gave other logits")
+        note += "; a second run bit-identical"
+        del again
+    if probe is not None:
+        note += "; " + probe(model, batch)
+    print(f"[{phase}/21] scoring {arch} ({cfg.n_layers} layers, d "
+          f"{cfg.d_model}, {n_params / 1e9:.3f}e9 params, bf16, seeded "
+          f"random weights; init {t_init:.2f} s) over {B}x{S}"
+          f"{' embeds' if cfg.embed_inputs else ' tokens'}"
+          f"{f' ({grid}x{grid} image grid in pos_thw)' if grid else ''}: "
+          f"wall " + " / ".join(f"{w:.4f}" for w in walls) + f" s, launches "
+          f"{launched(n)}, logits {tuple(logits.shape)} finite{note}")
+    del model, logits, batch
+    torch.cuda.empty_cache()
+    return {"launches": n, "wall_s": walls}
+
+
+def expert_loads(model, batch) -> str:
+    """Tokens per expert and the dropped share, per MoE layer, recorded
+    from the routing of one forward."""
+    import torch
+    from repro_torch.models import lm
+    from repro_torch.nn import moe as tmoe
+    seen, route = [], tmoe.moe_route
+
+    def spy(*a, **kw):
+        r = route(*a, **kw)
+        seen.append((r.count.sum(0), float(r.keep.float().mean()), r.C))
+        return r
+
+    tmoe.moe_route = spy
+    try:
+        lm.forward(model, batch)
+        torch.cuda.synchronize()
+    finally:
+        tmoe.moe_route = route
+    return "expert loads " + "; ".join(
+        f"layer {i}: tokens an expert min {int(c.min())} / mean "
+        f"{float(c.float().mean()):.1f} / max {int(c.max())}, capacity {C} "
+        f"a row, dropped {1 - keep:.4f}"
+        for i, (c, keep, C) in enumerate(seen))
+
+
+def scan_share(model, batch) -> str:
+    """The selective SSM's share of a forward's wall: one forward with a
+    synchronise around each layer's SSM (its per-position Python loop)."""
+    import torch
+    from repro_torch.models import hymba
+    from repro_torch.nn.ssm import SSM
+    fwd, spent = SSM.forward, []
+
+    def timed(self, x, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fwd(self, x, **kw)
+        torch.cuda.synchronize()
+        spent.append(time.perf_counter() - t0)
+        return out
+
+    SSM.forward = timed
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hymba.forward(model, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        SSM.forward = fwd
+    steps = batch["tokens"].shape[1] * len(spent)
+    return (f"SSM scan loop {sum(spent):.4f} s of a {wall:.4f} s forward "
+            f"({sum(spent) / wall:.3f}; {len(spent)} layers x "
+            f"{batch['tokens'].shape[1]} positions, "
+            f"{sum(spent) / steps * 1e6:.2f} us a position and layer)")
+
+
+def serving(dev, arch: str, phase: int, *, prompt: int = PROMPT,
+            gen: int = NEW_GEN, impl: str = "kernel", label: str = "",
+            **want) -> dict:
+    """Phases 10, 14, 17 and 19-21: ``serve_greedy`` of ``arch`` (cut by
+    DEPTH) in f32, batch SERVE_B, ``gen`` tokens; the launches are
+    ``want``."""
+    import torch
+    from repro_torch.launch import serve_greedy
+    cfg = family_config(arch)
+    reset_counts()
+    t0 = time.perf_counter()
+    out = serve_greedy(cfg, batch=SERVE_B, prompt_len=prompt, gen_len=gen,
+                       seed=0, impl=impl, device=dev, keep_logits=True)
+    wall = time.perf_counter() - t0
+    n = counts()
+    expect_counts(f"serving {arch}{label}", n, **want)
+    toks = out["tokens"]
+    check(toks.shape == (SERVE_B, gen) and (toks >= 0).all()
+          and (toks < cfg.vocab_padded).all()
+          and bool(torch.isfinite(out["logits"]).all()),
+          f"served {arch} tokens or logits malformed")
+    shapes = ", ".join(f"{k} {tuple(v.shape)}"
+                       for k, v in out["inputs"].items())
+    print(f"[{phase}/21] serving {arch}{label} ({cfg.n_layers} layers) f32, "
+          f"impl {impl}, batch {SERVE_B}, prefill {shapes}, gen {gen}: "
+          f"prefill {out['t_prefill_s']:.4f} s, decode "
+          f"{out['t_decode_s']:.4f} s, {out['tok_per_s']:.2f} tok/s; wall "
+          f"with init {wall:.2f} s; launches {launched(n)}")
+    out["launches"] = n
+    torch.cuda.empty_cache()
+    return out
+
+
+def logits_held(label: str, got, want, tokens) -> str:
+    """``got`` (served) within SELF_CHECK_REL of ``want``'s largest
+    magnitude, and the served ``tokens`` equal ``want``'s argmax but at
+    near-ties (top-2 gap within twice the error)."""
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max())
+    check(err <= SELF_CHECK_REL * scale, f"{label}: logits differ by {err} "
+          f"(limit {SELF_CHECK_REL} x {scale})")
+    arg = want.argmax(-1).cpu().numpy()
+    top2 = want.topk(2, dim=-1).values
+    gap = (top2[..., 0] - top2[..., 1]).cpu().numpy()
+    diff = arg != tokens
+    ties = int((diff & (gap <= 2 * err)).sum())
+    check(int(diff.sum()) == ties, f"{label}: {int(diff.sum()) - ties} "
+          f"greedy tokens differ beyond a near-tie")
+    first = float((got[:, 0] - want[:, 0]).abs().max())
+    return (f"max abs err {err:.4g} ({first:.4g} at the prefill's row) vs "
+            f"max |logit| {scale:.4g} (limit {SELF_CHECK_REL} relative), "
+            f"tokens equal but {ties} near-ties (top-2 gap <= 2 x err)")
+
+
+def lm_search(name: str, device) -> dict:
+    """``name``'s prefill chain (``lm_workload``, seq 4096, batch 32)
+    searched by the host G-Sampler at MAP_BUDGET_MB and nmax MAP_NMAX on
+    ``device``: the result, the ``fusion_eval`` launches and the wall."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import accel, env, gsampler as gs
+    from repro_torch.kernels import fusion_eval as fe
+    from repro_torch.workloads import lm_workload
+    if str(device) == "cpu":            # a worker process of its own
+        torch.set_num_threads(1)
+    wl = lm_workload(get_config(name), seq_len=4096, batch=32,
+                     mode="prefill")
+    fe.reset_launches()
+    t0 = time.perf_counter()
+    res = gs.gsampler_search(env.FusionEnv(
+        wl, accel.PAPER_ACCEL, 32, MAP_BUDGET_MB * MB, nmax=MAP_NMAX,
+        device=device))
+    return {"res": res, "blocks": wl.n, "launches": fe.STATS.launches,
+            "wall": time.perf_counter() - t0}
+
+
+def lm_mapping(dev, phase: int, cpu_jobs: dict) -> int:
+    """Phase 21b: each of the ten archs' prefill chains searched by the
+    host G-Sampler on the card (every evaluation one ``fusion_eval``
+    launch) equals the same search on the CPU (``cpu_jobs``: name ->
+    future of ``lm_search(name, "cpu")``, run in worker processes):
+    strategies, elites, speedups and peaks bit-equal.  Returns the card's
+    launches."""
+    import numpy as np
+    import torch
+    from repro_torch.core import gsampler as gs
+    from repro_torch.kernels import _build, fusion_eval as fe
+    total, rows = 0, []
+    for name, job in cpu_jobs.items():
+        reset_counts()
+        card = lm_search(name, dev)
+        n = counts()
+        expect_counts(f"lm_mapping {name}", n,
+                      fusion_eval=card["launches"])
+        cpu = job.result()
+        a, b = card["res"], cpu["res"]
+        check(card["launches"] > 0 and cpu["launches"] == 0,
+              f"lm_mapping {name}: launches card {card['launches']}, CPU "
+              f"{cpu['launches']}")
+        check(np.array_equal(a.strategy, b.strategy)
+              and len(a.elites) == len(b.elites)
+              and all(np.array_equal(x, y) for x, y in zip(a.elites,
+                                                            b.elites))
+              and (a.speedup, a.peak_mem, a.valid, a.n_evals) ==
+              (b.speedup, b.peak_mem, b.valid, b.n_evals),
+              f"lm_mapping {name}: the card's search differs from the CPU's")
+        total += card["launches"]
+        rows.append(f"{name} {card['blocks']} blocks: speedup "
+                    f"{a.speedup:.6f} (valid {a.valid}, usage "
+                    f"{a.peak_mem / MB:.2f} MB, {a.n_evals} evaluations), "
+                    f"{card['launches']} launches; card {card['wall']:.3f} "
+                    f"s, CPU {cpu['wall']:.3f} s (one thread)")
+    torch.cuda.synchronize()
+    pop = gs.GSamplerConfig().population
+    tile = fe.tile_for(1, pop, MAP_NMAX, _build.sm_count(
+        torch.cuda.current_device()))
+    print(f"[{phase}/21] LM mapping: lm_workload(seq 4096, batch 32, "
+          f"prefill) of the ten archs, host gsampler_search (pop {pop}) at "
+          f"{MAP_BUDGET_MB:g} MB, nmax {MAP_NMAX}, PAPER_ACCEL, through "
+          f"fusion_eval (tile {tile}), each equal to the same search on the "
+          f"CPU (strategy, elites, speedup and peak bit-equal):")
+    for r in rows:
+        print(f"      {r}")
+    return total
+
+
+def whisper_and_mapping(dev, cpu_jobs: dict) -> dict:
+    """Phase 21: whisper_base served and self-checked, then the LM mapping;
+    returns each part's launches."""
+    from repro_torch.configs import get_config
+    wh = get_config(WHISPER)
+    Le, Ld = wh.encoder_layers, wh.n_layers
+    fa_w = Le + Ld + Ld * (NEW_GEN - 1)  # encoder, prefill's and steps' xattn
+    served = serving(dev, WHISPER, 21, prompt=WHISPER_T,
+                            flash_attention=fa_w, fa_tensor_core_tf32x3=fa_w,
+                            flash_decode=Ld * (NEW_GEN - 1))
+    out = {"21 serving": served["launches"]}
+    out["21 self-check"] = self_check(       # encoder, decoder self
+        dev, WHISPER, served, 21, flash_attention=Le + 2 * Ld,   # and xattn
+        fa_tensor_core_tf32x3=Le + 2 * Ld)["launches"]
+    out["21 mapping"] = {"fusion_eval": lm_mapping(dev, 21, cpu_jobs)}
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch port "
@@ -1756,7 +2204,7 @@ def main(argv=None) -> int:
     # -- 1. device ----------------------------------------------------------
     kind = torch.cuda.get_device_name(0)
     smi = smi_line()
-    print(f"[1/16] device: {kind} | nvidia-smi: {smi} | torch "
+    print(f"[1/21] device: {kind} | nvidia-smi: {smi} | torch "
           f"{torch.__version__} CUDA {torch.version.cuda} | devices "
           f"{torch.cuda.device_count()}")
 
@@ -1769,7 +2217,7 @@ def main(argv=None) -> int:
     parent = ab.finish_build(parent_job) if parent_job else None
     fe.compiled_backend_supported()
     infos = {src: _build.build_info(src) for src in sources}
-    print(f"[2/16] build: " + ", ".join(
+    print(f"[2/21] build: " + ", ".join(
         f"{src}.cu {infos[src]['build_s']:.2f} s" for src in sources) +
         f" (in parallel; cached={infos[fe.SOURCE]['cached']}), probe ok, "
         f"phase {time.perf_counter() - t0:.2f} s")
@@ -1869,7 +2317,7 @@ def main(argv=None) -> int:
         raw = fe.fusion_eval_raw(*args)
         check(all(torch.equal(g, w) for g, w in zip(raw[:6], want[1:7])),
               f"{label}: fusion_eval_raw differs from the raw form")
-        print(f"[3/16] kernel == plain on {label} [{Cc}x{pop}x{P}], "
+        print(f"[3/21] kernel == plain on {label} [{Cc}x{pop}x{P}], "
               f"forms cost, stats, raw: bit-equal, CostOut included")
         if label.startswith("main-path"):
             main_args[pop] = args
@@ -1921,7 +2369,7 @@ def main(argv=None) -> int:
           (C, 4, NMAX), "G-Sampler result malformed")
     check(res.valid[:, 0].mean() > 0.5, "G-Sampler found too few valid "
           "strategies")
-    print(f"[4/16] G-Sampler pop {cfg.population} x {cfg.generations} gens "
+    print(f"[4/21] G-Sampler pop {cfg.population} x {cfg.generations} gens "
           f"over {C} conditions: wall {gs_wall:.3f} s, fusion_eval launches "
           f"{gs_launches}, mean best speedup {best.mean():.4f}, valid share "
           f"{res.valid[:, 0].mean():.4f}")
@@ -1959,7 +2407,7 @@ def main(argv=None) -> int:
           "DT n_groups differs")
     dt_valid = out["valid"].float().mean().item()
     dt_speed = out["speedup"][out["valid"]].mean().item() if dt_valid else 0.0
-    print(f"[5/16] DT one shot (3x2x128, hw_dim 10, seeded random weights) "
+    print(f"[5/21] DT one shot (3x2x128, hw_dim 10, seeded random weights) "
           f"over {C} conditions: wall {dt_wall:.4f} s, valid share "
           f"{dt_valid:.4f}, mean valid speedup {dt_speed:.4f}; re-score "
           f"matches (rtol 1e-5); G-Sampler/DT wall ratio "
@@ -1982,28 +2430,104 @@ def main(argv=None) -> int:
     L = get_config(ARCH).n_layers
     attn = attention_kernels(dev, parent)
     torch.cuda.empty_cache()
+    record_main_path_shapes()
     fa_launches = scoring(dev, ARCH, 9, flash_attention=L,
-                          fa_tensor_core=L)["flash_attention"]
-    served = serving(dev, ARCH, 10, flash_decode=L * (GEN - 1))
+                          fa_tensor_core=L)["launches"]["flash_attention"]
+    served = serving(dev, ARCH, 10, gen=GEN, flash_decode=L * (GEN - 1))
     fwd = self_check(dev, ARCH, served, 11, parent=parent,
-                     want_fwd={"flash_attention": L,
-                               "fa_tensor_core_tf32x3": L})
+                     flash_attention=L, fa_tensor_core_tf32x3=L)
     fd_launches = served["launches"]["flash_decode"]
     del served                          # qwen3_8b is gone before rwkv6_3b
 
     # -- 12.-15. the RWKV6 LM: kernel, scoring, serving, self-check ---------
     L = get_config(RWKV).n_layers
     wkv = wkv_kernel(dev)
-    wkv_launches = scoring(dev, RWKV, 13, wkv6=L)["wkv6"]
-    served = serving(dev, RWKV, 14, wkv6=L + L * (GEN - 1))
-    self_check(dev, RWKV, served, 15, want_fwd={"wkv6": L},
-               want_prefill={"wkv6": L}, want_step={"wkv6": L})
+    wkv_launches = scoring(dev, RWKV, 13, wkv6=L)["launches"]["wkv6"]
+    served = serving(dev, RWKV, 14, gen=GEN, wkv6=L + L * (GEN - 1))
+    self_check(dev, RWKV, served, 15, want_prefill={"wkv6": L},
+               want_step={"wkv6": L}, wkv6=L)
     wkv_served = served["launches"]["wkv6"]
     del served
 
     # -- 16. Table 1 and the exact optimum -----------------------------------
     table_launches = paper_table(dev, trained)
     del trained
+    torch.cuda.empty_cache()
+
+    # -- 17.-21. the rest of the LM substrate --------------------------------
+    new = {}                             # phase label -> launches
+    t0 = time.perf_counter()
+    L = DEPTH[MOE]
+    new["17 scoring"] = scoring(
+        dev, MOE, 17, SCORE_B, SCORE_S, repeat=True, flash_attention=L,
+        fa_tensor_core=L)["launches"]
+    served = serving(dev, MOE, 17, prompt=PROMPT,
+                            flash_decode=L * (NEW_GEN - 1))
+    new["17 serving"] = served["launches"]
+    new["17 self-check"] = self_check(
+        dev, MOE, served, 17, flash_attention=L,
+        fa_tensor_core_tf32x3=L)["launches"]
+    del served
+    print(f"      phase 17 {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    L = DEPTH[GROK]
+    new["18 scoring"] = scoring(
+        dev, GROK, 18, SCORE_B, SCORE_S, probe=expert_loads,
+        flash_attention=L, fa_tensor_core=L)["launches"]
+    print(f"      phase 18 {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    L = DEPTH[VLM]
+    new["19 scoring"] = scoring(
+        dev, VLM, 19, SCORE_B, SCORE_S, grid=32, flash_attention=L,
+        fa_tensor_core=L)["launches"]
+    served = serving(dev, VLM, 19, prompt=PROMPT,
+                            flash_decode=L * (NEW_GEN - 1))
+    new["19 serving"] = served["launches"]
+    new["19 self-check"] = self_check(
+        dev, VLM, served, 19, flash_attention=L,
+        fa_tensor_core_tf32x3=L)["launches"]
+    del served
+    print(f"      phase 19 {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    hy = get_config(HYMBA)
+    L, glob = hy.n_layers, sum(w <= 0 for w in hy.windows())
+    new["20 scoring"] = scoring(
+        dev, HYMBA, 20, SCORE_B, HYMBA_S, probe=scan_share,
+        flash_attention=L, fa_tensor_core=L)["launches"]
+    served = serving(dev, HYMBA, 20, prompt=PROMPT,
+                            flash_decode=glob * (NEW_GEN - 1))
+    new["20 serving"] = served["launches"]
+    new["20 self-check"] = self_check(
+        dev, HYMBA, served, 20, flash_attention=L,
+        fa_tensor_core_tf32x3=L)["launches"]
+    del served
+    print(f"      phase 20 {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    # phase 21's CPU searches run in worker processes beside the card's
+    # work; they start after phase 20, whose host-bound walls they would
+    # otherwise slow
+    from concurrent.futures import ProcessPoolExecutor
+    import multiprocessing as mp
+    from repro_torch.configs import ARCH_NAMES
+    pool = ProcessPoolExecutor(max_workers=6,
+                               mp_context=mp.get_context("spawn"))
+    try:
+        cpu_jobs = {name: pool.submit(lm_search, name, "cpu")
+                    for name in ARCH_NAMES}
+        new.update(whisper_and_mapping(dev, cpu_jobs))
+    finally:
+        pool.shutdown(cancel_futures=True)
+    print(f"      phase 21 {time.perf_counter() - t0:.1f} s")
+    missing = sorted(USED - HELD, key=str)
+    check(not missing, f"the main path launched the attention kernels at "
+          f"{len(missing)} shapes that phase 8 did not hold against their "
+          f"plain versions: {missing}")
+    print(f"      the main path (phases 9-21) launched the attention kernels "
+          f"at {len(USED)} shapes (dtype, dims, causal/window; decode kv_len "
+          f"and plan), each held against its plain version in phase 8 "
+          f"({len(HELD)} held)")
+    new_n = lambda key: sum(n.get(key, 0) for n in new.values())
+    by_phase = lambda key: {p: n[key] for p, n in new.items() if n.get(key)}
     print(f"      total {time.perf_counter() - t_all:.1f} s")
 
     print(smi)
@@ -2013,7 +2537,8 @@ def main(argv=None) -> int:
          "source": f"{csrc}/fusion_eval.cu",
          "replaces": "src/repro/kernels/fusion_eval.py:57",
          "launches": gs_launches + dt_launches + loop_launches
-         + serve_launches + table_launches,
+         + serve_launches + table_launches + new_n("fusion_eval"),
+         "launches_new_phases": by_phase("fusion_eval"),
          "max_abs_err": max_err,
          "ms": fe_ms[(fe.Form.STATS, 36)][0], "plain_ms": fe_plain,
          "bound_ms": fe_ms[(fe.Form.STATS, 36)][1],
@@ -2025,18 +2550,24 @@ def main(argv=None) -> int:
         {"name": "flash_attention", "route": "cuda",
          "source": f"{csrc}/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:27",
-         "launches": fa_launches, **attn["flash_attention"]},
+         "launches": fa_launches + new_n("fa_tensor_core"),
+         "launches_new_phases": by_phase("fa_tensor_core"),
+         **attn["flash_attention"]},
         {"name": "flash_attention_f32", "route": "cuda",
          "source": f"{csrc}/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:27",
-         "launches": fwd["launches"]["flash_attention"],
+         "launches": fwd["launches"]["flash_attention"]
+         + new_n("fa_tensor_core_tf32x3"),
+         "launches_new_phases": by_phase("fa_tensor_core_tf32x3"),
          "forward_wall_s": fwd["wall_s"],
          "parent_forward_wall_s": fwd["parent_wall_s"],
          **attn["flash_attention_f32"]},
         {"name": "flash_decode", "route": "cuda",
          "source": f"{csrc}/flash_decode.cu",
          "replaces": "src/repro/kernels/flash_decode.py:24",
-         "launches": fd_launches, **attn["flash_decode"]},
+         "launches": fd_launches + new_n("flash_decode"),
+         "launches_new_phases": by_phase("flash_decode"),
+         **attn["flash_decode"]},
         {"name": "wkv6", "route": "cuda", "source": f"{csrc}/wkv6.cu",
          "replaces": "src/repro/kernels/rwkv6_scan.py:26",
          "launches": wkv_launches + wkv_served, **wkv}]}))

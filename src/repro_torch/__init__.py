@@ -17,10 +17,15 @@ Seq2Seq mapper; ``core/optimal`` with its f64 loop model
 strategy cache, drift detection and the refresh-and-swap loop),
 ``optim/`` (the hand-written AdamW and SGD and the learning-rate
 schedules), ``configs/`` (copies of the ten LM arch configs), ``nn/`` (dense,
-LayerNorm, RMSNorm, RoPE, GQA attention with windows, qk-norm, a KV cache
-and the ``impl`` dispatch to the kernels, the pre-norm block),
-``models/`` (the dense LM and the registry), ``launch/`` (greedy
-serving), ``kernels/`` (hand-written CUDA kernels under ``kernels/csrc/``
+LayerNorm, RMSNorm, RoPE and M-RoPE, GQA attention with windows, qk-norm,
+a KV cache, cross-attention and the ``impl`` dispatch to the kernels, the
+pre-norm block, the RWKV6 block, the mixture of experts, the selective SSM
+and the losses), ``models/`` (all six families -- the decoder-only LM for
+the dense, MoE and VLM-backbone configs, RWKV6, the Hymba hybrid and the
+Whisper-style encoder-decoder -- each with ``loss_fn``, and the registry
+with the input and decode-state specs), ``launch/`` (greedy serving and
+its command line), ``workloads/lm_workloads`` (the LMs as chains for the
+mapper), ``kernels/`` (hand-written CUDA kernels under ``kernels/csrc/``
 with their Python wrappers) and ``checkpoint/`` (a writer, a reader and
 a ``Checkpointer`` of the reference checkpoint format, byte-compatible
 with the reference's, through which weights cross packages).

@@ -58,30 +58,44 @@ def dt_params_from_reference(flat: dict[str, np.ndarray], *,
     return model.to(dev).eval()
 
 
+def _stacks(cfg: ArchConfig) -> dict[str, int]:
+    """The reference's stacked block groups of ``cfg``'s model and their
+    layer counts."""
+    if cfg.family == "encdec":
+        return {"enc_blocks": cfg.encoder_layers, "dec_blocks": cfg.n_layers}
+    return {"blocks": cfg.n_layers}
+
+
 def lm_params_from_reference(flat: dict[str, np.ndarray], cfg: ArchConfig,
                              *, device=None):
     """Build the port's LM for ``cfg``, in f32, from the reference LM's
-    parameters (``flat``, as :func:`load_reference` returns them).  The
-    model class is the ``MODEL`` of ``cfg``'s family in the registry
-    (``models.lm.LM``, or ``models.rwkv_lm.RWKVLM`` for ``rwkv6_3b``).  The
+    parameters (``flat``, as :func:`load_reference` returns them), for
+    every family.  The model class is the ``MODEL`` of ``cfg``'s family in
+    the registry (``models.lm.LM`` for the dense, MoE and VLM configs,
+    ``rwkv_lm.RWKVLM``, ``hymba.Hymba``, ``encdec.EncDec``).  The
     reference stacks each block leaf on a leading layer axis
-    (``blocks/attn/q/w`` is [L, d, Hq*hd]); it is split into the per-layer
-    ``blocks.<i>.attn.q.w``, and a nested leaf such as ``blocks/mu/r``
-    becomes ``blocks.<i>.mu.r``.  Raises on a missing, extra or misshapen
-    leaf."""
+    (``blocks/attn/q/w`` is [L, d, Hq*hd]; whisper has ``enc_blocks`` and
+    ``dec_blocks``); it is split into the per-layer
+    ``blocks.<i>.attn.q.w``, and a nested leaf such as
+    ``blocks/moe/router/w``, ``blocks/ssm/A_log`` or
+    ``dec_blocks/xattn/q/w`` becomes ``blocks.<i>.moe.router.w`` and so
+    on.  Raises on a missing, extra or misshapen leaf."""
     from ..models.registry import get_model
     model_cls = get_model(cfg).MODEL
     dev = resolve_device(device)
+    stacks = _stacks(cfg)
     state = {}
     for key, arr in flat.items():
         t = torch.as_tensor(np.asarray(arr, np.float32))
-        if key.startswith("blocks/"):
-            if t.dim() == 0 or t.shape[0] != cfg.n_layers:
+        group, _, rest = key.partition("/")
+        if group in stacks and rest:
+            L = stacks[group]
+            if t.dim() == 0 or t.shape[0] != L:
                 raise ValueError(f"{key}: leading axis {tuple(t.shape)[:1]} "
-                                 f"is not the {cfg.n_layers} layers")
-            rest = _port_name(key[len("blocks/"):])
-            for i in range(cfg.n_layers):
-                state[f"blocks.{i}.{rest}"] = t[i]
+                                 f"is not the {L} layers")
+            rest = _port_name(rest)
+            for i in range(L):
+                state[f"{group}.{i}.{rest}"] = t[i]
         else:
             state[_port_name(key)] = t
     model = model_cls(cfg, device="meta", dtype=torch.float32)

@@ -23,9 +23,16 @@
 // What the design does about it.
 // - One block per (split, kv-head, batch) serves all G q-heads of its
 //   kv-head, so each K/V row is read once and not G times (the Pallas grid
-//   is (B, Hq, splits)).  The wrapper sizes the splits to the card (about
-//   two blocks per SM), and only the ceil(kv_len / bk) splits that hold a
-//   visible key are launched: a split wholly past kv_len is never read,
+//   is (B, Hq, splits)).  G runs to 16 (qwen3_moe: 64 q-heads over 4
+//   kv-heads): the block is built twice, holding 8 or 16 heads' P V sums
+//   in registers, and a call takes the smallest build that covers its G,
+//   so G <= 8 runs the 8-head build as before.  The scores' rows are
+//   padded to 4, 8 or 16 heads; at 16 the wrapper halves the largest split
+//   and split count so the scores and the merge still fit shared memory.
+//   The wrapper sizes the splits to the card (about two blocks per SM, and
+//   larger where a long cache would need more splits than the merge
+//   stages), and only the ceil(kv_len / bk) splits that hold a visible key
+//   are launched: a split wholly past kv_len is never read,
 //   and inside the last split only the keys below kv_len are loaded, so
 //   the cache tail cannot reach the result.
 // - K and V stream through a 3-stage ring of shared-memory tiles of 16 KB
@@ -45,9 +52,11 @@
 //   finishes last merges the kv-head's G q-heads over all splits, in split
 //   order (so the result does not depend on which block was last), writes
 //   the output and resets the counter to 0.  It stages every split's m and
-//   l in shared memory first, so each output's sum over the splits waits
-//   on one stream of independent loads of o.  The counters live in the
-//   wrapper's per-stream workspace, zeroed once when it is made.
+//   l in shared memory first, then sums each of a thread's outputs over the
+//   splits in split order, all of its outputs a split at a time, so their
+//   loads of o are in flight together (at G 16 a thread merges 16
+//   outputs).  The counters live in the wrapper's per-stream workspace,
+//   zeroed once when it is made.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -58,7 +67,7 @@ namespace {
 
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxG = 8;          // q-heads per kv-head that a block serves
+constexpr int kMaxG = 16;         // q-heads per kv-head that a block serves
 constexpr int kStages = 3;        // ring depth
 constexpr int kTileBytes = 16384; // payload of one staged K or V tile
 constexpr int kPadChunks = 4;     // 16-byte chunks of padding per staged row
@@ -101,7 +110,9 @@ template <int N> __device__ __forceinline__ void cp_wait() {
   asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
 }
 
-template <typename T, int HD> struct Geo {
+// MG: the q-heads a block's registers hold, 8 or 16.  A call takes the
+// smallest that covers its G, so G <= 8 runs the 8-head build unchanged.
+template <typename T, int HD, int MG> struct Geo {
   static constexpr int VEC = 16 / (int)sizeof(T);   // elements a chunk
   static constexpr int NC = HD / VEC;               // chunks a row
   static constexpr int RS = NC + kPadChunks;        // staged row, chunks
@@ -112,20 +123,23 @@ template <typename T, int HD> struct Geo {
   static constexpr int kStageBytes = TK * RS * 16;
   static constexpr int kRingBytes = kStages * kStageBytes;
   static_assert(TK % 32 == 0 && NC % 4 == 0 && NC <= 32, "tile shape");
-  static_assert(kSets * kMaxG * HD * 4 <= kRingBytes, "P V sums alias");
+  // the warps' P V sums alias the ring and the q tile after it
+  static_assert((kSets - 1) * MG * HD * 4 <= kRingBytes, "P V sums alias");
 };
 
 // Shared memory past the ring: q [G][HD] f32, scores [bk][GP] f32, m and l
 // [kMaxG] f32, the "last block" flag.
-__host__ __device__ inline int gpad(int G) { return G <= 4 ? 4 : 8; }
+__host__ __device__ inline int gpad(int G) {
+  return G <= 4 ? 4 : G <= 8 ? 8 : 16;
+}
 
-template <typename T, int HD>
+template <typename T, int HD, int MG>
 size_t smem_bytes(int G, int bk) {
-  return (size_t)Geo<T, HD>::kRingBytes + (size_t)G * HD * 4 +
+  return (size_t)Geo<T, HD, MG>::kRingBytes + (size_t)G * HD * 4 +
          (size_t)bk * gpad(G) * 4 + 2 * kMaxG * 4 + 16;
 }
 
-template <typename T, int HD>
+template <typename T, int HD, int MG>
 __global__ void __launch_bounds__(kThreads)
 fd_kernel(const T* __restrict__ q, const T* __restrict__ k,
           const T* __restrict__ v, T* __restrict__ out,
@@ -134,7 +148,7 @@ fd_kernel(const T* __restrict__ q, const T* __restrict__ k,
           int G, int kv_len, int bk, int ns, long long qsb, long long qsh,
           long long ksb, long long kst, long long ksh, long long vsb,
           long long vst, long long vsh, float scale) {
-  using Gm = Geo<T, HD>;
+  using Gm = Geo<T, HD, MG>;
   constexpr int VEC = Gm::VEC, NC = Gm::NC, RS = Gm::RS, TK = Gm::TK;
   constexpr int KPW = Gm::KPW;
   extern __shared__ float4 smem4[];
@@ -187,9 +201,9 @@ fd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // P V accumulators of this lane: keys of sub-slot `sub` in each tile,
   // elements [c * VEC, c * VEC + VEC) of the row
   const int sub = lane / NC, pc = lane % NC;
-  float o[kMaxG][VEC];
+  float o[MG][VEC];
 #pragma unroll
-  for (int g = 0; g < kMaxG; ++g)
+  for (int g = 0; g < MG; ++g)
 #pragma unroll
     for (int e = 0; e < VEC; ++e) o[g][e] = 0.0f;
 
@@ -207,16 +221,16 @@ fd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int kk = 0; kk < TK / 32; ++kk) {
         const int j = kk * 32 + ks;
-        float acc[kMaxG];
+        float acc[MG];
 #pragma unroll
-        for (int g = 0; g < kMaxG; ++g) acc[g] = 0.0f;
+        for (int g = 0; g < MG; ++g) acc[g] = 0.0f;
 #pragma unroll
         for (int i = 0; i < Gm::CPL; ++i) {
           const int c = part + 4 * i;
           float kx[VEC];
           widen(tile[j * RS + c], kx);
 #pragma unroll
-          for (int g = 0; g < kMaxG; ++g) {
+          for (int g = 0; g < MG; ++g) {
             if (g >= G) break;
             const float4* q4 = reinterpret_cast<const float4*>(
                 sQ + g * HD + c * VEC);
@@ -231,7 +245,7 @@ fd_kernel(const T* __restrict__ q, const T* __restrict__ k,
           }
         }
 #pragma unroll
-        for (int g = 0; g < kMaxG; ++g) {
+        for (int g = 0; g < MG; ++g) {
           if (g >= G) break;
           acc[g] += __shfl_xor_sync(0xffffffffu, acc[g], 1);
           acc[g] += __shfl_xor_sync(0xffffffffu, acc[g], 2);
@@ -274,15 +288,16 @@ fd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       widen(tile[j * RS + pc], vx);
       const float4* p4 = reinterpret_cast<const float4*>(
           sS + (vt * TK + j) * GP);
-      float p[kMaxG] = {};
-      const float4 pa = p4[0];
-      p[0] = pa.x; p[1] = pa.y; p[2] = pa.z; p[3] = pa.w;
-      if (GP == 8) {
-        const float4 pb = p4[1];
-        p[4] = pb.x; p[5] = pb.y; p[6] = pb.z; p[7] = pb.w;
+      float p[MG] = {};
+#pragma unroll
+      for (int c = 0; c < MG / 4; ++c) {
+        if (4 * c >= GP) break;
+        const float4 pc4 = p4[c];
+        p[4 * c] = pc4.x; p[4 * c + 1] = pc4.y;
+        p[4 * c + 2] = pc4.z; p[4 * c + 3] = pc4.w;
       }
 #pragma unroll
-      for (int g = 0; g < kMaxG; ++g) {
+      for (int g = 0; g < MG; ++g) {
         if (g >= G) break;
 #pragma unroll
         for (int e = 0; e < VEC; ++e) o[g][e] = fmaf(p[g], vx[e], o[g][e]);
@@ -295,7 +310,7 @@ fd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* sO = reinterpret_cast<float*>(ring);    // [kSets][G][HD]
   const int set = warp * KPW + sub;
 #pragma unroll
-  for (int g = 0; g < kMaxG; ++g) {
+  for (int g = 0; g < MG; ++g) {
     if (g >= G) break;
 #pragma unroll
     for (int e = 0; e < VEC; ++e) sO[(set * G + g) * HD + pc * VEC + e] = o[g][e];
@@ -349,32 +364,45 @@ fd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     sDen[tid] = den;
   }
   __syncthreads();
-  for (int idx = tid; idx < G * HD; idx += kThreads) {
-    const int g = idx / HD, d = idx % HD;
-    const float* op = o_part + (base + (long long)g * ns) * HD + d;
-    const float* wg = sW + g * ns;
-    float acc = 0.0f;
-#pragma unroll 4
-    for (int s = 0; s < ns; ++s) acc += __ldcg(op + (long long)s * HD) * wg[s];
-    out[((long long)b * Hq + hk * G + g) * HD + d] =
-        from_f<T>(acc / fmaxf(sDen[g], 1e-30f));
+  // each output sums its splits in split order; a thread's outputs (idx
+  // = tid + j * kThreads) go a split at a time, so their loads of o are in
+  // flight together (at 16 heads a thread merges up to 16 outputs)
+  constexpr int kOut = MG * HD / kThreads;
+  float acc[kOut];
+#pragma unroll
+  for (int j = 0; j < kOut; ++j) acc[j] = 0.0f;
+  for (int s = 0; s < ns; ++s) {
+#pragma unroll
+    for (int j = 0; j < kOut; ++j) {
+      const int idx = tid + j * kThreads, g = idx / HD, d = idx % HD;
+      if (idx < G * HD)
+        acc[j] += __ldcg(o_part + (base + (long long)g * ns + s) * HD + d) *
+                  sW[g * ns + s];
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < kOut; ++j) {
+    const int idx = tid + j * kThreads, g = idx / HD, d = idx % HD;
+    if (idx < G * HD)
+      out[((long long)b * Hq + hk * G + g) * HD + d] =
+          from_f<T>(acc[j] / fmaxf(sDen[g], 1e-30f));
   }
 }
 
-template <typename T, int HD>
+template <typename T, int HD, int MG>
 int launch(const void* q, const void* k, const void* v, void* out,
            int* counters, float* part, int B, int Hq, int Hkv, int kv_len,
            int bk, int ns, const long long* st, int device,
            cudaStream_t stream) {
   static uint64_t attr_set = 0;           // per device, once
   const int G = Hq / Hkv;
-  const size_t smem = smem_bytes<T, HD>(G, bk);
-  if (smem > (size_t)kMaxSmem || device < 0 || device >= 64 ||
-      (size_t)(2 * ns + 1) * G * 4 > (size_t)Geo<T, HD>::kRingBytes)
+  const size_t smem = smem_bytes<T, HD, MG>(G, bk);
+  if (smem > (size_t)kMaxSmem || device < 0 || device >= 64 || G > MG ||
+      (size_t)(2 * ns + 1) * G * 4 > (size_t)Geo<T, HD, MG>::kRingBytes)
     return (int)cudaErrorInvalidValue;
   if (!(attr_set >> device & 1)) {
     const cudaError_t err = cudaFuncSetAttribute(
-        fd_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        fd_kernel<T, HD, MG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         kMaxSmem);
     if (err != cudaSuccess) return (int)err;
     attr_set |= 1ull << device;
@@ -383,7 +411,7 @@ int launch(const void* q, const void* k, const void* v, void* out,
   float* o_part = part;
   float* m_part = o_part + rows * HD;
   float* l_part = m_part + rows;
-  fd_kernel<T, HD><<<dim3(ns, Hkv, B), kThreads, smem, stream>>>(
+  fd_kernel<T, HD, MG><<<dim3(ns, Hkv, B), kThreads, smem, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (T*)out, o_part, m_part, l_part,
       counters, Hq, G, kv_len, bk, ns, st[0], st[1], st[2], st[3], st[4],
       st[5], st[6], st[7], 1.0f / sqrtf((float)HD));
@@ -430,19 +458,22 @@ int flash_decode_launch(const long long* a) {
   cudaStream_t s = (cudaStream_t)a[23];
   int* cnt = (int*)work;
   float* part = (float*)(cnt + ncnt);
+  const bool wide = Hq / Hkv > 8;        // the 16-head build
   int rc = (int)cudaErrorInvalidValue;
+#define FD_LAUNCH(T, HD)                                                     \
+  rc = wide ? launch<T, HD, 16>(q, k, v, out, cnt, part, B, Hq, Hkv, kv_len, \
+                                bk, ns, st, device, s)                       \
+            : launch<T, HD, 8>(q, k, v, out, cnt, part, B, Hq, Hkv, kv_len,  \
+                               bk, ns, st, device, s)
   if (dtype == 0 && hd == 64)
-    rc = launch<float, 64>(q, k, v, out, cnt, part, B, Hq, Hkv, kv_len, bk,
-                           ns, st, device, s);
+    FD_LAUNCH(float, 64);
   else if (dtype == 0 && hd == 128)
-    rc = launch<float, 128>(q, k, v, out, cnt, part, B, Hq, Hkv, kv_len, bk,
-                            ns, st, device, s);
+    FD_LAUNCH(float, 128);
   else if (dtype == 1 && hd == 64)
-    rc = launch<__nv_bfloat16, 64>(q, k, v, out, cnt, part, B, Hq, Hkv,
-                                   kv_len, bk, ns, st, device, s);
+    FD_LAUNCH(__nv_bfloat16, 64);
   else if (dtype == 1 && hd == 128)
-    rc = launch<__nv_bfloat16, 128>(q, k, v, out, cnt, part, B, Hq, Hkv,
-                                    kv_len, bk, ns, st, device, s);
+    FD_LAUNCH(__nv_bfloat16, 128);
+#undef FD_LAUNCH
   if (cur != device) cudaSetDevice(cur);
   return rc;
 }

@@ -6,8 +6,10 @@ block per (split of ``bk`` keys, kv-head, batch) serves the kv-head's G
 q-heads, streams the split's K and V through a ring of shared-memory tiles
 and emits f32 partials ``(o, m, l)``; the block that finishes a kv-head
 last merges its splits with the online-softmax combine, in split order, in
-the same launch.  The cache keeps the JAX layout ``[B, T, Hkv, hd]`` and
-is read through strides.
+the same launch.  A block serves up to MAX_GROUP = 16 q-heads a kv-head
+(the reference's grid runs one q-head a block and takes any G; the
+port's configs need at most 16, qwen3_moe_235b's 64 over 4).  The cache
+keeps the JAX layout ``[B, T, Hkv, hd]`` and is read through strides.
 
 The split plan (:func:`split_plan`).  As in the reference
 (``flash_decode.py:51-57``) the split size is clamped to the cache, ``bk =
@@ -16,8 +18,10 @@ min(bk, T)``, and a tail that is not a whole split is masked.  Only the
 split wholly past ``kv_len`` adds exactly zero, whatever the cache tail
 holds.  An explicit ``bk`` is honoured.  ``bk=None`` is sized to the card
 for CUDA tensors: the largest multiple of 64, at most the reference's 512,
-that gives at least two blocks per SM (``ns * Hkv * B >= 2 * SMs``); for
-CPU tensors, which have no SM count, it is the reference's 512.
+that gives at least two blocks per SM (``ns * Hkv * B >= 2 * SMs``),
+grown past 512 only where a long cache would otherwise need more splits
+than the kernel takes (:func:`limits`); for CPU tensors, which have no
+SM count, it is the reference's 512.
 :func:`plan` resolves it for given tensors, so the plain twin and the
 kernel cut the same splits.
 
@@ -46,11 +50,11 @@ from . import _build
 from .flash_attention import DTYPES, HEAD_DIMS, check_qkv
 
 __all__ = ["flash_decode", "flash_decode_plain", "split_plan", "plan",
-           "check_decode", "reset_launches", "STATS", "SOURCE", "MAX_GROUP", "BK",
-           "ALIGN"]
+           "check_decode", "limits", "reset_launches", "STATS", "SOURCE",
+           "MAX_GROUP", "BK", "ALIGN"]
 
 SOURCE = "flash_decode"           # csrc/flash_decode.cu
-MAX_GROUP = 8                     # q-heads per kv-head a block serves
+MAX_GROUP = 16                    # q-heads per kv-head a block serves
 BK = 512                          # the reference's split size
 BK_STEP = 64                      # the card plan's split sizes: multiples
 BLOCKS_PER_SM = 2                 # the card plan's target occupancy
@@ -62,6 +66,13 @@ MAX_BK = 4096
 # The merge stages m and l of every split of a kv-head in the ring (54 KB
 # at least): 2 x 512 splits x 8 heads x 4 bytes fit.
 MAX_SPLITS = 512
+
+
+def limits(G: int) -> tuple[int, int]:
+    """``(largest bk, most splits)`` the kernel takes at G q-heads per
+    kv-head: MAX_BK and MAX_SPLITS up to 8 heads, half of each at 9-16,
+    whose score rows and merge stage hold twice the heads."""
+    return (MAX_BK, MAX_SPLITS) if G <= 8 else (MAX_BK // 2, MAX_SPLITS // 2)
 
 
 class _Stats:
@@ -89,7 +100,7 @@ def _lib() -> ctypes.CDLL:
 
 @functools.lru_cache(maxsize=4096)
 def _plan(T: int, kv_len: int, bk: int | None, sms: int | None,
-          rows: int) -> tuple[int, int]:
+          rows: int, group: int) -> tuple[int, int]:
     if not 1 <= kv_len <= T:
         raise ValueError(f"flash_decode: kv_len {kv_len} outside [1, {T}]")
     if bk is None and sms is None:
@@ -98,19 +109,28 @@ def _plan(T: int, kv_len: int, bk: int | None, sms: int | None,
         bk = next((c for c in range(BK, BK_STEP - 1, -BK_STEP)
                    if -(-kv_len // c) * rows >= BLOCKS_PER_SM * sms),
                   BK_STEP)
+        # a cache too long for the kernel's split count at this bk: the
+        # least multiple of 64 that brings it within (past limits(group)'s
+        # largest split the launch raises)
+        least = -(-kv_len // limits(group)[1])
+        bk = max(bk, -(-least // BK_STEP) * BK_STEP)
     bk = max(1, min(bk, T))
     return bk, -(-kv_len // bk)
 
 
 def split_plan(T: int, kv_len: int, bk: int | None = BK, *,
-               sms: int | None = None, rows: int = 1) -> tuple[int, int]:
+               sms: int | None = None, rows: int = 1,
+               group: int = 1) -> tuple[int, int]:
     """``(bk, ns)``: the split size clamped to the cache and the number of
     splits that hold a visible key.  With ``bk=None`` and ``sms`` (the
     card's SM count), ``bk`` is the largest multiple of 64 up to 512 with
     ``ns * rows >= 2 * sms``, ``rows`` being the blocks a split spans
-    (``Hkv * B``), else 64; with neither, 512.  Raises unless ``1 <=
-    kv_len <= T``."""
-    return _plan(int(T), int(kv_len), bk, sms, int(rows))
+    (``Hkv * B``), else 64; and where that leaves more splits than the
+    kernel takes at ``group`` q-heads a kv-head (:func:`limits`), the
+    least multiple of 64 that does not.  With neither, 512 (the
+    reference's, for the plain twin on the CPU, which takes any split
+    count).  Raises unless ``1 <= kv_len <= T``."""
+    return _plan(int(T), int(kv_len), bk, sms, int(rows), int(group))
 
 
 def plan(q, k, kv_len: int, bk: int | None = None) -> tuple[int, int]:
@@ -120,7 +140,8 @@ def plan(q, k, kv_len: int, bk: int | None = None) -> tuple[int, int]:
     tensors."""
     sms = _build.sm_count(q.get_device()) if bk is None and q.is_cuda \
         else None
-    return _plan(k.shape[1], int(kv_len), bk, sms, k.shape[2] * q.shape[0])
+    return _plan(k.shape[1], int(kv_len), bk, sms, k.shape[2] * q.shape[0],
+                 q.shape[2] // max(k.shape[2], 1))
 
 
 def flash_decode_plain(q, k, v, kv_len: int, *, bk: int | None = None):
@@ -205,10 +226,12 @@ def _launch(q, k, v, kv_len: int, bk: int | None) -> torch.Tensor:
     (B, _, Hq, hd), (_, T, Hkv, _), qst, kst, vst = check_decode(q, k, v)
     index = q.get_device()
     bk, ns = plan(q, k, kv_len, bk)
-    if bk > MAX_BK or ns > MAX_SPLITS:
-        raise ValueError(f"flash_decode: bk {bk} above {MAX_BK} or {ns} "
-                         f"splits above {MAX_SPLITS}, the kernel's shared "
-                         f"memory for a split's scores or the merge")
+    max_bk, max_ns = limits(Hq // Hkv)
+    if bk > max_bk or ns > max_ns:
+        raise ValueError(f"flash_decode: bk {bk} above {max_bk} or {ns} "
+                         f"splits above {max_ns} at {Hq // Hkv} q-heads a "
+                         f"kv-head, the kernel's shared memory for a "
+                         f"split's scores or the merge")
     out = q.new_empty((B, 1, Hq * hd))
     if B == 0:
         return out

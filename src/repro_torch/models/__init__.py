@@ -1,6 +1,9 @@
-"""LM substrate models of the port (port of ``repro.models``): the dense
-decoder-only LM, the RWKV6 LM and the registry."""
-from . import lm, rwkv_lm
-from .registry import get_model
+"""LM substrate models of the port (port of ``repro.models``): the
+decoder-only LM (dense, MoE, VLM backbone), the RWKV6 LM, the Hymba hybrid,
+the Whisper-style encoder-decoder and the registry."""
+from . import encdec, hymba, lm, rwkv_lm
+from .registry import (decode_cache_len, decode_state_specs, get_model,
+                       input_specs)
 
-__all__ = ["lm", "rwkv_lm", "get_model"]
+__all__ = ["lm", "rwkv_lm", "hymba", "encdec", "get_model", "input_specs",
+           "decode_state_specs", "decode_cache_len"]

@@ -1,26 +1,34 @@
-"""Decoder-only LM for the dense family (port of ``repro.models.lm``).
+"""Generic decoder-only LM for the dense, MoE and VLM-backbone families
+(port of ``repro.models.lm``).
 
 One pre-norm block per layer, run by a Python loop (the reference scans
 over stacked parameters): GQA (+ qk-norm, QKV bias), per-layer sliding
-windows, a SwiGLU MLP, standard RoPE, tied or untied embeddings.  The
-model is an ``nn.Module`` whose parameter names follow the reference's
-pytree paths with the layer index spelled out (``blocks.3.attn.q.w`` for
-row 3 of ``blocks/attn/q/w``).
+windows, a SwiGLU MLP or a top-k mixture of experts (``nn.moe``: qwen3_moe,
+grok1), standard RoPE or Qwen2-VL's M-RoPE, tied or untied embeddings, and
+the stubbed modality frontend of ``embed_inputs`` configs: the batch
+carries precomputed embeddings ``batch["embeds"]`` [B, S, d], taken as
+they are (no ``sqrt(d)`` scale, which only token embeddings get), and
+optionally the M-RoPE position grid ``batch["pos_thw"]`` [3, B, S]
+(temporal, height, width ids; text-only batches leave it out and all three
+ids are the token positions).  The model is an ``nn.Module`` whose
+parameter names follow the reference's pytree paths with the layer index
+spelled out (``blocks.3.attn.q.w`` for row 3 of ``blocks/attn/q/w``,
+``blocks.3.moe.gate`` for ``blocks/moe/gate``).
 
 Entry points: :func:`init`, :func:`forward` (teacher-forced logits),
-:func:`init_decode_state`, :func:`prefill` (fill the KV caches from a
-prompt) and :func:`decode_step` (one token).  ``impl="kernel"`` (the
-default) sends each layer's uncached attention to ``flash_attention`` and
-each single-token decode to ``flash_decode``; ``impl="dense"`` is the
-reference's ``impl="xla"`` (see ``nn.attention``).  The kernels take q,
-k and v of one type, so on the card ``impl="kernel"`` decodes need the
-cache in the parameters' type (the defaults, bf16 and bf16, agree).  The
-decode state is
-``{"k", "v": [L, B, T, Hkv, hd], "idx": int}``, written in place; its
-write index is a Python int, so a decode step makes no host sync.
-
-MoE layers, M-RoPE and precomputed input embeddings raise
-``NotImplementedError``; ``loss_fn`` waits for the training slice.
+:func:`forward_aux` (the logits and the MoE layers' summed Switch aux loss,
+the reference ``forward``'s two outputs), :func:`loss_fn` (next-token CE
+through the chunked ``fused_linear_ce``, plus ``aux_weight * aux /
+n_layers``; differentiable), :func:`init_decode_state`, :func:`prefill`
+(fill the KV caches from a prompt) and :func:`decode_step` (one token, or
+one embedding).  ``impl="kernel"`` (the default) sends each layer's
+uncached attention to ``flash_attention`` and each single-token decode to
+``flash_decode``; ``impl="dense"`` is the reference's ``impl="xla"`` (see
+``nn.attention``).  The kernels take q, k and v of one type, so on the
+card ``impl="kernel"`` decodes need the cache in the parameters' type (the
+defaults, bf16 and bf16, agree).  The decode state is ``{"k", "v": [L, B,
+T, Hkv, hd], "idx": int}``, written in place; its write index is a Python
+int, so a decode step makes no host sync.
 """
 from __future__ import annotations
 
@@ -31,39 +39,60 @@ from torch import nn
 
 from .. import resolve_device
 from ..configs import ArchConfig
-from ..nn import Block, Dense, Embedding, make_norm, rope_freqs
+from ..nn import (MHA, Block, Dense, Embedding, MoE, fused_linear_ce,
+                  make_norm, moe_apply, mrope_freqs, rope_freqs)
 
-__all__ = ["LM", "MODEL", "init", "forward", "init_decode_state", "prefill",
-           "decode_step"]
+__all__ = ["LM", "MoEBlock", "MODEL", "init", "forward", "forward_aux",
+           "loss_fn", "init_decode_state", "prefill", "decode_step"]
 
 
-def _check_supported(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` for what this slice does not port."""
-    if cfg.n_experts:
-        raise NotImplementedError(f"{cfg.name}: MoE layers come with the "
-                                  "MoE slice of the port")
-    if cfg.mrope_sections is not None or cfg.embed_inputs:
-        raise NotImplementedError(f"{cfg.name}: M-RoPE and precomputed "
-                                  "input embeddings come with the VLM "
-                                  "slice of the port")
+class MoEBlock(nn.Module):
+    """``x + attn(norm1(x))``, then ``+ moe(norm2(x))``; returns the
+    layer's aux loss beside ``(x, cache)``."""
+
+    def __init__(self, cfg: ArchConfig, *, generator=None, device=None,
+                 dtype=torch.float32):
+        super().__init__()
+        kw = dict(generator=generator, device=device, dtype=dtype)
+        self.top_k, self.capacity_factor = cfg.moe_top_k, cfg.capacity_factor
+        self.ln1 = make_norm(cfg.norm, cfg.d_model, device=device,
+                             dtype=dtype)
+        self.attn = MHA(cfg.d_model, n_heads=cfg.n_heads, head_dim=cfg.hd,
+                        kv_heads=cfg.kv_heads, qkv_bias=cfg.qkv_bias,
+                        qk_norm=cfg.qk_norm, **kw)
+        self.ln2 = make_norm(cfg.norm, cfg.d_model, device=device,
+                             dtype=dtype)
+        self.moe = MoE(cfg.d_model, cfg.d_ff, cfg.n_experts, **kw)
+
+    def forward(self, x, *, cos=None, sin=None, window: int = -1,
+                cache=None, impl: str = "dense"):
+        h, cache = self.attn(self.ln1(x), cos=cos, sin=sin, window=window,
+                             cache=cache, impl=impl)
+        x = x + h
+        h, aux = moe_apply(self.moe, self.ln2(x), top_k=self.top_k,
+                           capacity_factor=self.capacity_factor)
+        return x + h, cache, aux
 
 
 class LM(nn.Module):
-    """The dense LM; ``cfg`` fixes its shapes."""
+    """The decoder-only LM; ``cfg`` fixes its shapes."""
 
     def __init__(self, cfg: ArchConfig, *, generator=None, device=None,
                  dtype=torch.bfloat16):
         super().__init__()
-        _check_supported(cfg)
         self.cfg = cfg
         kw = dict(generator=generator, device=device, dtype=dtype)
         self.embed = Embedding(cfg.vocab_padded, cfg.d_model, **kw)
-        self.blocks = nn.ModuleList(
-            Block(cfg.d_model, n_heads=cfg.n_heads, head_dim=cfg.hd,
-                  d_ff=cfg.d_ff, kv_heads=cfg.kv_heads,
-                  mlp_kind=cfg.mlp_kind, norm=cfg.norm,
-                  qkv_bias=cfg.qkv_bias, qk_norm=cfg.qk_norm, **kw)
-            for _ in range(cfg.n_layers))
+        if cfg.n_experts:
+            blocks = (MoEBlock(cfg, **kw) for _ in range(cfg.n_layers))
+        else:
+            blocks = (Block(cfg.d_model, n_heads=cfg.n_heads,
+                            head_dim=cfg.hd, d_ff=cfg.d_ff,
+                            kv_heads=cfg.kv_heads, mlp_kind=cfg.mlp_kind,
+                            norm=cfg.norm, qkv_bias=cfg.qkv_bias,
+                            qk_norm=cfg.qk_norm, **kw)
+                      for _ in range(cfg.n_layers))
+        self.blocks = nn.ModuleList(blocks)
         self.ln_f = make_norm(cfg.norm, cfg.d_model, device=device,
                               dtype=dtype)
         self.head = (None if cfg.tie_embeddings else
@@ -88,30 +117,57 @@ def init(cfg: ArchConfig, *, seed: int = 0, dtype=torch.bfloat16,
         return LM(cfg, generator=gen, device=dev, dtype=dtype).eval()
 
 
-def _embed(model: LM, ids: torch.Tensor) -> torch.Tensor:
-    """Embedding rows times sqrt(d_model), rounded to f32 and then to the
-    activation type as the reference rounds it; a 0-d CPU tensor is a
-    kernel argument, not a copy to the device."""
-    x = model.embed(ids)
+def _inputs(model: LM, batch: dict) -> torch.Tensor:
+    """The first layer's input [B, S, d]: the batch's embeddings for an
+    ``embed_inputs`` config, else the token embeddings times sqrt(d_model),
+    rounded to f32 and then to the activation type as the reference rounds
+    it (a 0-d CPU tensor is a kernel argument, not a copy to the device)."""
+    if model.cfg.embed_inputs:
+        return batch["embeds"]
+    x = model.embed(batch["tokens"])
     scale = torch.tensor(math.sqrt(model.cfg.d_model), dtype=torch.float32)
     return x * scale.to(x.dtype)
 
 
-def _run(model: LM, x, positions, *, caches=None, impl: str):
-    """The block stack over x [B,S,d]; ``positions`` [S] are the tokens'
-    global positions; ``caches`` the decode state, written in place."""
+def _rope_tables(cfg: ArchConfig, batch: dict, positions: torch.Tensor):
+    """cos/sin [S, hd/2] (or [B, S, hd/2] from a ``pos_thw`` grid) for the
+    global ``positions`` [S]; M-RoPE when the config has sections."""
+    if cfg.mrope_sections is None:
+        return rope_freqs(positions, cfg.hd, cfg.rope_theta)
+    pos_thw = batch.get("pos_thw")
+    if pos_thw is None:                   # text only: the three ids agree
+        pos_thw = positions.expand(3, positions.shape[0])
+    return mrope_freqs(pos_thw, cfg.hd, cfg.mrope_sections, cfg.rope_theta)
+
+
+def _run(model: LM, x, cos, sin, *, caches=None, impl: str):
+    """The block stack over x [B,S,d] -> (x, summed MoE aux loss, f32);
+    ``caches`` the decode state, written in place."""
     cfg = model.cfg
-    cos, sin = rope_freqs(positions, cfg.hd, cfg.rope_theta)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, (blk, window) in enumerate(zip(model.blocks, cfg.windows())):
         cache = None
         if caches is not None:
             cache = {"k": caches["k"][i], "v": caches["v"][i],
                      "idx": caches["idx"]}
-        x, _ = blk(x, cos=cos, sin=sin, window=window, cache=cache,
-                   impl=impl)
+        if cfg.n_experts:
+            x, _, aux_l = blk(x, cos=cos, sin=sin, window=window,
+                              cache=cache, impl=impl)
+            aux = aux + aux_l
+        else:
+            x, _ = blk(x, cos=cos, sin=sin, window=window, cache=cache,
+                       impl=impl)
     if caches is not None:
         caches["idx"] += x.shape[1]
-    return x
+    return x, aux
+
+
+def _hidden(model: LM, batch: dict, impl: str):
+    """Final hidden states before ``ln_f`` [B,S,d] and the aux loss."""
+    x = _inputs(model, batch)
+    positions = torch.arange(x.shape[1], device=x.device)
+    cos, sin = _rope_tables(model.cfg, batch, positions)
+    return _run(model, x, cos, sin, impl=impl)
 
 
 def _logits(model: LM, x: torch.Tensor) -> torch.Tensor:
@@ -119,13 +175,27 @@ def _logits(model: LM, x: torch.Tensor) -> torch.Tensor:
 
 
 @torch.no_grad()
+def forward_aux(model: LM, batch: dict, *, impl: str = "kernel"):
+    """``(logits [B, S, vocab_padded], aux)``: the reference ``forward``'s
+    outputs, ``aux`` the MoE layers' summed load-balancing loss (0 for a
+    dense config)."""
+    x, aux = _hidden(model, batch, impl)
+    return _logits(model, x), aux
+
+
 def forward(model: LM, batch: dict, *, impl: str = "kernel") -> torch.Tensor:
     """Teacher-forced logits [B, S, vocab_padded] for ``batch["tokens"]``
-    [B, S]."""
-    ids = batch["tokens"]
-    x = _embed(model, ids)
-    positions = torch.arange(ids.shape[1], device=ids.device)
-    return _logits(model, _run(model, x, positions, impl=impl))
+    [B, S] (or ``batch["embeds"]`` [B, S, d])."""
+    return forward_aux(model, batch, impl=impl)[0]
+
+
+def loss_fn(model: LM, batch: dict, *, impl: str = "kernel",
+            aux_weight: float = 0.01) -> torch.Tensor:
+    """Mean next-token CE against ``batch["labels"]`` [B, S] plus
+    ``aux_weight * aux / n_layers``, with gradients."""
+    x, aux = _hidden(model, batch, impl)
+    ce = fused_linear_ce(model.ln_f(x), model.head_w(), batch["labels"])
+    return ce + aux_weight * aux / max(model.cfg.n_layers, 1)
 
 
 def init_decode_state(cfg: ArchConfig, batch: int, max_len: int, *,
@@ -142,24 +212,27 @@ def init_decode_state(cfg: ArchConfig, batch: int, max_len: int, *,
 @torch.no_grad()
 def prefill(model: LM, batch: dict, max_len: int, *, impl: str = "kernel",
             cache_dtype=torch.bfloat16):
-    """Process the prompt ``batch["tokens"]`` [B, S]: ``(logits of the last
-    token [B, 1, vocab_padded], filled decode state)``."""
-    ids = batch["tokens"]
-    B, S = ids.shape
+    """Process the prompt (``batch["tokens"]`` [B, S] or ``"embeds"``):
+    ``(logits of the last position [B, 1, vocab_padded], filled decode
+    state)``."""
+    x = _inputs(model, batch)
+    B, S = x.shape[:2]
     state = init_decode_state(model.cfg, B, max_len, dtype=cache_dtype,
-                              device=ids.device)
-    x = _run(model, _embed(model, ids), torch.arange(S, device=ids.device),
-             caches=state, impl=impl)
+                              device=x.device)
+    cos, sin = _rope_tables(model.cfg, batch,
+                            torch.arange(S, device=x.device))
+    x, _ = _run(model, x, cos, sin, caches=state, impl=impl)
     return _logits(model, x[:, -1:]), state
 
 
 @torch.no_grad()
 def decode_step(model: LM, state: dict, batch: dict, *,
                 impl: str = "kernel"):
-    """One decode step for ``batch["tokens"]`` [B, 1] at position
-    ``state["idx"]``: ``(logits [B, 1, vocab_padded], state)``; the state is
-    updated in place."""
-    ids = batch["tokens"]
-    pos = torch.arange(ids.shape[1], device=ids.device) + state["idx"]
-    x = _run(model, _embed(model, ids), pos, caches=state, impl=impl)
+    """One decode step for ``batch["tokens"]`` [B, 1] (or ``"embeds"`` [B,
+    1, d]) at position ``state["idx"]``: ``(logits [B, 1, vocab_padded],
+    state)``; the state is updated in place."""
+    x = _inputs(model, batch)
+    pos = torch.arange(x.shape[1], device=x.device) + state["idx"]
+    cos, sin = _rope_tables(model.cfg, batch, pos)
+    x, _ = _run(model, x, cos, sin, caches=state, impl=impl)
     return _logits(model, x), state

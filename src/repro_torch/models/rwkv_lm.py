@@ -8,14 +8,14 @@ reference's pytree paths with the layer index spelled out
 (``blocks.3.mu.r`` for row 3 of ``blocks/mu/r``).
 
 Entry points, with the signatures of ``models.lm``: :func:`init`,
-:func:`forward` (teacher-forced logits), :func:`init_decode_state`,
-:func:`prefill` and :func:`decode_step`.  ``impl="kernel"`` (the default)
+:func:`forward` (teacher-forced logits), :func:`loss_fn` (next-token CE
+through the chunked ``fused_linear_ce``; differentiable),
+:func:`init_decode_state`, :func:`prefill` and :func:`decode_step`.  ``impl="kernel"`` (the default)
 sends each layer's time mix to the ``wkv6`` kernel, a decode step's
 single token included; ``impl="dense"`` is the reference's ``impl="xla"``
 (the chunked form, and the sequential step for a single token).
 The decode state is ``{"s": [L,B,H,n,n] f32, "x_tm", "xc_tm": [L,B,d]}``
 in the cache type, O(1) in ``max_len``, and written in place.
-``loss_fn`` waits for the training slice.
 """
 from __future__ import annotations
 
@@ -24,11 +24,11 @@ from torch import nn
 
 from .. import resolve_device
 from ..configs import ArchConfig
-from ..nn import Dense, Embedding, LayerNorm, RWKVBlock
+from ..nn import Dense, Embedding, LayerNorm, RWKVBlock, fused_linear_ce
 from ..nn.rwkv import rwkv_init_state
 
-__all__ = ["RWKVLM", "MODEL", "init", "forward", "init_decode_state",
-           "prefill", "decode_step"]
+__all__ = ["RWKVLM", "MODEL", "init", "forward", "loss_fn",
+           "init_decode_state", "prefill", "decode_step"]
 
 
 class RWKVLM(nn.Module):
@@ -86,6 +86,14 @@ def forward(model: RWKVLM, batch: dict, *,
     [B, S]."""
     return _logits(model, _run(model, model.embed(batch["tokens"]),
                                impl=impl))
+
+
+def loss_fn(model: RWKVLM, batch: dict, *, impl: str = "kernel",
+            aux_weight: float = 0.0) -> torch.Tensor:
+    """Mean next-token CE against ``batch["labels"]``, with gradients
+    (``aux_weight`` unused, as in the reference)."""
+    x = _run(model, model.embed(batch["tokens"]), impl=impl)
+    return fused_linear_ce(model.ln_f(x), model.head.w, batch["labels"])
 
 
 def init_decode_state(cfg: ArchConfig, batch: int, max_len: int, *,

@@ -10,7 +10,10 @@ Port of ``repro.nn.attention``:
 - optional qk-norm (qwen3: RMSNorm of each head's q and k, before RoPE)
   and QKV bias (qwen1.5);
 - a KV cache written in place at one write index ``idx`` shared by every
-  row.  ``idx`` is a Python int, so a decode step makes no host sync.
+  row.  ``idx`` is a Python int, so a decode step makes no host sync;
+- cross-attention (whisper): with ``xkv`` (the encoder memory) K and V
+  come from it on every call, with no rope, no cache append and no causal
+  mask, as in the reference.
 
 ``impl`` selects the math, as the reference's ``impl`` does:
 
@@ -23,9 +26,10 @@ Port of ``repro.nn.attention``:
   goes to ``kernels.flash_attention``; a single causal token over a cache
   with the full window (``-1``) goes to ``kernels.flash_decode`` with
   ``min(kv_len, q_offset + 1)`` visible keys; anything else (a multi-token
-  cache append, such as a prefill) takes the dense or chunked math.
-
-Cross-attention (whisper) waits for the encoder-decoder slice.
+  cache append, such as a prefill, or a windowed single-token decode)
+  takes the dense or chunked math.  Uncached cross-attention is a full
+  sequence, so it goes to ``flash_attention`` with ``causal=False``, a
+  decode step's single query included.
 """
 from __future__ import annotations
 
@@ -105,16 +109,24 @@ class MHA(nn.Module):
 
     def forward(self, x: torch.Tensor, *, cos=None, sin=None,
                 causal: bool = True, window: int = -1,
+                xkv: torch.Tensor | None = None,
                 cache: dict | None = None, impl: str = "dense"):
         """Returns ``(out, cache)``; with ``cache``, ``x`` holds the new
-        tokens, which are written at ``cache["idx"]``."""
+        tokens, which are written at ``cache["idx"]``.  With ``xkv`` [B,
+        T, d] the layer cross-attends to it (no rope, no cache, not
+        causal)."""
         B, S, _ = x.shape
         Hq, Hkv, hd = self.n_heads, self.kv_heads, self.head_dim
+        src = x if xkv is None else xkv
+        T = src.shape[1]
         q = self.q(x).reshape(B, S, Hq, hd)
-        k = self.k(x).reshape(B, S, Hkv, hd)
-        v = self.v(x).reshape(B, S, Hkv, hd)
+        k = self.k(src).reshape(B, T, Hkv, hd)
+        v = self.v(src).reshape(B, T, Hkv, hd)
         if self.qn is not None:
             q, k = self.qn(q), self.kn(k)
+        if xkv is not None:
+            out = attend(q, k, v, causal=False, window=window, impl=impl)
+            return self.o(out), cache
         if cos is not None:
             q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
         q_offset, kv_len = 0, None

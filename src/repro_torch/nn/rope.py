@@ -2,14 +2,16 @@
 
 The half-split rotation: the first and second halves of the head dim are
 the two coordinates of each rotated pair (not interleaved), computed in
-f32 and cast back.  Qwen2-VL's M-RoPE (``mrope_freqs``) waits for the VLM
-slice.
+f32 and cast back.  Qwen2-VL's M-RoPE (arXiv:2409.12191, ``mrope_freqs``)
+splits the half head dim into three sections rotated by the temporal,
+height and width position ids; for text all three ids coincide, and the
+tables equal ``rope_freqs``'.
 """
 from __future__ import annotations
 
 import torch
 
-__all__ = ["rope_freqs", "apply_rope"]
+__all__ = ["rope_freqs", "apply_rope", "mrope_freqs"]
 
 
 def rope_freqs(positions: torch.Tensor, head_dim: int,
@@ -19,6 +21,25 @@ def rope_freqs(positions: torch.Tensor, head_dim: int,
     inv = 1.0 / (theta ** (torch.arange(half, dtype=torch.float32,
                                         device=positions.device) / half))
     ang = positions.to(torch.float32)[..., None] * inv
+    return torch.cos(ang), torch.sin(ang)
+
+
+def mrope_freqs(pos_thw: torch.Tensor, head_dim: int,
+                sections: tuple[int, int, int], theta: float = 10000.0):
+    """M-RoPE cos/sin [..., seq, head_dim/2] (f32) from ``pos_thw`` [3,
+    ..., seq] (temporal, height, width ids): frequency ``j`` of the half
+    head dim takes the ids of the section it falls in (``sections`` sum to
+    ``head_dim // 2``)."""
+    half = head_dim // 2
+    if sum(sections) != half:
+        raise ValueError(f"M-RoPE sections {sections} do not sum to {half}")
+    inv = 1.0 / (theta ** (torch.arange(half, dtype=torch.float32,
+                                        device=pos_thw.device) / half))
+    sec = torch.repeat_interleave(
+        torch.arange(3, device=pos_thw.device),
+        torch.as_tensor(sections, device=pos_thw.device))
+    pos = pos_thw.to(torch.float32).movedim(0, -1)          # [..., seq, 3]
+    ang = pos[..., sec] * inv                                # [..., seq, half]
     return torch.cos(ang), torch.sin(ang)
 
 

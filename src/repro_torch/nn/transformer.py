@@ -3,7 +3,9 @@
 The MLP is SwiGLU (``down(silu(gate(x)) * up(x))``, no biases) or GELU
 (``down(gelu(up(x)))`` with biases).  ``jax.nn.gelu`` is the tanh
 approximation, so the GELU MLP uses ``F.gelu(..., approximate="tanh")``.
-The norm is RMSNorm or LayerNorm.  The reference's scanned stack becomes a
+The norm is RMSNorm or LayerNorm.  A block built with ``cross_attn``
+(whisper's decoder) adds ``lnx`` and ``xattn``, attending to the encoder
+memory after the self-attention.  The reference's scanned stack becomes a
 Python loop over per-layer blocks in the models that use them.
 """
 from __future__ import annotations
@@ -51,13 +53,15 @@ class MLP(nn.Module):
 
 
 class Block(nn.Module):
-    """``x + attn(norm1(x))``, then ``+ mlp(norm2(x))``."""
+    """``x + attn(norm1(x))``, with ``cross_attn`` then ``+
+    xattn(normx(x), memory)``, then ``+ mlp(norm2(x))``."""
 
     def __init__(self, d_model: int, *, n_heads: int, head_dim: int,
                  d_ff: int, kv_heads: int | None = None,
                  mlp_kind: str = "swiglu", norm: str = "rms",
                  qkv_bias: bool = False, qk_norm: bool = False,
-                 generator=None, device=None, dtype=torch.float32):
+                 cross_attn: bool = False, generator=None, device=None,
+                 dtype=torch.float32):
         super().__init__()
         kw = dict(generator=generator, device=device, dtype=dtype)
         self.ln1 = make_norm(norm, d_model, device=device, dtype=dtype)
@@ -66,13 +70,22 @@ class Block(nn.Module):
                         qk_norm=qk_norm, **kw)
         self.ln2 = make_norm(norm, d_model, device=device, dtype=dtype)
         self.mlp = MLP(d_model, d_ff, kind=mlp_kind, **kw)
+        if cross_attn:
+            self.lnx = make_norm(norm, d_model, device=device, dtype=dtype)
+            self.xattn = MHA(d_model, n_heads=n_heads, head_dim=head_dim,
+                             kv_heads=kv_heads, **kw)
 
     def forward(self, x: torch.Tensor, *, cos=None, sin=None,
-                window: int = -1, cache: dict | None = None,
-                impl: str = "dense"):
-        """Returns ``(x, cache)``."""
-        h, cache = self.attn(self.ln1(x), cos=cos, sin=sin, window=window,
-                             cache=cache, impl=impl)
+                causal: bool = True, window: int = -1,
+                memory: torch.Tensor | None = None,
+                cache: dict | None = None, impl: str = "dense"):
+        """Returns ``(x, cache)``; ``memory`` [B, T, d] feeds the
+        cross-attention."""
+        h, cache = self.attn(self.ln1(x), cos=cos, sin=sin, causal=causal,
+                             window=window, cache=cache, impl=impl)
         x = x + h
+        if memory is not None:
+            h, _ = self.xattn(self.lnx(x), xkv=memory, impl=impl)
+            x = x + h
         x = x + self.mlp(self.ln2(x))
         return x, cache

@@ -2,7 +2,7 @@
 
     PYTHONPATH=src python -m repro_torch.profile_main_path [--out DIR]
         [--only gsampler,dt_one_shot,corpus,train_step,serving,qwen3_8b,
-                rwkv6_3b]
+                rwkv6_3b,qwen3_moe_235b,hymba_15b]
 
 Slice 1: answers the smoke grid (6 CNNs x 5 parts x 4 budgets, batch 64,
 nmax 64) with the G-Sampler (paper config) and with the DT one-shot
@@ -19,7 +19,10 @@ freshly warmed engine, so its cache starts empty).  Slices 2
 and 3: qwen3_8b and rwkv6_3b at full width and depth (seeded random
 weights) each score 2 x 4096 tokens in bf16 (``forward``), and, in f32
 after a 1024-token prefill of batch 4, run 8 greedy decode steps
-(``decode_step``).  Each phase
+(``decode_step``); slice 11 adds qwen3_moe_235b at full width, 4 of its
+94 layers (the same phases), and hymba_15b at full width and depth
+(scoring 2 x 512 tokens: its SSM scan is a Python loop over positions,
+whose trace grows with them).  Each phase
 runs once to warm up, once timed without the profiler and once under
 ``torch.profiler``.  ``--only`` runs the named phases alone, so that one
 mapper's wall can be compared between two trees in fresh processes.
@@ -33,6 +36,7 @@ Chrome traces go to ``DIR`` (see ``--help`` for the default).
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import pathlib
 import time
@@ -47,7 +51,7 @@ from .core import model as dtm, train
 from .serving import MapRequest
 from .kernels import flash_attention as fa, flash_decode as fd
 from .kernels import fusion_eval as fe, rwkv6_scan as rk
-from .models import lm, rwkv_lm
+from .models import hymba, lm, rwkv_lm
 from .workloads import CNN_ZOO
 from .workloads.grid import paper_grid, serving_stream
 
@@ -119,11 +123,20 @@ def profile_phase(name: str, fn, out_dir: pathlib.Path, top: int = 8) -> dict:
                     for k, v in ranked]}
 
 
-def lm_phases(arch: str, mod, rng, dev, out_dir: pathlib.Path) -> None:
-    """``arch`` scores 2 x 4096 tokens in bf16, then decodes 8 greedy steps
-    in f32 after a 1024-token prefill of batch 4."""
+# arch -> (model module, scoring length, layers kept or None for all)
+LM_PHASES = {"qwen3_8b": (lm, 4096, None), "rwkv6_3b": (rwkv_lm, 4096, None),
+             "qwen3_moe_235b": (lm, 4096, 4), "hymba_15b": (hymba, 512, None)}
+
+
+def lm_phases(arch: str, mod, rng, dev, out_dir: pathlib.Path, *,
+              S: int = 4096, layers: int | None = None) -> None:
+    """``arch`` (its first ``layers`` layers, if given) scores 2 x S tokens
+    in bf16, then decodes 8 greedy steps in f32 after a 1024-token prefill
+    of batch 4."""
     cfg = get_config(arch)
-    toks = torch.as_tensor(rng.integers(0, cfg.vocab, (2, 4096)), device=dev)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab, (2, S)), device=dev)
     net = mod.init(cfg, seed=0, dtype=torch.bfloat16, device=dev)
     print(json.dumps(profile_phase(
         f"{arch}_scoring", lambda: mod.forward(net, {"tokens": toks}),
@@ -154,7 +167,8 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default="chiprun_out/profile",
                     help="directory for the chrome traces")
     ap.add_argument("--only", default="gsampler,dt_one_shot,corpus,"
-                    "train_step,serving,qwen3_8b,rwkv6_3b", help="comma-separated phases to run (the "
+                    "train_step,serving,qwen3_8b,rwkv6_3b,qwen3_moe_235b,"
+                    "hymba_15b", help="comma-separated phases to run (the "
                     "LMs' name both their scoring and decode phases)")
     args = ap.parse_args(argv)
     only = set(args.only.split(","))
@@ -206,9 +220,9 @@ def main(argv=None) -> int:
     del model, packed
 
     rng = np.random.default_rng(1)
-    for arch, mod in (("qwen3_8b", lm), ("rwkv6_3b", rwkv_lm)):
+    for arch, (mod, S, layers) in LM_PHASES.items():
         if arch in only:
-            lm_phases(arch, mod, rng, dev, out_dir)
+            lm_phases(arch, mod, rng, dev, out_dir, S=S, layers=layers)
     return 0
 
 

@@ -403,13 +403,97 @@ def test_flash_decode_raises_on_rows_it_cannot_copy(dev):
         fd.flash_decode(q, long_k, long_k, 600, bk=1)   # 600 splits
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Hq,Hkv,hd", [(64, 4, 128), (25, 5, 64),
+                                       (48, 8, 128)])
+@pytest.mark.parametrize("kv_len,bk", [(1, None), (1025, None),
+                                       (1160, None), (700, 128),
+                                       (1160, 2048)])
+def test_flash_decode_groups_of_5_6_and_16(dev, dtype, Hq, Hkv, hd, kv_len,
+                                          bk):
+    """The decode head shapes of the MoE, hybrid and VLM configs: G 16
+    (qwen3_moe_235b, the 16-head build), 5 (hymba_15b) and 6 (grok1_314b);
+    one launch a call, two calls bit-identical, within the twin's limits;
+    at G 16 the largest split the kernel takes (2048)."""
+    q, k, v = _qkv(dev, dtype, 4, 1, 1160, Hq, Hkv, hd)
+    _fd_held(q, k, v, kv_len, bk)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,Hq,Hkv,hd", [(524288, 25, 5, 64),
+                                         (262144, 64, 4, 128)])
+def test_flash_decode_card_plan_at_a_long_cache(dev, dtype, T, Hq, Hkv, hd):
+    """hymba_15b's long_500k decode (524288 keys, G 5) and qwen3_moe_235b's
+    at 262144 keys (G 16): the card's plan grows bk past 512 to stay within
+    the kernel's split count, and the kernel holds its twin there."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    q, k, v = (torch.randn(sh, generator=gen, device=dev).to(dtype)
+               for sh in ((1, 1, Hq, hd), (1, T, Hkv, hd), (1, T, Hkv, hd)))
+    bk, ns = _fd_held(q, k, v, T)
+    assert bk > fd.BK and ns <= fd.limits(Hq // Hkv)[1]
+
+
+def test_flash_decode_g16_limits(dev):
+    q, k, v = _qkv(dev, torch.float32, 1, 1, 4200, 16, 1, 128)
+    with pytest.raises(ValueError, match="above 2048"):
+        fd.flash_decode(q, k, v, 4200, bk=4096)
+    assert fd.limits(16) == (2048, 256) and fd.limits(8) == (4096, 512)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,T,Hq,Hkv,hd,causal,window", [
+    (4, 1, 1500, 8, 8, 64, False, -1),          # whisper decode cross-attn
+    (4, 187, 1500, 8, 8, 64, False, -1),        # whisper prefill cross-attn
+    (2, 2048, 2048, 25, 5, 64, True, 1024)])    # hymba's windowed layers
+def test_flash_attention_at_the_new_families_shapes(dev, dtype, B, S, T, Hq,
+                                                   Hkv, hd, causal, window):
+    q, k, v = _qkv(dev, dtype, B, S, T, Hq, Hkv, hd)
+    if dtype == torch.bfloat16:
+        _fa_held(q, k, v, causal, window)
+        return
+    before = fa.STATS.launches
+    got = fa.flash_attention(q, k, v, causal=causal, window=window)
+    again = fa.flash_attention(q, k, v, causal=causal, window=window)
+    assert fa.STATS.launches == before + 2 and torch.equal(got, again)
+    _close(got, fa.flash_attention_plain(q, k, v, causal=causal,
+                                         window=window), dtype)
+
+
+def test_moe_forward_on_card_is_bit_identical(dev):
+    """A reduced qwen3_moe at the kernels' head dim, built twice from one
+    seed: logits and aux bit-identical (the combine sums a token's experts
+    in a fixed order, no atomics), routing equal to the CPU's."""
+    from repro_torch.models import lm as tlm
+    from repro_torch.nn import moe as tmoe
+    cfg = dataclasses.replace(get_config("qwen3_moe_235b", reduced=True),
+                              head_dim=64)
+    toks = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 130)), device=dev)
+    outs = []
+    for _ in range(2):
+        model = tlm.init(cfg, seed=0, dtype=torch.float32, device=dev)
+        outs.append(tlm.forward_aux(model, {"tokens": toks}))
+    assert torch.equal(outs[0][0], outs[1][0])
+    assert torch.equal(outs[0][1], outs[1][1])
+    x = torch.as_tensor(np.random.default_rng(1).normal(size=(2, 130, 64)),
+                        dtype=torch.float32)
+    moe = model.blocks[0].moe
+    got = tmoe.moe_route(moe.to(dev), x.to(dev), top_k=cfg.moe_top_k,
+                         capacity_factor=cfg.capacity_factor)
+    want = tmoe.moe_route(moe.cpu(), x, top_k=cfg.moe_top_k,
+                          capacity_factor=cfg.capacity_factor)
+    assert got.C == want.C
+    assert torch.equal(got.idx.cpu(), want.idx)
+    assert torch.equal(got.keep.cpu(), want.keep)
+
+
 def test_kernels_raise_on_what_they_do_not_take(dev):
     q, k, v = _qkv(dev, torch.float32, 1, 8, 8, 2, 2, 32)
     with pytest.raises(ValueError, match="head dim"):
         fa.flash_attention(q, k, v)
     with pytest.raises(ValueError, match="head dim"):
         fd.flash_decode(q[:, :1], k, v, 8)
-    q, k, v = _qkv(dev, torch.float32, 1, 1, 8, 16, 1, 64)
+    q, k, v = _qkv(dev, torch.float32, 1, 1, 8, 17, 1, 64)
     with pytest.raises(ValueError, match="at most"):
         fd.flash_decode(q, k, v, 8)
     with pytest.raises(TypeError):

@@ -85,6 +85,35 @@ def test_card_plan_edges(kv_len, want):
     assert bk == want
 
 
+@pytest.mark.parametrize("T,kv_len,B,Hq,Hkv,want", [
+    (524288, 524288, 4, 25, 5, (1024, 512)),    # hymba_15b, long_500k: G 5
+    (524288, 524288, 1, 25, 5, (1024, 512)),
+    (262144, 262144, 4, 64, 4, (1024, 256)),    # qwen3_moe_235b: G 16
+    (131072, 131072, 4, 64, 4, (512, 256)),
+    (524288, 500001, 4, 64, 4, (1984, 253)),
+    (2097152, 2097152, 1, 32, 8, (4096, 512))])
+def test_card_plan_grows_bk_for_a_long_cache(T, kv_len, B, Hq, Hkv, want):
+    """Past ``limits(G)``'s split count at 512 keys a split, the card's
+    plan takes the least multiple of 64 that the kernel's merge can stage,
+    so a decode the reference serves is not refused."""
+    G = Hq // Hkv
+    max_bk, max_ns = fd.limits(G)
+    bk, ns = fd.split_plan(T, kv_len, None, sms=H100_SMS, rows=Hkv * B,
+                           group=G)
+    assert (bk, ns) == want and ns == -(-kv_len // bk)
+    assert bk % fd.BK_STEP == 0 and bk <= max_bk and ns <= max_ns
+    if bk > fd.BK:                      # one step less needs too many splits
+        assert -(-kv_len // (bk - fd.BK_STEP)) > max_ns
+    q = torch.zeros(B, 1, Hq, 64)
+    k = torch.zeros(B, 1, Hkv, 64).expand(B, T, Hkv, 64)
+    assert fd.plan(q, k, kv_len) == fd.split_plan(T, kv_len) == (512, -(
+        -kv_len // 512))                # CPU tensors keep the reference's
+    # a cache past what the largest split covers: the plan says so, and the
+    # launch raises on it
+    assert fd.split_plan(600000, 600000, None, sms=H100_SMS, rows=4,
+                         group=16)[0] > fd.limits(16)[0]
+
+
 # -- flash_decode_plain under the card's plan --------------------------------
 
 @pytest.mark.parametrize("B,T,Hq,Hkv,hd,kv_len", SWEEP + [
@@ -174,7 +203,8 @@ def _fd_emulated(q, k, v, kv_len, bk):
 
 @pytest.mark.parametrize("B,T,Hq,Hkv,hd,kv_len,bk", [
     (2, 300, 8, 2, 128, 300, None), (1, 200, 4, 1, 64, 77, None),
-    (2, 256, 16, 2, 64, 129, 64), (1, 96, 2, 2, 128, 96, 32)])
+    (2, 256, 16, 2, 64, 129, 64), (1, 96, 2, 2, 128, 96, 32),
+    (1, 160, 16, 1, 128, 150, 64), (2, 100, 25, 5, 64, 100, None)])
 def test_flash_decode_kernel_order_holds_the_twin(B, T, Hq, Hkv, hd, kv_len,
                                                   bk):
     q, k, v = map(torch.as_tensor, _qkv(2, B, T, Hq, Hkv, hd))
@@ -200,8 +230,9 @@ def test_decode_check_refuses_what_the_kernel_does_not_take():
         fd.check_decode(q, _misaligned(k.shape), v)
     with pytest.raises(ValueError, match="16 bytes"):
         fd.check_decode(q, k, torch.zeros(1, 64, 2, 66)[..., :64])
+    fd.check_decode(torch.zeros(1, 1, 16, 64), k[:, :, :1], v[:, :, :1])
     with pytest.raises(ValueError, match="at most"):
-        fd.check_decode(torch.zeros(1, 1, 16, 64), k[:, :, :1],
+        fd.check_decode(torch.zeros(1, 1, 17, 64), k[:, :, :1],
                         v[:, :, :1])
     with pytest.raises(ValueError, match="head dim"):
         fd.check_decode(q[..., :32], k[..., :32], v[..., :32])

@@ -129,6 +129,58 @@ def test_conversion_raises_on_missing_extra_or_misshapen_leaves(tmp_path):
             device=CPU)
 
 
+_NEW_LEAVES = {
+    "qwen3_moe_235b": [("blocks/moe/router/w", "blocks.{i}.moe.router.w"),
+                       ("blocks/moe/gate", "blocks.{i}.moe.gate"),
+                       ("blocks/moe/down", "blocks.{i}.moe.down")],
+    "grok1_314b": [("blocks/moe/up", "blocks.{i}.moe.up")],
+    "qwen2_vl_72b": [("blocks/attn/q/b", "blocks.{i}.attn.q.b")],
+    "hymba_15b": [("blocks/ssm/conv", "blocks.{i}.ssm.conv"),
+                  ("blocks/ssm/A_log", "blocks.{i}.ssm.A_log"),
+                  ("blocks/ssm/wdt2/b", "blocks.{i}.ssm.wdt2.b"),
+                  ("blocks/na/g", "blocks.{i}.na.g"),
+                  ("blocks/ns/g", "blocks.{i}.ns.g")],
+    "whisper_base": [("enc_blocks/attn/q/w", "enc_blocks.{i}.attn.q.w"),
+                     ("dec_blocks/xattn/k/w", "dec_blocks.{i}.xattn.k.w"),
+                     ("dec_blocks/lnx/b", "dec_blocks.{i}.lnx.b"),
+                     ("pos/emb", "pos.emb"), ("enc_ln/g", "enc_ln.g")],
+}
+
+
+@pytest.mark.parametrize("name", sorted(_NEW_LEAVES))
+def test_conversion_carries_every_family(tmp_path, name):
+    """Each new family's leaves (MoE experts and router, SSM, Hymba's path
+    norms, Whisper's two stacks, cross-attention and positions) land in
+    the port's modules, and a missing, extra or misshapen one raises."""
+    from repro.models import registry as jreg
+    cfg = jconfigs.get_config(name, reduced=True)
+    params = jreg.get_model(cfg).init(jax.random.PRNGKey(0), cfg,
+                                      dtype=jnp.float32)
+    save_pytree(params, tmp_path / name)
+    flat = load_reference(tmp_path / name)
+    tcfg = tconfigs.get_config(name, reduced=True)
+    state = lm_params_from_reference(flat, tcfg, device=CPU).state_dict()
+    assert len(state) == sum(
+        v.shape[0] if k.split("/")[0].endswith("blocks") else 1
+        for k, v in flat.items())
+    for ref, port in _NEW_LEAVES[name]:
+        rows = range(flat[ref].shape[0]) if "{i}" in port else [None]
+        for i in rows:
+            want = flat[ref] if i is None else flat[ref][i]
+            np.testing.assert_array_equal(to_np(state[port.format(i=i)]),
+                                          want)
+    key = _NEW_LEAVES[name][0][0]
+    with pytest.raises(RuntimeError, match="Missing"):
+        lm_params_from_reference({k: v for k, v in flat.items() if k != key},
+                                 tcfg, device=CPU)
+    with pytest.raises(RuntimeError, match="Unexpected"):
+        lm_params_from_reference(dict(flat, extra=np.zeros(3)), tcfg,
+                                 device=CPU)
+    with pytest.raises((RuntimeError, ValueError)):
+        lm_params_from_reference(dict(flat, **{key: flat[key][..., :1]}),
+                                 tcfg, device=CPU)
+
+
 @pytest.mark.parametrize("name,S", [("qwen3_8b", 40), ("qwen15_4b", 40),
                                     ("minitron_4b", 40), ("gemma3_1b", 48),
                                     ("qwen3_8b", 530)])
@@ -220,15 +272,24 @@ def test_serve_greedy_is_seeded_and_consistent():
     assert not np.array_equal(a["prompt"], c["prompt"])
 
 
-@pytest.mark.parametrize("name", ["qwen3_moe_235b", "qwen2_vl_72b",
-                                  "hymba_15b", "whisper_base", "grok1_314b"])
-def test_families_of_later_slices_raise(name):
+_FAMILY_MODULE = {"dense": "lm", "moe": "lm", "vlm": "lm", "ssm": "rwkv_lm",
+                  "hybrid": "hymba", "encdec": "encdec"}
+
+
+@pytest.mark.parametrize("name", jconfigs.ARCH_NAMES)
+def test_every_family_maps_to_its_model(name):
+    """Every config builds: ``get_model`` returns its family's module, whose
+    model class takes the reduced config on the CPU and which has a
+    ``loss_fn``."""
+    from repro_torch import models
     cfg = tconfigs.get_config(name, reduced=True)
-    with pytest.raises(NotImplementedError, match="slice"):
-        get_model(cfg)
-    if cfg.family in ("moe", "vlm"):
-        with pytest.raises(NotImplementedError, match="slice"):
-            tlm.init(cfg, device=CPU)
+    mod = get_model(cfg)
+    assert mod is getattr(models, _FAMILY_MODULE[cfg.family])
+    for fn in ("init", "forward", "loss_fn", "init_decode_state", "prefill",
+               "decode_step"):
+        assert callable(getattr(mod, fn)), fn
+    model = mod.init(cfg, seed=0, dtype=torch.float32, device=CPU)
+    assert isinstance(model, mod.MODEL) and model.cfg == cfg
 
 
 def test_dense_family_maps_to_lm():

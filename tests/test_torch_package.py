@@ -19,7 +19,7 @@ from repro_torch.core import a2c, baselines, optimal, seq2seq
 from repro_torch.configs import get_config
 from repro_torch.kernels import _build, fusion_eval as fe
 from repro_torch.launch import serve_greedy
-from repro_torch.models import lm, rwkv_lm
+from repro_torch.models import encdec, hymba, lm, rwkv_lm
 from repro_torch import serving
 from repro_torch.workloads import tiny_cnn
 
@@ -27,7 +27,8 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
     [ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_cuda.py",
      ROOT / "examples" / "quickstart_torch.py",
-     ROOT / "examples" / "serve_mapper_torch.py"]
+     ROOT / "examples" / "serve_mapper_torch.py",
+     ROOT / "examples" / "serve_llm_torch.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro", "_torch_parity")
 
 
@@ -55,7 +56,11 @@ def test_port_imports_no_jax_and_no_reference(path):
                                     "core.dataset", "serving", "core.polish",
                                     "core.portfolio", "core.optimal",
                                     "core.baselines", "core.seq2seq",
-                                    "core.a2c"])
+                                    "core.a2c", "models.hymba",
+                                    "models.encdec", "models.registry",
+                                    "nn.moe", "nn.ssm", "nn.losses",
+                                    "workloads.lm_workloads",
+                                    "launch.serve"])
 def test_each_layer_imports_first(module):
     """``nn`` imports the attention kernels, and ``kernels.fusion_eval``
     imports ``core``, whose DT imports ``nn``: each must import first in a
@@ -133,6 +138,19 @@ _ENTRY_POINTS = {
         get_config("rwkv6_3b", reduced=True), 1, 8),
     "serve_greedy rwkv6_3b": lambda: serve_greedy("rwkv6_3b", batch=1,
                                                   prompt_len=4, gen_len=2),
+    "lm.init qwen3_moe_235b": lambda: lm.init(
+        get_config("qwen3_moe_235b", reduced=True)),
+    "hymba.init": lambda: hymba.init(get_config("hymba_15b", reduced=True)),
+    "hymba.init_decode_state": lambda: hymba.init_decode_state(
+        get_config("hymba_15b", reduced=True), 1, 8),
+    "encdec.init": lambda: encdec.init(get_config("whisper_base",
+                                                  reduced=True)),
+    "encdec.init_decode_state": lambda: encdec.init_decode_state(
+        get_config("whisper_base", reduced=True), 1, 8),
+    "serve_greedy whisper_base": lambda: serve_greedy(
+        "whisper_base", batch=1, prompt_len=64, gen_len=2),
+    "serve_greedy qwen2_vl_72b": lambda: serve_greedy(
+        "qwen2_vl_72b", batch=1, prompt_len=4, gen_len=2),
     "MapperEngine": lambda: serving.MapperEngine(
         dtm.dt_init(_TINY_DT, device=CPU)),
     "serve": lambda: repro_torch.serve(dtm.dt_init(_TINY_DT, device=CPU)),
@@ -230,3 +248,81 @@ def test_build_targets_hopper_without_fma_contraction():
     for src in ("fusion_eval", "flash_attention", "flash_decode", "wkv6"):
         assert (_build.CSRC / f"{src}.cu").is_file()
     assert _build.BUILD_DIR.parts[-2:] == ("build", "repro_torch_kernels")
+
+
+class _ThirdConfig:
+    """A config class of a third mapper model."""
+
+
+class _ThirdBackend:
+    kind = "third"
+
+    @staticmethod
+    def forward(model, rtg, states, actions, hw=None):
+        return actions
+
+    @staticmethod
+    def state_init(model, batch: int = 1):
+        return {"t": 0}
+
+    @staticmethod
+    def prefill(model, state, r0, s0, hw=None):
+        return r0, state
+
+    @staticmethod
+    def step(model, state, r_t, s_t, a_prev, hw=None):
+        return a_prev, state
+
+
+def test_register_backend_lets_a_third_model_ride():
+    from repro_torch.core import backend
+    cfg = _ThirdConfig()
+    with pytest.raises(TypeError, match="no mapper backend"):
+        backend.backend_for(cfg)
+    saved = dict(backend._BACKENDS)
+    try:
+        backend.register_backend(_ThirdConfig, _ThirdBackend)
+        assert backend.backend_for(cfg) is _ThirdBackend
+        assert backend.backend_for(dtm.DTConfig()) is dtm.DTBackend
+        assert backend.backend_for(seq2seq.S2SConfig()) is seq2seq.S2SBackend
+        assert isinstance(_ThirdBackend, type)
+        for fn in ("forward", "state_init", "prefill", "step"):
+            assert hasattr(backend.MapperBackend, fn)
+            assert callable(getattr(_ThirdBackend, fn))
+    finally:
+        backend._BACKENDS.clear()
+        backend._BACKENDS.update(saved)
+
+
+# names of ``repro.core.__all__`` the port leaves out (ROADMAP, "Not
+# carried over": the XLA/Pallas evaluator switch, the JAX pytree forms of
+# the hw row and the action codecs; queue 1 item 6: the replica group),
+# and names only the port exports (its torch modules and tree helpers)
+NOT_CARRIED = {"HwVec", "as_hw", "hw_from_array", "encode_action_jnp",
+               "decode_action_jnp", "default_evaluator",
+               "set_default_evaluator", "ReplicaGroup"}
+PORT_ONLY = {"DT", "S2S", "param_tree", "load_param_tree",
+             "naive_uniform_mb"}
+
+
+def test_core_exports_the_reference_surface():
+    import repro_torch.core as tcore
+    ref_all = _reference_core_all()
+    assert set(tcore.__all__) - PORT_ONLY == set(ref_all) - NOT_CARRIED
+    assert len(tcore.__all__) == len(set(tcore.__all__))
+    for name in tcore.__all__:
+        assert getattr(tcore, name) is not None, name
+    assert tcore.MapperEngine is serving.MapperEngine
+    assert {"register_backend", "MapperBackend", "prefix_step",
+            "env_step", "StrategyCache"} <= set(tcore.__all__)
+
+
+def _reference_core_all():
+    """``repro.core.__all__``, read from its source without importing the
+    reference."""
+    src = (ROOT / "src" / "repro" / "core" / "__init__.py").read_text()
+    for node in ast.parse(src).body:
+        if isinstance(node, ast.Assign) and any(
+                getattr(t, "id", None) == "__all__" for t in node.targets):
+            return ast.literal_eval(node.value)
+    raise AssertionError("repro.core has no __all__")
