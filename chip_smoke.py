@@ -167,7 +167,19 @@ Phases, each of which raises on failure (the script then exits non-zero):
    batch 32) searched by the host G-Sampler at 48 MB, nmax 128 through
    ``fusion_eval``, each equal to the same search on the CPU (run in
    worker processes beside the card's work).  Phases 17-21 free each
-   model before the next.
+   model before the next;
+22. LM training: gemma3_1b at full width (1.0e9 parameters, f32, seeded
+   random weights, batch 8 x 128 as ``launch.train``'s defaults): the
+   mapper's micro-batch under 24 MB (the host G-Sampler on
+   ``fusion_eval``, equal to the same search on the CPU), then 8 steps of
+   ``make_local_train_step`` at its ``grad_accum``: ms a step against
+   its f32 FLOP bound, tokens/s, peak memory, the losses (the last below
+   the first), every first-step gradient finite and not all zero, no
+   attention or WKV kernel launched; ``train`` at reduced size straight
+   through and crashed at step 10 and restarted, parameters and moments
+   bit-identical; one reduced ``train(use_mapper=True)`` step each for
+   rwkv6_3b, qwen3_moe_235b, hymba_15b, whisper_base and qwen2_vl_72b,
+   the default ``loss_fn``'s gradients ``impl="dense"``'s bit for bit.
 
 The last lines are the card's ``nvidia-smi`` name and power limit, a JSON
 line with each kernel's launches, error and times, and
@@ -578,7 +590,7 @@ def attention_kernels(dev, parent=None) -> dict:
             big[f"B{B} S{S} hd{hd} x{scale:g}"] = (got, twin)
             del q, k, v, exact
         torch.cuda.empty_cache()
-    print(f"[8/21] flash_attention == plain on {len(fa_cases)} shapes (JAX "
+    print(f"[8/22] flash_attention == plain on {len(fa_cases)} shapes (JAX "
           f"sweep x f32/bf16 x causal/non-causal/window 96, one tile of 64 "
           f"and 128 rows at hd 64 and 128, GQA 4:1 and 8:1, ragged S/T "
           f"77/150, qwen3_8b heads at S {SCORE_S} and at ragged S "
@@ -922,7 +934,7 @@ def self_check(dev, arch: str, served: dict, phase: int, *,
     text = logits_held(f"self-check {arch}", got, logits, toks)
     par = (", parent's flash_attention " + " / ".join(
         f"{x:.4f}" for x in parent_walls) + " s" if parent_walls else "")
-    print(f"[{phase}/21] self-check {arch}: f32 forward over "
+    print(f"[{phase}/22] self-check {arch}: f32 forward over "
           f"{tuple(next(iter(batch.values())).shape)} (wall " + " / ".join(
               f"{x:.4f}" for x in walls) + f" s{par}; launches "
           f"{launched(n)}) reproduces the served logits at {rows}: "
@@ -1046,7 +1058,7 @@ def wkv_kernel(dev) -> dict:
             main_err[case], tiles[case] = float(diff.max()), tile
         del got, ins, want
     sc32, sc16, pre = main_cases
-    print(f"[12/21] wkv6 == plain on {len(cases)} shapes (JAX sweep, strong "
+    print(f"[12/22] wkv6 == plain on {len(cases)} shapes (JAX sweep, strong "
           f"decay U{strong}, T not whole chunks, strided, bf16 r/k/v, "
           f"{RWKV} scoring in f32 and bf16 at tiles {tiles[sc32]} and "
           f"{tiles[sc16]}, the serving prefill at tile {tiles[pre]}, the "
@@ -1178,7 +1190,7 @@ def paper_loop(dev, grid: dict, gsampler: dict, untrained: dict):
           np.array_equal(np.stack(kept), corpus.rtg),
           "corpus: a replay of the pipeline keeps other rows")
     sp = np.array([m[2] for m in corpus.meta])
-    print(f"[6/21] corpus: generate_teacher_corpus over {C} conditions "
+    print(f"[6/22] corpus: generate_teacher_corpus over {C} conditions "
           f"(GA pop {ga.population} x {ga.generations}, top {top_k} + "
           f"{jitter} jittered copies of the top {top_k // 2}, {cand.shape[1]}"
           f" candidates a condition): wall {corpus_wall:.3f} s, "
@@ -1451,7 +1463,7 @@ def mapper_serving(dev, model) -> int:
                              np.array([resp[i].valid for i in idx])),
               f"served valid differs from the kernel re-score (bucket {nb})")
     hits = sum(r.cached for r in resp)
-    print(f"[7/21] serving on the card: repro_torch.serve(trained DT, "
+    print(f"[7/22] serving on the card: repro_torch.serve(trained DT, "
           f"warm=6 CNNs), default ServingConfig: warmup {warm_wall:.3f} s, "
           f"{sigs} signatures {sorted(eng._compiled)}; stream of "
           f"{STREAM_N} requests (6 CNNs x 5 parts x budgets "
@@ -1773,7 +1785,7 @@ def paper_table(dev, trained) -> int:
                       for k in twice[0]),
                   "two S2S trainings of one seed differ on the card")
     table_wall = time.perf_counter() - t_phase
-    print(f"[16/21] Table 1 on VGG16 (PAPER_ACCEL, nmax {TABLE1_NMAX}; "
+    print(f"[16/22] Table 1 on VGG16 (PAPER_ACCEL, nmax {TABLE1_NMAX}; "
           f"baselines at {TABLE1_SAMPLES} samples, pop {BASELINE_POP}, seed 0"
           f"; A2C {A2C_EPISODES} episodes; sequence models trained "
           f"{SEQ_STEPS} steps on {TRAIN_MB} MB, one shot by the fused "
@@ -1960,7 +1972,7 @@ def scoring(dev, arch: str, phase: int, B: int = SCORE_B, S: int = SCORE_S,
         del again
     if probe is not None:
         note += "; " + probe(model, batch)
-    print(f"[{phase}/21] scoring {arch} ({cfg.n_layers} layers, d "
+    print(f"[{phase}/22] scoring {arch} ({cfg.n_layers} layers, d "
           f"{cfg.d_model}, {n_params / 1e9:.3f}e9 params, bf16, seeded "
           f"random weights; init {t_init:.2f} s) over {B}x{S}"
           f"{' embeds' if cfg.embed_inputs else ' tokens'}"
@@ -2053,7 +2065,7 @@ def serving(dev, arch: str, phase: int, *, prompt: int = PROMPT,
           f"served {arch} tokens or logits malformed")
     shapes = ", ".join(f"{k} {tuple(v.shape)}"
                        for k, v in out["inputs"].items())
-    print(f"[{phase}/21] serving {arch}{label} ({cfg.n_layers} layers) f32, "
+    print(f"[{phase}/22] serving {arch}{label} ({cfg.n_layers} layers) f32, "
           f"impl {impl}, batch {SERVE_B}, prefill {shapes}, gen {gen}: "
           f"prefill {out['t_prefill_s']:.4f} s, decode "
           f"{out['t_decode_s']:.4f} s, {out['tok_per_s']:.2f} tok/s; wall "
@@ -2146,7 +2158,7 @@ def lm_mapping(dev, phase: int, cpu_jobs: dict) -> int:
     pop = gs.GSamplerConfig().population
     tile = fe.tile_for(1, pop, MAP_NMAX, _build.sm_count(
         torch.cuda.current_device()))
-    print(f"[{phase}/21] LM mapping: lm_workload(seq 4096, batch 32, "
+    print(f"[{phase}/22] LM mapping: lm_workload(seq 4096, batch 32, "
           f"prefill) of the ten archs, host gsampler_search (pop {pop}) at "
           f"{MAP_BUDGET_MB:g} MB, nmax {MAP_NMAX}, PAPER_ACCEL, through "
           f"fusion_eval (tile {tile}), each equal to the same search on the "
@@ -2171,6 +2183,305 @@ def whisper_and_mapping(dev, cpu_jobs: dict) -> dict:
         dev, WHISPER, served, 21, flash_attention=Le + 2 * Ld,   # and xattn
         fa_tensor_core_tf32x3=Le + 2 * Ld)["launches"]
     out["21 mapping"] = {"fusion_eval": lm_mapping(dev, 21, cpu_jobs)}
+    return out
+
+
+TRAIN_ARCH = "gemma3_1b"        # phase 22: 1.0e9 parameters at full width
+TRAIN_B, TRAIN_S = 8, 128       # launch.train.train's defaults
+TRAIN_BUDGET_MB = 24.0          # ... and its activation budget
+TRAIN_STEPS = 8                 # full-width steps timed
+LOOP_STEPS, LOOP_CRASH = 20, 10  # the reduced loop: cadence 10 saves at 10
+TRAIN_FAMILIES = (RWKV, MOE, HYMBA, WHISPER, VLM)   # one reduced step each
+TRAIN_CKPT_LM = ROOT / "build" / "smoke_lm_train"
+TRAIN_GRAD_TOL = 2e-4   # card vs CPU, of a leaf's largest: the CPU tests'
+MOE_MEM_B, MOE_MEM_S = 8, 4096  # take_rows' memory against a plain gather
+
+
+def train_bound_ms(n_params: int, tokens: int) -> float:
+    """6 operations a parameter and token (forward and backward) at the
+    f32 CUDA-core rate (TF32 is off in the port); attention's S^2 term
+    (under 1% at S 128) is left out."""
+    return 6.0 * n_params * tokens / H100_F32_OPS_PER_S * 1e3
+
+
+def _grads(model, mod, batch) -> tuple:
+    """``(loss, [gradient of each leaf])`` of the default ``loss_fn``."""
+    import torch
+    from repro_torch.core.model import param_tree
+    pt = param_tree(model)
+    loss = mod.loss_fn(model, batch)
+    return loss.detach(), list(torch.autograd.grad(
+        loss, list(pt.values()), allow_unused=True, materialize_grads=True))
+
+
+def _grads_held_to_cpu(label: str, model, opt_state, batch_fn) -> str:
+    """One step's gradients of the default ``loss_fn`` on the card against
+    the same step on the CPU (the path the CPU tests hold to ``jax.grad``),
+    from the same weights (carried to the CPU through the training
+    checkpoint's conversion) and batch: each leaf within TRAIN_GRAD_TOL of
+    its largest CPU gradient, the loss within the same rtol."""
+    import torch
+    from repro_torch.checkpoint import (lm_params_from_reference,
+                                        lm_train_state_to_reference)
+    from repro_torch.models import get_model
+    mod = get_model(model.cfg)
+    dev = next(model.parameters()).device
+    loss, got = _grads(model, mod, batch_fn(model.cfg, dev))
+    host = lm_params_from_reference(
+        lm_train_state_to_reference(model, opt_state, 0)["params"],
+        model.cfg, device="cpu")
+    want_loss, want = _grads(host, mod, batch_fn(model.cfg, "cpu"))
+    worst, zero = 0.0, 0
+    for a, b in zip(got, want):
+        a = a.cpu()
+        top, err = float(b.abs().max()), float((a - b).abs().max())
+        check(bool(torch.isfinite(a).all()) and err <= TRAIN_GRAD_TOL * top,
+              f"{label}: a card gradient is not finite or differs from the "
+              f"CPU's by {err:.3e} (largest {top:.3e})")
+        worst = max(worst, err / top if top else 0.0)
+        zero += top == 0.0
+    check(abs(float(loss) - float(want_loss))
+          <= TRAIN_GRAD_TOL * abs(float(want_loss)),
+          f"{label}: loss {float(loss)} on the card, {float(want_loss)} on "
+          f"the CPU")
+    return (f"gradients held to the CPU's on {len(got)} leaves (worst "
+            f"{worst:.2e} of a leaf's largest, {zero} all zero on both), "
+            f"loss {float(loss):.6f} vs {float(want_loss):.6f}")
+
+
+def _moe_gather_memory(dev) -> str:
+    """One ``loss_fn`` gradient of reduced qwen3_moe at MOE_MEM_B x
+    MOE_MEM_S through ``nn.linear.take_rows`` and through a plain gather
+    (``table[ids]``, whose card backward is ``index_put_``'s sorted sum):
+    take_rows' peak memory within 10% of the plain gather's, the same
+    loss, the gradients within TRAIN_GRAD_TOL."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as lt
+    from repro_torch.models import get_model
+    from repro_torch.nn import linear, moe
+    cfg = get_config(MOE, reduced=True)
+    mod = get_model(cfg)
+    model = mod.init(cfg, seed=0, dtype=torch.float32, device=dev)
+    batch = lt.make_batch_fn(cfg, seq_len=MOE_MEM_S, global_batch=MOE_MEM_B,
+                             device=dev)(0)
+    ways = {"take_rows": linear.take_rows, "plain": lambda t, i: t[i]}
+    res = {}
+    for name, fn in list(ways.items()) * 2:     # the second pass is timed
+        moe.take_rows = linear.take_rows = fn
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            out = _grads(model, mod, batch)
+            torch.cuda.synchronize()
+            res[name] = (out, (time.perf_counter() - t0) * 1e3,
+                         torch.cuda.max_memory_allocated() - base)
+        finally:
+            moe.take_rows = linear.take_rows = ways["take_rows"]
+    (loss, got), ms, peak = res["take_rows"]
+    (ploss, want), pms, ppeak = res["plain"]
+    check(peak <= 1.1 * ppeak and torch.equal(loss, ploss) and all(
+        float((a - b).abs().max()) <= TRAIN_GRAD_TOL * float(b.abs().max())
+        for a, b in zip(got, want)),
+        f"22 MoE gather: take_rows peak {peak} B against the plain "
+        f"gather's {ppeak} B, or its loss or gradients differ")
+    slots = MOE_MEM_B * cfg.n_experts * moe.capacity(
+        MOE_MEM_S, cfg.moe_top_k, cfg.n_experts, cfg.capacity_factor)
+    return (f"reduced {MOE} at {MOE_MEM_B}x{MOE_MEM_S} (dispatch {slots} "
+            f"ids a layer): one loss_fn gradient through take_rows peaks "
+            f"{peak / 2**30:.3f} GiB above the weights, {ms:.2f} ms; "
+            f"through a plain gather {ppeak / 2**30:.3f} GiB, {pms:.2f} ms; "
+            f"same loss, gradients within {TRAIN_GRAD_TOL:g}")
+
+
+def _trained_state(loop) -> list:
+    from repro_torch.core.model import param_tree
+    return (list(param_tree(loop.model).values())
+            + list(loop.opt_state.mu.values())
+            + list(loop.opt_state.nu.values()))
+
+
+def lm_training(dev) -> dict:
+    """Phase 22: LM training on the card.  gemma3_1b at full width: the
+    mapper's micro-batch (G-Sampler on ``fusion_eval``, equal to the same
+    search on the CPU), then TRAIN_STEPS steps of
+    ``make_local_train_step`` at that ``grad_accum`` (no attention kernel
+    launched, the loss falling, every first-step gradient finite and not
+    all zero) and the time of a checkpoint's host copy; the reduced loop
+    ``train`` straight through and crashed at LOOP_CRASH and restarted,
+    bit-identical, its gradients held to the CPU's; one ``train`` step
+    with the mapper for each other family, its gradients held to the
+    CPU's; the MoE gathers' memory at seq MOE_MEM_S against a plain
+    gather's.  Returns the launches of each part."""
+    import shutil
+    import numpy as np
+    import torch
+    from repro_torch import optim
+    from repro_torch.configs import get_config
+    from repro_torch.core.model import param_tree
+    from repro_torch.launch import train as lt
+    from repro_torch.models import get_model
+    out = {}
+    cfg = get_config(TRAIN_ARCH)
+    reset_counts()
+    t0 = time.perf_counter()
+    mapped = lt.mapper_microbatch(cfg, seq_len=TRAIN_S, global_batch=TRAIN_B,
+                                  act_budget_mb=TRAIN_BUDGET_MB, device=dev)
+    map_wall = time.perf_counter() - t0
+    out["22 mapper"] = n = counts()
+    expect_counts("22 mapper", n, fusion_eval=n["fusion_eval"])
+    t0 = time.perf_counter()
+    cpu = lt.mapper_microbatch(cfg, seq_len=TRAIN_S, global_batch=TRAIN_B,
+                               act_budget_mb=TRAIN_BUDGET_MB, device="cpu")
+    cpu_wall = time.perf_counter() - t0
+    check(n["fusion_eval"] > 0 and np.array_equal(cpu["strategy"],
+                                                  mapped["strategy"])
+          and all(cpu[k] == mapped[k] for k in ("micro_batch", "grad_accum",
+                                                "speedup")),
+          f"22 mapper: the card's search {mapped} differs from the CPU's "
+          f"{cpu}")
+    ga = mapped["grad_accum"]
+    print(f"[22/22] LM training: {TRAIN_ARCH} mapper (lm_workload train, "
+          f"seq {TRAIN_S}, batch {TRAIN_B}, {TRAIN_BUDGET_MB:g} MB, nmax "
+          f"{lt.MAPPER_NMAX}, host G-Sampler of 20 generations on "
+          f"fusion_eval): micro-batch {mapped['micro_batch']}, grad_accum "
+          f"{ga}, modeled speedup {mapped['speedup']:.6f}, "
+          f"{n['fusion_eval']} fusion_eval launches, wall {map_wall:.3f} s "
+          f"(the same search on the CPU {cpu_wall:.3f} s, equal)")
+
+    mod = get_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = mod.init(cfg, seed=0, dtype=torch.float32, device=dev)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    tx = optim.adamw(optim.cosine_with_warmup(3e-4, 20, TRAIN_STEPS),
+                     weight_decay=0.01, max_grad_norm=1.0)
+    first = []                           # the first step's gradient norms
+
+    def update(grads, state, params):
+        if not first:
+            first.extend(torch.stack(torch._foreach_norm(
+                list(grads.values()))).tolist())
+        return tx.update(grads, state, params)
+
+    step = lt.make_local_train_step(
+        cfg, optim.GradientTransformation(tx.init, update), grad_accum=ga)
+    batch_fn = lt.make_batch_fn(cfg, seq_len=TRAIN_S, global_batch=TRAIN_B,
+                                device=dev)
+    opt_state = tx.init(param_tree(model))
+    reset_counts()
+    losses, walls = [], []
+    for i in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        model, opt_state, loss = step(model, opt_state, batch_fn(i))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+    out["22 full width"] = n = counts()
+    expect_counts("22 full-width steps", n)
+    peak = torch.cuda.max_memory_allocated()
+    total = torch.cuda.get_device_properties(dev).total_memory
+    ms = float(np.median(walls[1:])) * 1e3
+    bound = train_bound_ms(n_params, TRAIN_B * TRAIN_S)
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"22: the loss did not fall: {losses}")
+    check(len(first) == len(param_tree(model)) and all(
+        np.isfinite(first)) and min(first) > 0, f"22: a first-step gradient "
+        f"is zero or not finite (norms {first})")
+    print(f"      {TRAIN_ARCH} full width ({cfg.n_layers} layers, d "
+          f"{cfg.d_model}, {n_params / 1e9:.4f}e9 params, f32, seeded "
+          f"random weights; init {t_init:.2f} s), {TRAIN_STEPS} steps of "
+          f"{TRAIN_B}x{TRAIN_S} tokens at grad_accum {ga}: "
+          f"{ms:.2f} ms a step (median of steps 1-{TRAIN_STEPS - 1}; step 0 "
+          f"{walls[0] * 1e3:.2f} ms), bound {bound:.2f} ms (6 x params x "
+          f"tokens at 67 TFLOP/s f32: {bound / ms:.3f} of it), "
+          f"{TRAIN_B * TRAIN_S / ms * 1e3:.1f} tokens/s, peak "
+          f"{peak / 2**30:.2f} of {total / 2**30:.2f} GiB; launches "
+          f"{launched(n)}; first-step gradients finite and nonzero on all "
+          f"{len(first)} leaves (norms {min(first):.3e}..{max(first):.3e}); "
+          f"losses " + ", ".join(f"{x:.4f}" for x in losses))
+    from repro_torch.checkpoint import lm_train_state_to_reference
+    t0 = time.perf_counter()
+    host = lm_train_state_to_reference(model, opt_state, TRAIN_STEPS - 1)
+    t_copy = time.perf_counter() - t0
+    nbytes = sum(a.nbytes for tree in (host["params"], host["opt"].mu,
+                                       host["opt"].nu) for a in tree.values())
+    del host
+    print(f"      a TrainLoop checkpoint's synchronous part at full width "
+          f"(lm_train_state_to_reference: params and both moments to the "
+          f"host, stacked on the layer axis): {t_copy:.2f} s for "
+          f"{nbytes / 1e9:.2f} GB; the file write runs in the background "
+          f"(not timed here)")
+    print(f"      {smi_line()}")
+    del model, opt_state, step, loss
+    torch.cuda.empty_cache()
+
+    shutil.rmtree(TRAIN_CKPT_LM, ignore_errors=True)
+    reset_counts()
+    t0 = time.perf_counter()
+    kw = dict(reduced=True, steps=LOOP_STEPS, device=dev)
+    straight, _ = lt.train(TRAIN_ARCH, ckpt_dir=str(TRAIN_CKPT_LM / "a"), **kw)
+    try:
+        lt.train(TRAIN_ARCH, ckpt_dir=str(TRAIN_CKPT_LM / "b"),
+                 crash_at=LOOP_CRASH, **kw)
+        crashed = False
+    except RuntimeError as e:
+        crashed = "simulated node failure" in str(e)
+    check(crashed, "22 loop: crash_at did not stop the run")
+    resumed, _ = lt.train(TRAIN_ARCH, ckpt_dir=str(TRAIN_CKPT_LM / "b"), **kw)
+    loop_wall = time.perf_counter() - t0
+    out["22 loop"] = n = counts()
+    expect_counts("22 loop", n)
+    check(resumed.start_step == LOOP_CRASH + 1 and all(
+        torch.equal(a, b) for a, b in zip(_trained_state(resumed),
+                                          _trained_state(straight)))
+          and resumed.losses[-1] == straight.losses[-1],
+          "22 loop: the restarted run is not bit-identical to the straight "
+          "one")
+    print(f"      reduced loop: train({TRAIN_ARCH}, reduced, {LOOP_STEPS} "
+          f"steps) straight and crashed at {LOOP_CRASH} then restarted: "
+          f"params and AdamW moments bit-identical, last loss "
+          f"{straight.losses[-1][1]:.6f} both; median step "
+          f"{straight.monitor.median * 1e3:.2f} ms; the three runs "
+          f"{loop_wall:.2f} s; launches {launched(n)}")
+
+    def batch_fn(rcfg, device):
+        return lt.make_batch_fn(rcfg, seq_len=TRAIN_S, global_batch=TRAIN_B,
+                                device=device)(1)
+    rows = [f"{TRAIN_ARCH} (dense, the straight loop's model): "
+            + _grads_held_to_cpu(f"22 {TRAIN_ARCH}", straight.model,
+                                 straight.opt_state, batch_fn)]
+    for arch in TRAIN_FAMILIES:
+        reset_counts()
+        t0 = time.perf_counter()
+        loop, info = lt.train(arch, reduced=True, steps=1, use_mapper=True,
+                              ckpt_dir=str(TRAIN_CKPT_LM / arch), device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        out[f"22 {arch}"] = n = counts()
+        expect_counts(f"22 {arch}", n, fusion_eval=n["fusion_eval"])
+        check(n["fusion_eval"] > 0, f"22 {arch}: the mapper launched no "
+              f"fusion_eval")
+        held = _grads_held_to_cpu(f"22 {arch}", loop.model, loop.opt_state,
+                                  batch_fn)
+        rows.append(f"{arch} ({loop.model.cfg.family}): micro-batch "
+                    f"{info['micro_batch']}, grad_accum {info['grad_accum']}, "
+                    f"loss {loop.losses[-1][1]:.4f}, {n['fusion_eval']} "
+                    f"fusion_eval launches, {wall:.2f} s; {held}")
+    shutil.rmtree(TRAIN_CKPT_LM, ignore_errors=True)
+    print("      the default loss_fn's gradients of step 1's batch on the "
+          "card against the CPU's (one train(use_mapper=True) step a "
+          "family, reduced; no attention or WKV kernel launched):")
+    for r in rows:
+        print(f"        {r}")
+    reset_counts()
+    mem = _moe_gather_memory(dev)
+    expect_counts("22 MoE gather", counts())
+    print(f"      {mem}")
     return out
 
 
@@ -2204,7 +2515,7 @@ def main(argv=None) -> int:
     # -- 1. device ----------------------------------------------------------
     kind = torch.cuda.get_device_name(0)
     smi = smi_line()
-    print(f"[1/21] device: {kind} | nvidia-smi: {smi} | torch "
+    print(f"[1/22] device: {kind} | nvidia-smi: {smi} | torch "
           f"{torch.__version__} CUDA {torch.version.cuda} | devices "
           f"{torch.cuda.device_count()}")
 
@@ -2217,7 +2528,7 @@ def main(argv=None) -> int:
     parent = ab.finish_build(parent_job) if parent_job else None
     fe.compiled_backend_supported()
     infos = {src: _build.build_info(src) for src in sources}
-    print(f"[2/21] build: " + ", ".join(
+    print(f"[2/22] build: " + ", ".join(
         f"{src}.cu {infos[src]['build_s']:.2f} s" for src in sources) +
         f" (in parallel; cached={infos[fe.SOURCE]['cached']}), probe ok, "
         f"phase {time.perf_counter() - t0:.2f} s")
@@ -2317,7 +2628,7 @@ def main(argv=None) -> int:
         raw = fe.fusion_eval_raw(*args)
         check(all(torch.equal(g, w) for g, w in zip(raw[:6], want[1:7])),
               f"{label}: fusion_eval_raw differs from the raw form")
-        print(f"[3/21] kernel == plain on {label} [{Cc}x{pop}x{P}], "
+        print(f"[3/22] kernel == plain on {label} [{Cc}x{pop}x{P}], "
               f"forms cost, stats, raw: bit-equal, CostOut included")
         if label.startswith("main-path"):
             main_args[pop] = args
@@ -2369,7 +2680,7 @@ def main(argv=None) -> int:
           (C, 4, NMAX), "G-Sampler result malformed")
     check(res.valid[:, 0].mean() > 0.5, "G-Sampler found too few valid "
           "strategies")
-    print(f"[4/21] G-Sampler pop {cfg.population} x {cfg.generations} gens "
+    print(f"[4/22] G-Sampler pop {cfg.population} x {cfg.generations} gens "
           f"over {C} conditions: wall {gs_wall:.3f} s, fusion_eval launches "
           f"{gs_launches}, mean best speedup {best.mean():.4f}, valid share "
           f"{res.valid[:, 0].mean():.4f}")
@@ -2407,7 +2718,7 @@ def main(argv=None) -> int:
           "DT n_groups differs")
     dt_valid = out["valid"].float().mean().item()
     dt_speed = out["speedup"][out["valid"]].mean().item() if dt_valid else 0.0
-    print(f"[5/21] DT one shot (3x2x128, hw_dim 10, seeded random weights) "
+    print(f"[5/22] DT one shot (3x2x128, hw_dim 10, seeded random weights) "
           f"over {C} conditions: wall {dt_wall:.4f} s, valid share "
           f"{dt_valid:.4f}, mean valid speedup {dt_speed:.4f}; re-score "
           f"matches (rtol 1e-5); G-Sampler/DT wall ratio "
@@ -2518,6 +2829,9 @@ def main(argv=None) -> int:
     finally:
         pool.shutdown(cancel_futures=True)
     print(f"      phase 21 {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    new.update(lm_training(dev))
+    print(f"      phase 22 {time.perf_counter() - t0:.1f} s")
     missing = sorted(USED - HELD, key=str)
     check(not missing, f"the main path launched the attention kernels at "
           f"{len(missing)} shapes that phase 8 did not hold against their "

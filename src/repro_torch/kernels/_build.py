@@ -12,6 +12,9 @@ their plain twins (bit for bit, or within the f32 gate) rests on the twins'
 roundings; ``flash_attention`` is built without it, so the softmax's
 scale-and-subtract is one FMA, and its TMA maps need no ``-lcuda`` (the
 encoder is reached through ``cudaGetDriverEntryPoint``).
+
+:func:`refuse_grad` is the wrappers' shared guard: no kernel has a
+backward, so none may be called where autograd would record it.
 """
 from __future__ import annotations
 
@@ -24,8 +27,10 @@ import subprocess
 import threading
 import time
 
+import torch
+
 __all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "SOURCE_FLAGS", "flags",
-           "build", "load", "build_info", "sm_count"]
+           "build", "load", "build_info", "sm_count", "refuse_grad"]
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / \
@@ -125,3 +130,17 @@ def sm_count(index: int) -> int:
 def build_info(name: str) -> dict | None:
     """Build time (s), compiler log and whether a cached library was used."""
     return _INFO.get(name)
+
+
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise when autograd would record a call of kernel ``name``.  The
+    kernels write into fresh tensors and have no backward, as the
+    reference's Pallas kernels have none, so a recorded call would cut
+    every gradient through it without a word.  The wrappers check before
+    they dispatch on the device, so a CPU call refuses as a card call
+    does."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name} has no backward (nor has the reference's Pallas "
+            f"kernel): call it under torch.no_grad(), or differentiate the "
+            f"model at impl=\"dense\" (the reference's impl=\"xla\")")

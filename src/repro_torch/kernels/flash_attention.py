@@ -224,7 +224,9 @@ def flash_attention(q, k, v, *, causal: bool = True,
                     window: int = -1) -> torch.Tensor:
     """q [B,S,Hq,hd], k/v [B,T,Hkv,hd] -> [B,S,Hq*hd]: the kernel for CUDA
     tensors, the plain twin for CPU tensors.  ``window <= 0`` is full
-    attention; any S and T are taken (no padding)."""
+    attention; any S and T are taken (no padding).  Refuses inputs that
+    require grad under grad mode (:func:`_build.refuse_grad`)."""
+    _build.refuse_grad("flash_attention", q, k, v)
     if q.is_cuda:
         return _launch(q, k, v, causal, int(window))
     if q.device.type != "cpu":

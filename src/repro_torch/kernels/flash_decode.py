@@ -257,7 +257,9 @@ def flash_decode(q, k, v, kv_len: int, *,
                  bk: int | None = None) -> torch.Tensor:
     """q [B,1,Hq,hd] over the first ``kv_len`` keys of the cache k/v
     [B,T,Hkv,hd] -> [B,1,Hq*hd]: the kernel for CUDA tensors, the plain
-    twin for CPU tensors, both over the splits of :func:`plan`."""
+    twin for CPU tensors, both over the splits of :func:`plan`.  Refuses
+    inputs that require grad under grad mode (:func:`_build.refuse_grad`)."""
+    _build.refuse_grad("flash_decode", q, k, v)
     kv_len = int(kv_len)
     if q.is_cuda:
         return _launch(q, k, v, kv_len, bk)

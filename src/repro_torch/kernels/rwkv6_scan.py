@@ -232,7 +232,9 @@ def wkv6(r, k, v, w, u, s0, *, chunk: int | None = None):
     [B,H,n,n]), both f32: the kernel for CUDA tensors (``chunk`` steps
     staged in shared memory at a time, :func:`auto_chunk` unless given; the
     result does not depend on it), the plain twin for CPU tensors.  Any T
-    is taken, 1 (a decode step) and 0 included."""
+    is taken, 1 (a decode step) and 0 included.  Refuses inputs that
+    require grad under grad mode (:func:`_build.refuse_grad`)."""
+    _build.refuse_grad("wkv6", r, k, v, w, u, s0)
     if r.is_cuda:
         return _launch(r, k, v, w, u, s0, chunk)
     check_wkv(r, k, v, w, u, s0, MAX_CHUNK if chunk is None else chunk)

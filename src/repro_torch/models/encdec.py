@@ -127,7 +127,7 @@ def forward(model: EncDec, batch: dict, *,
     return _logits(model, _dec(model, batch["tokens"], memory, impl=impl))
 
 
-def loss_fn(model: EncDec, batch: dict, *, impl: str = "kernel",
+def loss_fn(model: EncDec, batch: dict, *, impl: str = "dense",
             aux_weight: float = 0.0) -> torch.Tensor:
     """Mean next-token CE of the decoder against ``batch["labels"]`` [B,
     S_dec], with gradients (``aux_weight`` unused, as in the reference)."""

@@ -123,7 +123,7 @@ def forward(model: Hymba, batch: dict, *,
     return model.head(_run(model, batch["tokens"], impl=impl))
 
 
-def loss_fn(model: Hymba, batch: dict, *, impl: str = "kernel",
+def loss_fn(model: Hymba, batch: dict, *, impl: str = "dense",
             aux_weight: float = 0.0) -> torch.Tensor:
     """Mean next-token CE against ``batch["labels"]``, with gradients (no
     aux loss: ``aux_weight`` is accepted and unused, as in the

@@ -21,10 +21,12 @@ the reference ``forward``'s two outputs), :func:`loss_fn` (next-token CE
 through the chunked ``fused_linear_ce``, plus ``aux_weight * aux /
 n_layers``; differentiable), :func:`init_decode_state`, :func:`prefill`
 (fill the KV caches from a prompt) and :func:`decode_step` (one token, or
-one embedding).  ``impl="kernel"`` (the default) sends each layer's
-uncached attention to ``flash_attention`` and each single-token decode to
-``flash_decode``; ``impl="dense"`` is the reference's ``impl="xla"`` (see
-``nn.attention``).  The kernels take q, k and v of one type, so on the
+one embedding).  ``impl="kernel"`` (the default of every entry point
+but :func:`loss_fn`) sends each layer's uncached attention to
+``flash_attention`` and each single-token decode to ``flash_decode``;
+``impl="dense"`` is the reference's ``impl="xla"`` (see ``nn.attention``)
+and :func:`loss_fn`'s default, as ``"xla"`` is the reference's: the
+kernels have no backward and refuse inputs that require grad.  The kernels take q, k and v of one type, so on the
 card ``impl="kernel"`` decodes need the cache in the parameters' type (the
 defaults, bf16 and bf16, agree).  The decode state is ``{"k", "v": [L, B,
 T, Hkv, hd], "idx": int}``, written in place; its write index is a Python
@@ -189,7 +191,7 @@ def forward(model: LM, batch: dict, *, impl: str = "kernel") -> torch.Tensor:
     return forward_aux(model, batch, impl=impl)[0]
 
 
-def loss_fn(model: LM, batch: dict, *, impl: str = "kernel",
+def loss_fn(model: LM, batch: dict, *, impl: str = "dense",
             aux_weight: float = 0.01) -> torch.Tensor:
     """Mean next-token CE against ``batch["labels"]`` [B, S] plus
     ``aux_weight * aux / n_layers``, with gradients."""

@@ -10,10 +10,12 @@ reference's pytree paths with the layer index spelled out
 Entry points, with the signatures of ``models.lm``: :func:`init`,
 :func:`forward` (teacher-forced logits), :func:`loss_fn` (next-token CE
 through the chunked ``fused_linear_ce``; differentiable),
-:func:`init_decode_state`, :func:`prefill` and :func:`decode_step`.  ``impl="kernel"`` (the default)
+:func:`init_decode_state`, :func:`prefill` and :func:`decode_step`.
+``impl="kernel"`` (the default of every entry point but :func:`loss_fn`)
 sends each layer's time mix to the ``wkv6`` kernel, a decode step's
 single token included; ``impl="dense"`` is the reference's ``impl="xla"``
-(the chunked form, and the sequential step for a single token).
+(the chunked form, and the sequential step for a single token) and
+:func:`loss_fn`'s default: ``wkv6`` has no backward.
 The decode state is ``{"s": [L,B,H,n,n] f32, "x_tm", "xc_tm": [L,B,d]}``
 in the cache type, O(1) in ``max_len``, and written in place.
 """
@@ -88,7 +90,7 @@ def forward(model: RWKVLM, batch: dict, *,
                                impl=impl))
 
 
-def loss_fn(model: RWKVLM, batch: dict, *, impl: str = "kernel",
+def loss_fn(model: RWKVLM, batch: dict, *, impl: str = "dense",
             aux_weight: float = 0.0) -> torch.Tensor:
     """Mean next-token CE against ``batch["labels"]``, with gradients
     (``aux_weight`` unused, as in the reference)."""

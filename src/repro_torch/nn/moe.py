@@ -13,8 +13,9 @@ the capacity ``C = max(1, int(S * k / E * capacity_factor))`` are
 dropped.  :func:`moe_route` returns these integer results (``idx``,
 ``keep``, ``C``) so that they can be held equal to the reference's.
 
-On the card both data movements are gathers, so the layer is
-deterministic (no atomics):
+Both data movements are gathers (``linear.take_rows``, whose backward
+is the same bits on every run), so the layer is deterministic, its
+gradients included:
 
 - dispatch: slot ``c`` of expert ``e`` reads the pair at sorted position
   ``start_e + c`` when ``c`` is below the expert's count, else holds
@@ -35,7 +36,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .linear import Dense
+from .linear import Dense, take_rows
 
 __all__ = ["MoE", "Route", "moe_route", "moe_apply", "capacity"]
 
@@ -125,7 +126,8 @@ def moe_apply(p: MoE, x: torch.Tensor, *, top_k: int,
     src = torch.div(r.order, top_k, rounding_mode="floor")    # pair -> token
     tok = src.gather(1, at.reshape(B, E * C).clamp(max=SK - 1))
     rows = torch.arange(B, device=x.device)[:, None]
-    xe = x[rows, tok].reshape(B, E, C, d) * filled[..., None].to(x.dtype)
+    xe = take_rows(x.reshape(B * S, d), rows * S + tok).reshape(
+        B, E, C, d) * filled[..., None].to(x.dtype)
     h = F.silu(torch.einsum("becd,edf->becf", xe, p.gate)) \
         * torch.einsum("becd,edf->becf", xe, p.up)
     ye = torch.einsum("becf,efd->becd", h, p.down).reshape(B, E * C, d)
@@ -138,7 +140,8 @@ def moe_apply(p: MoE, x: torch.Tensor, *, top_k: int,
     slot = se * C + torch.clamp_max(pos, C - 1)
     wt = r.w.reshape(B, SK).to(x.dtype).gather(1, r.order).gather(1, flat)
     wt = wt * r.keep.gather(1, flat).to(x.dtype)
-    contrib = ye[rows, slot] * wt[..., None]
+    contrib = take_rows(ye.reshape(B * E * C, d), rows * (E * C) + slot) \
+        * wt[..., None]
     contrib = contrib.reshape(B, S, top_k, d)
     out = contrib[:, :, 0]
     for i in range(1, top_k):

@@ -2,7 +2,7 @@
 
     PYTHONPATH=src python -m repro_torch.profile_main_path [--out DIR]
         [--only gsampler,dt_one_shot,corpus,train_step,serving,qwen3_8b,
-                rwkv6_3b,qwen3_moe_235b,hymba_15b]
+                rwkv6_3b,qwen3_moe_235b,hymba_15b,lm_train_step]
 
 Slice 1: answers the smoke grid (6 CNNs x 5 parts x 4 budgets, batch 64,
 nmax 64) with the G-Sampler (paper config) and with the DT one-shot
@@ -22,7 +22,10 @@ after a 1024-token prefill of batch 4, run 8 greedy decode steps
 (``decode_step``); slice 11 adds qwen3_moe_235b at full width, 4 of its
 94 layers (the same phases), and hymba_15b at full width and depth
 (scoring 2 x 512 tokens: its SSM scan is a Python loop over positions,
-whose trace grows with them).  Each phase
+whose trace grows with them).  Slice 12: one training step of gemma3_1b
+at full width in f32 (``launch.train.make_local_train_step`` on a batch
+of 8 x 128, at the ``grad_accum`` the mapper chooses under 24 MB; phase
+``lm_train_step``).  Each phase
 runs once to warm up, once timed without the profiler and once under
 ``torch.profiler``.  ``--only`` runs the named phases alone, so that one
 mapper's wall can be compared between two trees in fresh processes.
@@ -168,7 +171,7 @@ def main(argv=None) -> int:
                     help="directory for the chrome traces")
     ap.add_argument("--only", default="gsampler,dt_one_shot,corpus,"
                     "train_step,serving,qwen3_8b,rwkv6_3b,qwen3_moe_235b,"
-                    "hymba_15b", help="comma-separated phases to run (the "
+                    "hymba_15b,lm_train_step", help="comma-separated phases to run (the "
                     "LMs' name both their scoring and decode phases)")
     args = ap.parse_args(argv)
     only = set(args.only.split(","))
@@ -223,7 +226,35 @@ def main(argv=None) -> int:
     for arch, (mod, S, layers) in LM_PHASES.items():
         if arch in only:
             lm_phases(arch, mod, rng, dev, out_dir, S=S, layers=layers)
+    if "lm_train_step" in only:
+        print(json.dumps(lm_train_step(dev, out_dir)))
     return 0
+
+
+def lm_train_step(dev, out_dir: pathlib.Path) -> dict:
+    """One full-width f32 training step of gemma3_1b (batch 8 x 128) at the
+    mapper's ``grad_accum``, profiled."""
+    from . import optim
+    from .launch import train as lt
+    cfg = get_config("gemma3_1b")
+    ga = lt.mapper_microbatch(cfg, seq_len=128, global_batch=8,
+                              act_budget_mb=24.0, device=dev)["grad_accum"]
+    net = lm.init(cfg, seed=0, dtype=torch.float32, device=dev)
+    tx = optim.adamw(optim.cosine_with_warmup(3e-4, 20, 200),
+                     weight_decay=0.01, max_grad_norm=1.0)
+    state = [tx.init(dtm.param_tree(net))]
+    step = lt.make_local_train_step(cfg, tx, grad_accum=ga)
+    batch = lt.make_batch_fn(cfg, seq_len=128, global_batch=8,
+                             device=dev)(0)
+
+    def one():
+        _, state[0], _ = step(net, state[0], batch)
+
+    r = profile_phase("lm_train_step", one, out_dir)
+    r.update(grad_accum=ga, tokens=8 * 128)
+    del net, state
+    torch.cuda.empty_cache()
+    return r
 
 
 if __name__ == "__main__":

@@ -1026,3 +1026,129 @@ def test_s2s_episode_rows_do_not_depend_on_width(dev):
         one = run(np.array([i]))
         for k in keys:
             assert torch.equal(one[k][0], full[k][i]), (k, i)
+
+
+# -- LM training (slice 12) --------------------------------------------------
+
+def _grad_inputs(dev):
+    g = torch.Generator(device=dev).manual_seed(0)
+    q = torch.randn(1, 130, 4, 64, device=dev, generator=g)
+    kv = torch.randn(1, 130, 2, 64, device=dev, generator=g)
+    r, k, v, w = torch.rand(4, 1, 9, 2, 64, device=dev, generator=g).unbind(0)
+    u = torch.rand(2, 64, device=dev, generator=g)
+    s0 = torch.zeros(1, 2, 64, 64, device=dev)
+    return {"flash_attention": (fa.flash_attention, (q, kv, kv)),
+            "flash_decode": (fd.flash_decode, (q[:, :1], kv, kv, 100)),
+            "wkv6": (rk.wkv6, (r, k, v, w, u, s0))}
+
+
+@pytest.mark.parametrize("name", ["flash_attention", "flash_decode", "wkv6"])
+def test_kernels_refuse_inputs_that_require_grad_on_card(dev, name):
+    """A kernel writes a fresh tensor and has no backward: under grad mode
+    an input that requires grad raises (and launches nothing); under
+    ``no_grad`` the same call launches once."""
+    fn, args = _grad_inputs(dev)[name]
+    mod = {"flash_attention": fa, "flash_decode": fd, "wkv6": rk}[name]
+    grad_args = [a.clone().requires_grad_() if isinstance(a, torch.Tensor)
+                 and a.is_floating_point() else a for a in args]
+    mod.reset_launches()
+    with pytest.raises(RuntimeError, match="no backward"):
+        fn(*grad_args)
+    assert mod.STATS.launches == 0
+    with torch.no_grad():
+        fn(*grad_args)
+    torch.cuda.synchronize()
+    assert mod.STATS.launches == 1
+
+
+@pytest.mark.parametrize("arch", ["gemma3_1b", "rwkv6_3b", "qwen3_moe_235b"])
+def test_default_loss_gradients_on_card_match_cpu(dev, arch):
+    """The default ``loss_fn``'s gradients on the card equal the same
+    weights' and batch's on the CPU (the path the CPU tests hold to
+    ``jax.grad``): each leaf within 2e-4 of its largest CPU gradient (the
+    CPU tests' ``GRAD_TOL``), the loss within rtol 2e-4, all finite, none
+    all zero; no kernel is launched, and ``impl="kernel"`` refuses."""
+    from repro_torch.checkpoint import (lm_params_from_reference,
+                                        lm_train_state_to_reference)
+    from repro_torch.core.model import param_tree
+    from repro_torch.launch import train as lt
+    from repro_torch.models import get_model
+    from repro_torch.optim.adamw import adamw
+    cfg = get_config(arch, reduced=True)
+    mod = get_model(cfg)
+    model = mod.init(cfg, seed=0, dtype=torch.float32, device=dev)
+    host = lm_params_from_reference(lm_train_state_to_reference(
+        model, adamw(1e-3).init(param_tree(model)), 0)["params"], cfg,
+        device="cpu")
+
+    def grads(m, device):
+        batch = lt.make_batch_fn(cfg, seq_len=64, global_batch=4,
+                                 device=device)(0)
+        loss = mod.loss_fn(m, batch)
+        return float(loss.detach()), torch.autograd.grad(
+            loss, list(param_tree(m).values()))
+    for m in (fa, fd, rk):
+        m.reset_launches()
+    loss, got = grads(model, dev)
+    want_loss, want = grads(host, "cpu")
+    assert loss == pytest.approx(want_loss, rel=2e-4)
+    for a, b in zip(got, want):
+        assert bool(torch.isfinite(a).all()) and bool(a.any())
+        assert float((a.cpu() - b).abs().max()) <= 2e-4 * float(
+            b.abs().max())
+    assert fa.STATS.launches == fd.STATS.launches == rk.STATS.launches == 0
+    with pytest.raises(RuntimeError, match="no backward"):
+        mod.loss_fn(model, lt.make_batch_fn(cfg, seq_len=64, global_batch=4,
+                                            device=dev)(0), impl="kernel")
+
+
+def test_take_rows_backward_on_card_is_deterministic_and_linear(dev):
+    """``nn.linear.take_rows`` at 65536 Zipf ids into 1000 rows of 256:
+    the forward is the plain gather's bit for bit, the backward the same
+    bits three times, within f32 summation error of the f64 sum, and its
+    peak memory a few [n, d] buffers (not [n, n])."""
+    from repro_torch.nn.linear import take_rows
+    rng = np.random.default_rng(0)
+    n, rows, d = 65536, 1000, 256
+    table = torch.as_tensor(rng.normal(size=(rows, d)), dtype=torch.float32,
+                            device=dev).requires_grad_()
+    ids = torch.as_tensor(rng.zipf(1.3, size=n) % rows, device=dev)
+    g = torch.as_tensor(rng.normal(size=(n, d)), dtype=torch.float32,
+                        device=dev)
+    assert torch.equal(take_rows(table, ids), table[ids])
+    got = []
+    for _ in range(3):
+        out = take_rows(table, ids)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        got.append(torch.autograd.grad(out, table, g)[0])
+        torch.cuda.synchronize()
+        assert torch.cuda.max_memory_allocated() - base <= 8 * n * d * 4
+    assert all(torch.equal(got[0], x) for x in got[1:])
+    exact = torch.zeros(rows, d, dtype=torch.float64, device=dev).index_add_(
+        0, ids, g.double())
+    scale = torch.zeros_like(exact).index_add_(0, ids, g.double().abs())
+    assert ((got[0].double() - exact).abs() <= 17 * 2.0 ** -24 * scale).all()
+
+
+def test_lm_training_crash_and_resume_is_bit_exact_on_card(dev, tmp_path):
+    """``launch.train`` on the card (reduced gemma3_1b, MoE and RWKV6):
+    crashed at step 10 and restarted, it ends on the straight run's
+    parameters, moments and loss bit for bit (the row gathers' backward is
+    deterministic)."""
+    from repro_torch.core.model import param_tree
+    from repro_torch.launch import train as lt
+    for arch in ("gemma3_1b", "qwen3_moe_235b", "rwkv6_3b"):
+        kw = dict(reduced=True, steps=20, device=dev)
+        a, _ = lt.train(arch, ckpt_dir=str(tmp_path / arch / "a"), **kw)
+        with pytest.raises(RuntimeError, match="simulated node failure"):
+            lt.train(arch, ckpt_dir=str(tmp_path / arch / "b"), crash_at=10,
+                     **kw)
+        b, _ = lt.train(arch, ckpt_dir=str(tmp_path / arch / "b"), **kw)
+        assert b.start_step == 11 and a.losses[-1] == b.losses[-1]
+        assert a.losses[-1][1] < a.losses[0][1]
+        for x, y in ((param_tree(a.model), param_tree(b.model)),
+                     (a.opt_state.mu, b.opt_state.mu),
+                     (a.opt_state.nu, b.opt_state.nu)):
+            assert all(torch.equal(x[k], y[k]) for k in x), arch

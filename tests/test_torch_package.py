@@ -18,7 +18,7 @@ from repro_torch.core import infer, model as dtm, polish, portfolio, train
 from repro_torch.core import a2c, baselines, optimal, seq2seq
 from repro_torch.configs import get_config
 from repro_torch.kernels import _build, fusion_eval as fe
-from repro_torch.launch import serve_greedy
+from repro_torch.launch import serve_greedy, train as launch_train
 from repro_torch.models import encdec, hymba, lm, rwkv_lm
 from repro_torch import serving
 from repro_torch.workloads import tiny_cnn
@@ -28,7 +28,8 @@ PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
     [ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_cuda.py",
      ROOT / "examples" / "quickstart_torch.py",
      ROOT / "examples" / "serve_mapper_torch.py",
-     ROOT / "examples" / "serve_llm_torch.py"]
+     ROOT / "examples" / "serve_llm_torch.py",
+     ROOT / "examples" / "train_with_mapper_torch.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro", "_torch_parity")
 
 
@@ -60,7 +61,8 @@ def test_port_imports_no_jax_and_no_reference(path):
                                     "models.encdec", "models.registry",
                                     "nn.moe", "nn.ssm", "nn.losses",
                                     "workloads.lm_workloads",
-                                    "launch.serve"])
+                                    "launch.serve", "launch.train", "data",
+                                    "runtime", "optim.compression"])
 def test_each_layer_imports_first(module):
     """``nn`` imports the attention kernels, and ``kernels.fusion_eval``
     imports ``core``, whose DT imports ``nn``: each must import first in a
@@ -133,6 +135,11 @@ _ENTRY_POINTS = {
         get_config("qwen3_8b", reduced=True), 1, 8),
     "serve_greedy": lambda: serve_greedy("qwen3_8b", batch=1, prompt_len=4,
                                          gen_len=2),
+    "launch.train": lambda: launch_train.train(
+        "gemma3_1b", steps=1, ckpt_dir="/nonexistent"),
+    "mapper_microbatch": lambda: launch_train.mapper_microbatch(
+        get_config("gemma3_1b", reduced=True), seq_len=8, global_batch=2,
+        act_budget_mb=8.0),
     "rwkv_lm.init": lambda: rwkv_lm.init(get_config("rwkv6_3b", reduced=True)),
     "rwkv_lm.init_decode_state": lambda: rwkv_lm.init_decode_state(
         get_config("rwkv6_3b", reduced=True), 1, 8),
