@@ -179,7 +179,19 @@ Phases, each of which raises on failure (the script then exits non-zero):
    through and crashed at step 10 and restarted, parameters and moments
    bit-identical; one reduced ``train(use_mapper=True)`` step each for
    rwkv6_3b, qwen3_moe_235b, hymba_15b, whisper_base and qwen2_vl_72b,
-   the default ``loss_fn``'s gradients ``impl="dense"``'s bit for bit.
+   the default ``loss_fn``'s gradients ``impl="dense"``'s bit for bit;
+23. the distributed half, on a one-rank NCCL group (a ``HashStore``, no
+   TCP port) destroyed at the end: the transfer path on
+   ``data_parallel_mesh()`` (the VGG16/ResNet18 grid corpus, its
+   ``fusion_eval`` launches equal to the CPU's evaluations; 300
+   data-parallel DT steps and ``fine_tune(mesh=)`` on MnasNet, both
+   bit-equal to ``mesh=None``); ``MapperEngine`` with every visible card
+   as replicas on phase 7's requests, bit-identical to no replicas;
+   ``build_train_step`` at gemma3_1b full width (FSDP2 over 'data')
+   against ``make_local_train_step``, ms a step and peak; the dry-run's
+   argument bytes and FLOPs equal to that real step's, its predicted peak
+   beside the card's; ``build_prefill`` + ``build_decode_step`` at
+   qwen3_8b full width serving phase 10's tokens.
 
 The last lines are the card's ``nvidia-smi`` name and power limit, a JSON
 line with each kernel's launches, error and times, and
@@ -590,7 +602,7 @@ def attention_kernels(dev, parent=None) -> dict:
             big[f"B{B} S{S} hd{hd} x{scale:g}"] = (got, twin)
             del q, k, v, exact
         torch.cuda.empty_cache()
-    print(f"[8/22] flash_attention == plain on {len(fa_cases)} shapes (JAX "
+    print(f"[8/23] flash_attention == plain on {len(fa_cases)} shapes (JAX "
           f"sweep x f32/bf16 x causal/non-causal/window 96, one tile of 64 "
           f"and 128 rows at hd 64 and 128, GQA 4:1 and 8:1, ragged S/T "
           f"77/150, qwen3_8b heads at S {SCORE_S} and at ragged S "
@@ -934,7 +946,7 @@ def self_check(dev, arch: str, served: dict, phase: int, *,
     text = logits_held(f"self-check {arch}", got, logits, toks)
     par = (", parent's flash_attention " + " / ".join(
         f"{x:.4f}" for x in parent_walls) + " s" if parent_walls else "")
-    print(f"[{phase}/22] self-check {arch}: f32 forward over "
+    print(f"[{phase}/23] self-check {arch}: f32 forward over "
           f"{tuple(next(iter(batch.values())).shape)} (wall " + " / ".join(
               f"{x:.4f}" for x in walls) + f" s{par}; launches "
           f"{launched(n)}) reproduces the served logits at {rows}: "
@@ -1058,7 +1070,7 @@ def wkv_kernel(dev) -> dict:
             main_err[case], tiles[case] = float(diff.max()), tile
         del got, ins, want
     sc32, sc16, pre = main_cases
-    print(f"[12/22] wkv6 == plain on {len(cases)} shapes (JAX sweep, strong "
+    print(f"[12/23] wkv6 == plain on {len(cases)} shapes (JAX sweep, strong "
           f"decay U{strong}, T not whole chunks, strided, bf16 r/k/v, "
           f"{RWKV} scoring in f32 and bf16 at tiles {tiles[sc32]} and "
           f"{tiles[sc16]}, the serving prefill at tile {tiles[pre]}, the "
@@ -1190,7 +1202,7 @@ def paper_loop(dev, grid: dict, gsampler: dict, untrained: dict):
           np.array_equal(np.stack(kept), corpus.rtg),
           "corpus: a replay of the pipeline keeps other rows")
     sp = np.array([m[2] for m in corpus.meta])
-    print(f"[6/22] corpus: generate_teacher_corpus over {C} conditions "
+    print(f"[6/23] corpus: generate_teacher_corpus over {C} conditions "
           f"(GA pop {ga.population} x {ga.generations}, top {top_k} + "
           f"{jitter} jittered copies of the top {top_k // 2}, {cand.shape[1]}"
           f" candidates a condition): wall {corpus_wall:.3f} s, "
@@ -1463,7 +1475,7 @@ def mapper_serving(dev, model) -> int:
                              np.array([resp[i].valid for i in idx])),
               f"served valid differs from the kernel re-score (bucket {nb})")
     hits = sum(r.cached for r in resp)
-    print(f"[7/22] serving on the card: repro_torch.serve(trained DT, "
+    print(f"[7/23] serving on the card: repro_torch.serve(trained DT, "
           f"warm=6 CNNs), default ServingConfig: warmup {warm_wall:.3f} s, "
           f"{sigs} signatures {sorted(eng._compiled)}; stream of "
           f"{STREAM_N} requests (6 CNNs x 5 parts x budgets "
@@ -1785,7 +1797,7 @@ def paper_table(dev, trained) -> int:
                       for k in twice[0]),
                   "two S2S trainings of one seed differ on the card")
     table_wall = time.perf_counter() - t_phase
-    print(f"[16/22] Table 1 on VGG16 (PAPER_ACCEL, nmax {TABLE1_NMAX}; "
+    print(f"[16/23] Table 1 on VGG16 (PAPER_ACCEL, nmax {TABLE1_NMAX}; "
           f"baselines at {TABLE1_SAMPLES} samples, pop {BASELINE_POP}, seed 0"
           f"; A2C {A2C_EPISODES} episodes; sequence models trained "
           f"{SEQ_STEPS} steps on {TRAIN_MB} MB, one shot by the fused "
@@ -1972,7 +1984,7 @@ def scoring(dev, arch: str, phase: int, B: int = SCORE_B, S: int = SCORE_S,
         del again
     if probe is not None:
         note += "; " + probe(model, batch)
-    print(f"[{phase}/22] scoring {arch} ({cfg.n_layers} layers, d "
+    print(f"[{phase}/23] scoring {arch} ({cfg.n_layers} layers, d "
           f"{cfg.d_model}, {n_params / 1e9:.3f}e9 params, bf16, seeded "
           f"random weights; init {t_init:.2f} s) over {B}x{S}"
           f"{' embeds' if cfg.embed_inputs else ' tokens'}"
@@ -2065,7 +2077,7 @@ def serving(dev, arch: str, phase: int, *, prompt: int = PROMPT,
           f"served {arch} tokens or logits malformed")
     shapes = ", ".join(f"{k} {tuple(v.shape)}"
                        for k, v in out["inputs"].items())
-    print(f"[{phase}/22] serving {arch}{label} ({cfg.n_layers} layers) f32, "
+    print(f"[{phase}/23] serving {arch}{label} ({cfg.n_layers} layers) f32, "
           f"impl {impl}, batch {SERVE_B}, prefill {shapes}, gen {gen}: "
           f"prefill {out['t_prefill_s']:.4f} s, decode "
           f"{out['t_decode_s']:.4f} s, {out['tok_per_s']:.2f} tok/s; wall "
@@ -2158,7 +2170,7 @@ def lm_mapping(dev, phase: int, cpu_jobs: dict) -> int:
     pop = gs.GSamplerConfig().population
     tile = fe.tile_for(1, pop, MAP_NMAX, _build.sm_count(
         torch.cuda.current_device()))
-    print(f"[{phase}/22] LM mapping: lm_workload(seq 4096, batch 32, "
+    print(f"[{phase}/23] LM mapping: lm_workload(seq 4096, batch 32, "
           f"prefill) of the ten archs, host gsampler_search (pop {pop}) at "
           f"{MAP_BUDGET_MB:g} MB, nmax {MAP_NMAX}, PAPER_ACCEL, through "
           f"fusion_eval (tile {tile}), each equal to the same search on the "
@@ -2343,7 +2355,7 @@ def lm_training(dev) -> dict:
           f"22 mapper: the card's search {mapped} differs from the CPU's "
           f"{cpu}")
     ga = mapped["grad_accum"]
-    print(f"[22/22] LM training: {TRAIN_ARCH} mapper (lm_workload train, "
+    print(f"[22/23] LM training: {TRAIN_ARCH} mapper (lm_workload train, "
           f"seq {TRAIN_S}, batch {TRAIN_B}, {TRAIN_BUDGET_MB:g} MB, nmax "
           f"{lt.MAPPER_NMAX}, host G-Sampler of 20 generations on "
           f"fusion_eval): micro-batch {mapped['micro_batch']}, grad_accum "
@@ -2485,6 +2497,355 @@ def lm_training(dev) -> dict:
     return out
 
 
+# -- phase 23: the distributed half ------------------------------------------
+TRANSFER_MB = (16, 32, 48, 64)  # the transfer example's pre-training grid
+FINE_MB = (25, 45)              # ... and its MnasNet fine-tuning budgets
+TRANSFER_ANSWER_MB = (25.0, 35.0, 55.0)   # ... and the conditions it answers
+TRANSFER_STEPS = 300            # the example's pre-training steps
+DIST_STEPS = 4                  # build_train_step steps at full width
+DIST_DECODE = 8                 # tokens served through the builders
+# build_train_step (FSDP2 at one rank) against make_local_train_step on
+# the same batches: a loss within this share of the local step's
+FSDP_LOSS_RTOL = 1e-5
+# the card's peak over the dry-run's predicted one (arguments + the
+# MemTracker temporaries of the step and its update), stated before the
+# first run: FSDP2's gathered copies and the allocator's rounding lie on
+# top of the prediction
+PEAK_BAND = (0.95, 1.25)
+DIST_CKPT = ROOT / "build" / "smoke_transfer_ckpt"
+
+
+def _count_cpu_runs(fn):
+    """``fn()`` with every ``fusion_eval`` evaluation counted (on the CPU
+    each one is a call of the plain twin through ``fusion_eval._run``):
+    ``(result, count)``."""
+    from repro_torch.kernels import fusion_eval as fe
+    n = [0]
+    orig = fe._run
+
+    def counting(form, inputs):
+        n[0] += 1
+        return orig(form, inputs)
+    fe._run = counting
+    try:
+        return fn(), n[0]
+    finally:
+        fe._run = orig
+
+
+def distributed_half(dev, phase10_tokens) -> dict:
+    """Phase 23: the distributed half on a world-size-1 NCCL group (a
+    ``HashStore``, no TCP port), destroyed at the end.  (a) the transfer
+    path on ``data_parallel_mesh()``: the grid corpus of VGG16/ResNet18
+    (``fusion_eval`` launches equal to the CPU's evaluations),
+    TRANSFER_STEPS data-parallel steps bit-equal to ``mesh=None``, and
+    ``fine_tune(mesh=)`` on MnasNet, bit-equal too; (b) ``MapperEngine``
+    with every visible card as replicas, bit-identical to no replicas on
+    phase 7's requests; (c) ``build_train_step`` at gemma3_1b full width
+    (``remat="full"``) against ``make_local_train_step`` (no remat); (d) ``build_prefill`` +
+    ``build_decode_step`` at qwen3_8b full width: phase 10's tokens, and
+    its ``flash_decode`` launches; (e) ``dryrun.lower_cell`` on a (1, 1)
+    mesh at (c)'s cell: argument bytes and FLOPs equal (c)'s real step's,
+    the predicted peak beside the card's.  Returns the launches of each
+    part."""
+    import shutil
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch import optim
+    from repro_torch.configs import Shape, get_config
+    from repro_torch.core import (accel, dataset as ds_, env as env_,
+                                  gsampler as gs, infer, model as dtm, train)
+    from repro_torch.distributed.sharding import data_parallel_mesh
+    from repro_torch.launch import dryrun, steps, train as lt
+    from repro_torch.launch.mesh import MeshSpec, init_mesh, process_group
+    from repro_torch.models import get_model
+    from repro_torch.serving import (MapperEngine, MapRequest, ReplicaGroup,
+                                     ServingConfig)
+    from repro_torch.workloads import CNN_ZOO, mnasnet_b1, resnet18, vgg16
+    from repro_torch.workloads.grid import serving_stream
+    out = {}
+    ga = gs.GSamplerConfig()
+    want_fe = 18 + ga.generations * (1 + ga.repair_tries) + 1
+    t_phase = time.perf_counter()
+    with process_group(dev):
+        backend = "nccl" if dev.type == "cuda" else "gloo"
+        check(dist.get_backend() == backend and dist.get_world_size() == 1,
+              f"23: not a one-rank {backend} group")
+        mesh = data_parallel_mesh(device=dev)
+
+        # -- (a) the transfer path on the data-parallel mesh ---------------
+        nets = [vgg16(), resnet18()]
+        kw = dict(batch=BATCH, budgets_mb=list(TRANSFER_MB), max_steps=NMAX,
+                  seed=0)
+        reset_counts()
+        t0 = time.perf_counter()
+        corpus = ds_.generate_teacher_corpus(nets, accel.PAPER_ACCEL,
+                                             device=dev, **kw)
+        torch.cuda.synchronize()
+        corpus_wall = time.perf_counter() - t0
+        out["23 corpus"] = n = counts()
+        expect_counts("23 corpus", n, fusion_eval=want_fe)
+        t0 = time.perf_counter()
+        cpu_corpus, cpu_evals = _count_cpu_runs(
+            lambda: ds_.generate_teacher_corpus(nets, accel.PAPER_ACCEL,
+                                                device="cpu", **kw))
+        cpu_wall = time.perf_counter() - t0
+        check(cpu_evals == n["fusion_eval"], f"23 corpus: {n['fusion_eval']}"
+              f" fusion_eval launches, the CPU evaluated {cpu_evals} times")
+        cfg = dtm.DTConfig(hw_dim=accel.HW_FEATURE_DIM)
+        tc = train.TrainConfig(steps=TRANSFER_STEPS, batch_size=16,
+                               ckpt_every=TRANSFER_STEPS // 2)
+        shutil.rmtree(DIST_CKPT, ignore_errors=True)
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dp_model, dp_log = train.train_model(
+            dtm.dt_loss, dtm.dt_init(cfg, seed=0, device=dev), corpus, tc,
+            mesh=mesh, ckpt_dir=str(DIST_CKPT / "pre"), device=dev)
+        torch.cuda.synchronize()
+        dp_wall = time.perf_counter() - t0
+        out["23 DP training"] = n = counts()
+        expect_counts("23 DP training", n)
+        t0 = time.perf_counter()
+        plain_model, plain_log = train.train_model(
+            dtm.dt_loss, dtm.dt_init(cfg, seed=0, device=dev), corpus,
+            train.TrainConfig(steps=TRANSFER_STEPS, batch_size=16),
+            device=dev)
+        torch.cuda.synchronize()
+        plain_wall = time.perf_counter() - t0
+        same = lambda a, b: all(torch.equal(x, y) for x, y in zip(
+            dtm.param_tree(a).values(), dtm.param_tree(b).values()))
+        diff = [(a, b) for a, b in zip(dp_log["losses"], plain_log["losses"])
+                if a != b]
+        check(not diff and same(dp_model, plain_model), f"23 DP training: "
+              f"the one-rank data-parallel run differs from mesh=None "
+              f"(losses {diff[:3]})")
+        reset_counts()
+        ft_corpus = ds_.generate_teacher_corpus(
+            [mnasnet_b1()], accel.PAPER_ACCEL, batch=BATCH,
+            budgets_mb=list(FINE_MB), max_steps=NMAX, seed=1, device=dev)
+        ftc = train.TrainConfig(steps=TRANSFER_STEPS // 10, batch_size=16,
+                                lr=1e-4, warmup=5)
+        t0 = time.perf_counter()
+        tuned, ft_log = train.fine_tune(
+            dtm.dt_loss, str(DIST_CKPT / "pre"), ft_corpus, ftc,
+            template=dtm.dt_init(cfg, seed=0, device=dev), mesh=mesh,
+            device=dev)
+        torch.cuda.synchronize()
+        ft_wall = time.perf_counter() - t0
+        plain_tuned, _ = train.fine_tune(dtm.dt_loss, plain_model, ft_corpus,
+                                         ftc, device=dev)
+        out["23 fine-tune"] = n = counts()
+        expect_counts("23 fine-tune", n, fusion_eval=want_fe)
+        check(same(tuned, plain_tuned), "23 fine-tune: the data-parallel "
+              "run from the checkpoint differs from mesh=None's")
+        shutil.rmtree(DIST_CKPT, ignore_errors=True)
+        wl = mnasnet_b1()
+        answers = []
+        reset_counts()
+        for mb in TRANSFER_ANSWER_MB:
+            env = env_.FusionEnv(wl, accel.PAPER_ACCEL, batch=BATCH,
+                                 budget_bytes=mb * MB, nmax=NMAX, device=dev)
+            df = infer.dnnfuser_infer_fused(tuned, env)
+            g = gs.gsampler_search(env)
+            answers.append(f"{mb:g} MB {df.speedup:.4f}x "
+                           f"(valid {df.valid}) vs G-Sampler "
+                           f"{g.speedup:.4f}x")
+        out["23 answers"] = n = counts()
+        expect_counts("23 answers", n, fusion_eval=n["fusion_eval"])
+        print(f"[23/23] distributed half on a one-rank {backend} group "
+              f"(HashStore): (a) transfer on data_parallel_mesh(): corpus "
+              f"of VGG16+ResNet18 x {TRANSFER_MB} MB, {len(corpus)} rows, "
+              f"{out['23 corpus']['fusion_eval']} fusion_eval launches == "
+              f"{cpu_evals} CPU evaluations ({len(cpu_corpus)} CPU rows), "
+              f"{corpus_wall:.3f} s (CPU {cpu_wall:.2f} s); {TRANSFER_STEPS}"
+              f" DP steps {dp_wall:.2f} s ({dp_wall / TRANSFER_STEPS * 1e3:.3f}"
+              f" ms a step; mesh=None {plain_wall:.2f} s, "
+              f"{plain_wall / TRANSFER_STEPS * 1e3:.3f} ms), losses and "
+              f"parameters bit-equal to mesh=None, final loss "
+              f"{dp_log['final_loss']:.6f}; fine_tune(mesh=) on MnasNet "
+              f"{ftc.steps} steps from the rank-0 checkpoint {ft_wall:.2f} s, "
+              f"bit-equal to mesh=None's, loss {ft_log['final_loss']:.6f}; "
+              f"answers (informative): " + "; ".join(answers))
+
+        # -- (b) engine replicas on phase 7's requests ---------------------
+        zoo = accel.ACCEL_ZOO
+        cnn = {k: CNN_ZOO[k]() for k in sorted(CNN_ZOO)}
+        conds, _ = serving_stream(sorted(zoo), STREAM_N, seed=0)
+        reqs = [MapRequest(cnn[c[0]], c[3], c[2] * MB, zoo[c[1]])
+                for c in conds]
+        group = ReplicaGroup() if dev.type == "cuda" \
+            else ReplicaGroup(devices=[dev])      # a CPU rehearsal
+        reset_counts()
+        t0 = time.perf_counter()
+        base = MapperEngine(tuned, device=dev).serve(reqs)
+        torch.cuda.synchronize()
+        base_wall = time.perf_counter() - t0
+        eng = MapperEngine(tuned, device=dev,
+                           config=ServingConfig(replicas=group))
+        t0 = time.perf_counter()
+        got = eng.serve(reqs)
+        torch.cuda.synchronize()
+        rep_wall = time.perf_counter() - t0
+        out["23 replicas"] = n = counts()
+        expect_counts("23 replicas", n)
+        bad = sum(not _same_response(a, b) for a, b in zip(got, base))
+        check(bad == 0, f"23 replicas: {bad} of {len(reqs)} responses "
+              f"differ from the engine without replicas")
+        rs = eng.stats()["replicas"]
+        check(rs["sharded_calls"] > 0 and sum(rs["rows_per_replica"]) > 0,
+              f"23 replicas: no sharded call ({rs})")
+        print(f"      (b) MapperEngine(replicas=ReplicaGroup(): "
+              f"{group.n} of {torch.cuda.device_count()} visible cards) on "
+              f"phase 7's {len(reqs)} requests with (a)'s fine-tuned DT: "
+              f"every response bit-identical to replicas=None; "
+              f"{rs['sharded_calls']} sharded calls, rows per replica "
+              f"{rs['rows_per_replica']}; {rep_wall:.3f} s (no replicas "
+              f"{base_wall:.3f} s)")
+        del dp_model, plain_model, tuned, plain_tuned, eng
+        torch.cuda.empty_cache()
+
+        # -- (c) build_train_step at full width ----------------------------
+        gcfg = get_config(TRAIN_ARCH)
+        mod = get_model(gcfg)
+        tx = optim.adamw(3e-4, weight_decay=0.01, max_grad_norm=1.0)
+        bf = lt.make_batch_fn(gcfg, seq_len=TRAIN_S, global_batch=TRAIN_B,
+                              device=dev)
+        batches = [{k: v.to(torch.int32) for k, v in bf(i).items()}
+                   for i in range(DIST_STEPS)]
+        model = mod.init(gcfg, seed=0, dtype=torch.float32, device=dev)
+        local = lt.make_local_train_step(gcfg, tx)
+        opt = tx.init(dtm.param_tree(model))
+        want = []
+        for b in batches:
+            model, opt, loss = local(model, opt, b)
+            want.append(float(loss))
+        del model, opt, local, loss
+        torch.cuda.empty_cache()
+        cell = Shape("smoke", TRAIN_S, TRAIN_B, "train")
+        tmesh = init_mesh((1, 1), ("data", "model"), dev.type)
+        step, _ = steps.build_train_step(gcfg, cell, tmesh,
+                                         dtype=torch.float32)
+        torch.cuda.reset_peak_memory_stats()
+        model = step.place(mod.init(gcfg, seed=0, dtype=torch.float32,
+                                    device=dev))
+        opt = step.init_opt(model)
+        reset_counts()
+        losses, walls = [], []
+        for b in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model, opt, loss = step(model, opt, b)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            losses.append(float(loss))
+        out["23 build_train_step"] = n = counts()
+        expect_counts("23 build_train_step", n)
+        peak = torch.cuda.max_memory_allocated()
+        check(all(abs(g - w) <= FSDP_LOSS_RTOL * abs(w)
+                  for g, w in zip(losses, want)),
+              f"23 build_train_step: losses {losses}, make_local_train_step"
+              f" {want}")
+        with FlopCounterMode(display=False) as fc:
+            model, opt, _ = step(model, opt, batches[0])
+        real_flops = float(fc.get_total_flops())
+        real_args = (sum(t.numel() * t.element_size()
+                         for t in step.local_tree(model).values())
+                     + sum(t.numel() * t.element_size()
+                           for tree in (opt.mu, opt.nu)
+                           for t in tree.values())
+                     + sum(t.numel() * t.element_size()
+                           for t in batches[0].values()))
+        ms = float(np.median(walls[1:])) * 1e3
+        bound = train_bound_ms(sum(p.numel() for p in model.parameters()),
+                               TRAIN_B * TRAIN_S)
+        print(f"      (c) build_train_step({TRAIN_ARCH} full width, f32, "
+              f"{TRAIN_B}x{TRAIN_S}, remat full) on a (data 1, model 1) "
+              f"mesh, FSDP2 "
+              f"over 'data': {ms:.2f} ms a step (median of steps 1-"
+              f"{DIST_STEPS - 1}; step 0 {walls[0] * 1e3:.2f} ms), bound "
+              f"{bound:.2f} ms, peak {peak / 2**30:.2f} GiB; losses "
+              + ", ".join(f"{x:.6f}" for x in losses) + " vs "
+              "make_local_train_step's " + ", ".join(f"{x:.6f}" for x in want)
+              + f" (max rel diff {max(abs(g - w) / abs(w) for g, w in zip(losses, want)):.3e}"
+              f", tolerance {FSDP_LOSS_RTOL:g}); launches {launched(n)}")
+        del model, opt, step, loss
+        torch.cuda.empty_cache()
+
+        # -- (e) the dry-run against (c) -----------------------------------
+        t0 = time.perf_counter()
+        rec = dryrun.lower_cell(None, None, mesh=MeshSpec((1, 1), (
+            "data", "model")), cfg=gcfg, shape=cell, dtype=torch.float32)
+        dry_wall = time.perf_counter() - t0
+        mem = rec["memory"]
+        check(mem["argument_size_in_bytes"] == real_args, f"23 dry-run: "
+              f"argument bytes {mem['argument_size_in_bytes']}, the real "
+              f"step's {real_args}")
+        check(rec["flops_total"] == real_flops == rec["flops_per_device"],
+              f"23 dry-run: FLOPs {rec['flops_total']}, FlopCounterMode on "
+              f"the real step {real_flops}")
+        ratio = peak / mem["peak_size_in_bytes"]
+        print(f"      (e) dryrun.lower_cell on a (1, 1) MeshSpec at (c)'s "
+              f"cell ({dry_wall:.2f} s on the host): argument bytes "
+              f"{mem['argument_size_in_bytes']} == the real step's, FLOPs "
+              f"{rec['flops_total']:.6e} == FlopCounterMode on the real "
+              f"step; predicted peak {mem['peak_size_in_bytes'] / 2**30:.2f}"
+              f" GiB (temporaries {mem['temp_size_in_bytes'] / 2**30:.2f}), "
+              f"the card's {peak / 2**30:.2f} GiB: ratio {ratio:.4f}, "
+              f"{'within' if PEAK_BAND[0] <= ratio <= PEAK_BAND[1] else 'OUTSIDE'}"
+              f" the band {PEAK_BAND}; roofline (datasheet, prediction): "
+              f"compute {rec['roofline']['t_compute'] * 1e3:.2f} ms, memory "
+              f"{rec['roofline']['t_memory'] * 1e3:.2f} ms -> "
+              f"{rec['roofline']['bottleneck']}")
+
+        # -- (d) prefill + decode through the builders ---------------------
+        qcfg = family_config(ARCH)
+        qshape = Shape("smoke", PROMPT + GEN + 8, SERVE_B, "decode")
+        prefill, _ = steps.build_prefill(qcfg, qshape, tmesh,
+                                         dtype=torch.float32)
+        decode, _ = steps.build_decode_step(qcfg, qshape, tmesh,
+                                            dtype=torch.float32)
+        t0 = time.perf_counter()
+        model = prefill.place(get_model(qcfg).init(
+            qcfg, seed=0, dtype=torch.float32, device=dev))
+        decode.place(model)
+        torch.cuda.synchronize()
+        t_init = time.perf_counter() - t0
+        prompt = np.random.default_rng(0).integers(0, qcfg.vocab,
+                                                   (SERVE_B, PROMPT))
+        reset_counts()
+        t0 = time.perf_counter()
+        logits, state = prefill(model, {"tokens": torch.as_tensor(
+            prompt, device=dev)})
+        tok = logits[:, -1].argmax(-1)[:, None]
+        toks = [tok]
+        for _ in range(DIST_DECODE - 1):
+            tok, state = decode(model, state, {"tokens": tok})
+            toks.append(tok)
+        got = torch.cat([t.long() for t in toks], 1).cpu().numpy()
+        serve_wall = time.perf_counter() - t0
+        out["23 builders serving"] = n = counts()
+        L = qcfg.n_layers
+        expect_counts("23 builders serving", n,
+                      flash_decode=L * (DIST_DECODE - 1))
+        check(np.array_equal(got, phase10_tokens[:, :DIST_DECODE]),
+              f"23 builders: tokens {got.tolist()} differ from phase 10's "
+              f"{phase10_tokens[:, :DIST_DECODE].tolist()}")
+        print(f"      (d) build_prefill + build_decode_step({ARCH} full "
+              f"width, f32, batch {SERVE_B}, prompt {PROMPT}, cache "
+              f"{qshape.seq_len}) on the (1, 1) mesh: {DIST_DECODE} tokens "
+              f"== phase 10's serve_greedy's, {serve_wall:.3f} s (place "
+              f"{t_init:.2f} s); launches {launched(n)}")
+        del model, state, logits, prefill, decode
+        torch.cuda.empty_cache()
+    check(not dist.is_initialized(), "23: the process group outlived the "
+          "phase")
+    print(f"      phase 23 {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch port "
@@ -2515,7 +2876,7 @@ def main(argv=None) -> int:
     # -- 1. device ----------------------------------------------------------
     kind = torch.cuda.get_device_name(0)
     smi = smi_line()
-    print(f"[1/22] device: {kind} | nvidia-smi: {smi} | torch "
+    print(f"[1/23] device: {kind} | nvidia-smi: {smi} | torch "
           f"{torch.__version__} CUDA {torch.version.cuda} | devices "
           f"{torch.cuda.device_count()}")
 
@@ -2528,7 +2889,7 @@ def main(argv=None) -> int:
     parent = ab.finish_build(parent_job) if parent_job else None
     fe.compiled_backend_supported()
     infos = {src: _build.build_info(src) for src in sources}
-    print(f"[2/22] build: " + ", ".join(
+    print(f"[2/23] build: " + ", ".join(
         f"{src}.cu {infos[src]['build_s']:.2f} s" for src in sources) +
         f" (in parallel; cached={infos[fe.SOURCE]['cached']}), probe ok, "
         f"phase {time.perf_counter() - t0:.2f} s")
@@ -2628,7 +2989,7 @@ def main(argv=None) -> int:
         raw = fe.fusion_eval_raw(*args)
         check(all(torch.equal(g, w) for g, w in zip(raw[:6], want[1:7])),
               f"{label}: fusion_eval_raw differs from the raw form")
-        print(f"[3/22] kernel == plain on {label} [{Cc}x{pop}x{P}], "
+        print(f"[3/23] kernel == plain on {label} [{Cc}x{pop}x{P}], "
               f"forms cost, stats, raw: bit-equal, CostOut included")
         if label.startswith("main-path"):
             main_args[pop] = args
@@ -2680,7 +3041,7 @@ def main(argv=None) -> int:
           (C, 4, NMAX), "G-Sampler result malformed")
     check(res.valid[:, 0].mean() > 0.5, "G-Sampler found too few valid "
           "strategies")
-    print(f"[4/22] G-Sampler pop {cfg.population} x {cfg.generations} gens "
+    print(f"[4/23] G-Sampler pop {cfg.population} x {cfg.generations} gens "
           f"over {C} conditions: wall {gs_wall:.3f} s, fusion_eval launches "
           f"{gs_launches}, mean best speedup {best.mean():.4f}, valid share "
           f"{res.valid[:, 0].mean():.4f}")
@@ -2718,7 +3079,7 @@ def main(argv=None) -> int:
           "DT n_groups differs")
     dt_valid = out["valid"].float().mean().item()
     dt_speed = out["speedup"][out["valid"]].mean().item() if dt_valid else 0.0
-    print(f"[5/22] DT one shot (3x2x128, hw_dim 10, seeded random weights) "
+    print(f"[5/23] DT one shot (3x2x128, hw_dim 10, seeded random weights) "
           f"over {C} conditions: wall {dt_wall:.4f} s, valid share "
           f"{dt_valid:.4f}, mean valid speedup {dt_speed:.4f}; re-score "
           f"matches (rtol 1e-5); G-Sampler/DT wall ratio "
@@ -2745,6 +3106,7 @@ def main(argv=None) -> int:
     fa_launches = scoring(dev, ARCH, 9, flash_attention=L,
                           fa_tensor_core=L)["launches"]["flash_attention"]
     served = serving(dev, ARCH, 10, gen=GEN, flash_decode=L * (GEN - 1))
+    phase10_tokens = served["tokens"][:, :DIST_DECODE].copy()   # phase 23
     fwd = self_check(dev, ARCH, served, 11, parent=parent,
                      flash_attention=L, fa_tensor_core_tf32x3=L)
     fd_launches = served["launches"]["flash_decode"]
@@ -2832,11 +3194,12 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     new.update(lm_training(dev))
     print(f"      phase 22 {time.perf_counter() - t0:.1f} s")
+    new.update(distributed_half(dev, phase10_tokens))
     missing = sorted(USED - HELD, key=str)
     check(not missing, f"the main path launched the attention kernels at "
           f"{len(missing)} shapes that phase 8 did not hold against their "
           f"plain versions: {missing}")
-    print(f"      the main path (phases 9-21) launched the attention kernels "
+    print(f"      the main path (phases 9-23) launched the attention kernels "
           f"at {len(USED)} shapes (dtype, dims, causal/window; decode kv_len "
           f"and plan), each held against its plain version in phase 8 "
           f"({len(HELD)} held)")

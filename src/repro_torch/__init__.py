@@ -77,8 +77,8 @@ from __future__ import annotations
 import torch
 
 # name -> home submodule of every public symbol, resolved lazily on first
-# access (``import repro_torch`` stays cheap): the port's subset of the
-# reference's public table (no replicas).
+# access (``import repro_torch`` stays cheap): the reference's public
+# table.
 _PUBLIC = {
     # the paper core: model + one-shot inference
     "DTConfig": "core", "dt_init": "core", "dt_loss": "core",
@@ -98,7 +98,8 @@ _PUBLIC = {
     "MapperEngine": "serving", "MapRequest": "serving",
     "MapResponse": "serving", "StrategyCache": "serving",
     "AsyncMapperScheduler": "serving", "MapFuture": "serving",
-    "AdmissionError": "serving", "DriftMonitor": "serving",
+    "AdmissionError": "serving", "ReplicaGroup": "serving",
+    "DriftMonitor": "serving",
     "DriftReport": "serving", "RefreshWorker": "serving",
     # workloads
     "Workload": "workloads", "CNN_ZOO": "workloads",

@@ -179,14 +179,17 @@ def lm_train_state_from_reference(flat: dict[str, np.ndarray],
 
 
 def lm_train_state_to_reference(model, opt_state: AdamWState,
-                                step: int) -> dict:
+                                step: int, *, params=None) -> dict:
     """The reference's LM training state ``{"params", "opt", "step"}`` of
     the port's ``model`` and ``opt_state`` after ``step``: host arrays
     under the reference's stacked paths, ready for ``save_pytree`` or
     ``Checkpointer.save_async`` (the inverse of
-    :func:`lm_train_state_from_reference`)."""
+    :func:`lm_train_state_from_reference`).  ``params`` (a
+    ``param_tree``-keyed dict) stands in for the model's own tensors,
+    e.g. a sharded model's leaves gathered whole."""
     cfg = model.cfg
-    return {"params": _stack(param_tree(model), cfg),
+    tree = param_tree(model) if params is None else params
+    return {"params": _stack(tree, cfg),
             "opt": AdamWState(np.int32(opt_state.step),
                               _stack(opt_state.mu, cfg),
                               _stack(opt_state.nu, cfg)),

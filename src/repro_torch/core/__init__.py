@@ -48,8 +48,8 @@ from .optimal import (OptimalResult, brute_force_optimal,
 # ``repro_torch.serving`` is imported first.
 _SERVING_API = ("MapperEngine", "MapRequest", "MapResponse", "StrategyCache",
                 "AsyncMapperScheduler", "MapFuture", "AdmissionError",
-                "ServingConfig", "DriftConfig", "DriftMonitor", "DriftReport",
-                "RefreshWorker")
+                "ReplicaGroup", "ServingConfig", "DriftConfig",
+                "DriftMonitor", "DriftReport", "RefreshWorker")
 
 
 def __getattr__(name):

@@ -78,7 +78,7 @@ def make_local_train_step(cfg, tx, *, grad_accum: int = 1,
     model_mod = registry.get_model(cfg)
     step = make_train_step(
         lambda model, b: model_mod.loss_fn(model, b, impl=impl), tx,
-        grad_accum)
+        grad_accum=grad_accum)
     if grad_accum == 1:
         return step
 

@@ -32,6 +32,7 @@ from torch import nn
 from .. import resolve_device
 from ..configs import ArchConfig
 from ..nn import Block, Embedding, LayerNorm, fused_linear_ce
+from ..nn.transformer import remat_call
 
 __all__ = ["EncDec", "MODEL", "DEC_FRAC", "POS_ROWS", "init", "forward",
            "loss_fn", "init_decode_state", "prefill", "decode_step"]
@@ -87,16 +88,18 @@ def init(cfg: ArchConfig, *, seed: int = 0, dtype=torch.bfloat16,
         return EncDec(cfg, generator=gen, device=dev, dtype=dtype).eval()
 
 
-def _enc(model: EncDec, embeds: torch.Tensor, impl: str) -> torch.Tensor:
+def _enc(model: EncDec, embeds: torch.Tensor, impl: str,
+         remat: str = "none") -> torch.Tensor:
     """The encoder memory [B, S, d] of frame embeddings [B, S, d]."""
     x = embeds + _sinusoid(embeds.shape[1], model.cfg.d_model, embeds.dtype,
                            embeds.device)
     for blk in model.enc_blocks:
-        x, _ = blk(x, causal=False, impl=impl)
+        x, _ = remat_call(blk, x, causal=False, impl=impl, remat=remat)
     return model.enc_ln(x)
 
 
-def _dec(model: EncDec, tokens, memory, *, state=None, impl: str):
+def _dec(model: EncDec, tokens, memory, *, state=None, impl: str,
+         remat: str = "none"):
     """The decoder's final hidden states [B, S, d] for ``tokens`` [B, S]
     at positions ``state["idx"] ..`` (0 without a state); the state's
     caches are written in place."""
@@ -108,7 +111,8 @@ def _dec(model: EncDec, tokens, memory, *, state=None, impl: str):
         cache = None
         if state is not None:
             cache = {"k": state["k"][i], "v": state["v"][i], "idx": pos0}
-        x, _ = blk(x, causal=True, memory=memory, cache=cache, impl=impl)
+        x, _ = remat_call(blk, x, causal=True, memory=memory, cache=cache,
+                          impl=impl, remat=remat)
     if state is not None:
         state["idx"] += S
     return model.dec_ln(x)
@@ -128,11 +132,12 @@ def forward(model: EncDec, batch: dict, *,
 
 
 def loss_fn(model: EncDec, batch: dict, *, impl: str = "dense",
-            aux_weight: float = 0.0) -> torch.Tensor:
+            remat: str = "none", aux_weight: float = 0.0) -> torch.Tensor:
     """Mean next-token CE of the decoder against ``batch["labels"]`` [B,
-    S_dec], with gradients (``aux_weight`` unused, as in the reference)."""
-    memory = _enc(model, batch["embeds"], impl)
-    x = _dec(model, batch["tokens"], memory, impl=impl)
+    S_dec], with gradients (``aux_weight`` unused, as in the reference;
+    ``remat`` as ``nn.transformer.remat_call``'s)."""
+    memory = _enc(model, batch["embeds"], impl, remat)
+    x = _dec(model, batch["tokens"], memory, impl=impl, remat=remat)
     return fused_linear_ce(x, model.tok.emb.T, batch["labels"])
 
 

@@ -30,6 +30,7 @@ from .. import resolve_device
 from ..configs import ArchConfig
 from ..nn import (MHA, MLP, SSM, Dense, Embedding, RMSNorm, fused_linear_ce,
                   rope_freqs, ssm_init_state)
+from ..nn.transformer import remat_call
 
 __all__ = ["Hymba", "HymbaBlock", "MODEL", "init", "forward", "loss_fn",
            "init_decode_state", "prefill", "decode_step"]
@@ -92,7 +93,8 @@ def init(cfg: ArchConfig, *, seed: int = 0, dtype=torch.bfloat16,
         return Hymba(cfg, generator=gen, device=dev, dtype=dtype).eval()
 
 
-def _run(model: Hymba, ids, pos0: int = 0, *, state=None, impl: str):
+def _run(model: Hymba, ids, pos0: int = 0, *, state=None, impl: str,
+         remat: str = "none"):
     """Embed ``ids`` [B, S] at positions ``pos0 ..`` and run the stack;
     ``state`` (the decode state) is written in place."""
     cfg = model.cfg
@@ -105,8 +107,8 @@ def _run(model: Hymba, ids, pos0: int = 0, *, state=None, impl: str):
             kv = {"k": state["kv"]["k"][i], "v": state["kv"]["v"][i],
                   "idx": state["kv"]["idx"]}
             ssm = {key: state["ssm"][key][i] for key in ("h", "cwin")}
-        x, new = blk(x, cos=cos, sin=sin, window=window, kv=kv, ssm=ssm,
-                     impl=impl)
+        x, new = remat_call(blk, x, cos=cos, sin=sin, window=window, kv=kv,
+                            ssm=ssm, impl=impl, remat=remat)
         if state is not None:
             for key, val in new.items():
                 state["ssm"][key][i].copy_(val)
@@ -124,11 +126,11 @@ def forward(model: Hymba, batch: dict, *,
 
 
 def loss_fn(model: Hymba, batch: dict, *, impl: str = "dense",
-            aux_weight: float = 0.0) -> torch.Tensor:
+            remat: str = "none", aux_weight: float = 0.0) -> torch.Tensor:
     """Mean next-token CE against ``batch["labels"]``, with gradients (no
     aux loss: ``aux_weight`` is accepted and unused, as in the
-    reference)."""
-    x = _run(model, batch["tokens"], impl=impl)
+    reference; ``remat`` as ``nn.transformer.remat_call``'s)."""
+    x = _run(model, batch["tokens"], impl=impl, remat=remat)
     return fused_linear_ce(x, model.head.w, batch["labels"])
 
 

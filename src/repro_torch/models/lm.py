@@ -43,6 +43,7 @@ from .. import resolve_device
 from ..configs import ArchConfig
 from ..nn import (MHA, Block, Dense, Embedding, MoE, fused_linear_ce,
                   make_norm, moe_apply, mrope_freqs, rope_freqs)
+from ..nn.transformer import remat_call
 
 __all__ = ["LM", "MoEBlock", "MODEL", "init", "forward", "forward_aux",
            "loss_fn", "init_decode_state", "prefill", "decode_step"]
@@ -142,7 +143,8 @@ def _rope_tables(cfg: ArchConfig, batch: dict, positions: torch.Tensor):
     return mrope_freqs(pos_thw, cfg.hd, cfg.mrope_sections, cfg.rope_theta)
 
 
-def _run(model: LM, x, cos, sin, *, caches=None, impl: str):
+def _run(model: LM, x, cos, sin, *, caches=None, impl: str,
+         remat: str = "none"):
     """The block stack over x [B,S,d] -> (x, summed MoE aux loss, f32);
     ``caches`` the decode state, written in place."""
     cfg = model.cfg
@@ -153,23 +155,24 @@ def _run(model: LM, x, cos, sin, *, caches=None, impl: str):
             cache = {"k": caches["k"][i], "v": caches["v"][i],
                      "idx": caches["idx"]}
         if cfg.n_experts:
-            x, _, aux_l = blk(x, cos=cos, sin=sin, window=window,
-                              cache=cache, impl=impl)
+            x, _, aux_l = remat_call(blk, x, cos=cos, sin=sin,
+                                     window=window, cache=cache, impl=impl,
+                                     remat=remat)
             aux = aux + aux_l
         else:
-            x, _ = blk(x, cos=cos, sin=sin, window=window, cache=cache,
-                       impl=impl)
+            x, _ = remat_call(blk, x, cos=cos, sin=sin, window=window,
+                              cache=cache, impl=impl, remat=remat)
     if caches is not None:
         caches["idx"] += x.shape[1]
     return x, aux
 
 
-def _hidden(model: LM, batch: dict, impl: str):
+def _hidden(model: LM, batch: dict, impl: str, remat: str = "none"):
     """Final hidden states before ``ln_f`` [B,S,d] and the aux loss."""
     x = _inputs(model, batch)
     positions = torch.arange(x.shape[1], device=x.device)
     cos, sin = _rope_tables(model.cfg, batch, positions)
-    return _run(model, x, cos, sin, impl=impl)
+    return _run(model, x, cos, sin, impl=impl, remat=remat)
 
 
 def _logits(model: LM, x: torch.Tensor) -> torch.Tensor:
@@ -192,10 +195,11 @@ def forward(model: LM, batch: dict, *, impl: str = "kernel") -> torch.Tensor:
 
 
 def loss_fn(model: LM, batch: dict, *, impl: str = "dense",
-            aux_weight: float = 0.01) -> torch.Tensor:
+            remat: str = "none", aux_weight: float = 0.01) -> torch.Tensor:
     """Mean next-token CE against ``batch["labels"]`` [B, S] plus
-    ``aux_weight * aux / n_layers``, with gradients."""
-    x, aux = _hidden(model, batch, impl)
+    ``aux_weight * aux / n_layers``, with gradients; ``remat`` as
+    ``nn.transformer.remat_call``'s."""
+    x, aux = _hidden(model, batch, impl, remat)
     ce = fused_linear_ce(model.ln_f(x), model.head_w(), batch["labels"])
     return ce + aux_weight * aux / max(model.cfg.n_layers, 1)
 

@@ -28,6 +28,7 @@ from .. import resolve_device
 from ..configs import ArchConfig
 from ..nn import Dense, Embedding, LayerNorm, RWKVBlock, fused_linear_ce
 from ..nn.rwkv import rwkv_init_state
+from ..nn.transformer import remat_call
 
 __all__ = ["RWKVLM", "MODEL", "init", "forward", "loss_fn",
            "init_decode_state", "prefill", "decode_step"]
@@ -63,14 +64,14 @@ def init(cfg: ArchConfig, *, seed: int = 0, dtype=torch.bfloat16,
         return RWKVLM(cfg, generator=gen, device=dev, dtype=dtype).eval()
 
 
-def _run(model: RWKVLM, x, *, states=None, impl: str):
+def _run(model: RWKVLM, x, *, states=None, impl: str, remat: str = "none"):
     """The block stack over x [B,T,d]; ``states`` the decode state,
     written in place."""
     for i, blk in enumerate(model.blocks):
         st = None
         if states is not None:
             st = {key: states[key][i] for key in ("s", "x_tm", "xc_tm")}
-        x, new = blk(x, state=st, impl=impl)
+        x, new = remat_call(blk, x, state=st, impl=impl, remat=remat)
         if states is not None:
             for key, val in new.items():
                 states[key][i].copy_(val)
@@ -91,10 +92,11 @@ def forward(model: RWKVLM, batch: dict, *,
 
 
 def loss_fn(model: RWKVLM, batch: dict, *, impl: str = "dense",
-            aux_weight: float = 0.0) -> torch.Tensor:
+            remat: str = "none", aux_weight: float = 0.0) -> torch.Tensor:
     """Mean next-token CE against ``batch["labels"]``, with gradients
-    (``aux_weight`` unused, as in the reference)."""
-    x = _run(model, model.embed(batch["tokens"]), impl=impl)
+    (``aux_weight`` unused, as in the reference; ``remat`` as
+    ``nn.transformer.remat_call``'s)."""
+    x = _run(model, model.embed(batch["tokens"]), impl=impl, remat=remat)
     return fused_linear_ce(model.ln_f(x), model.head.w, batch["labels"])
 
 

@@ -3,7 +3,9 @@
 
 The router runs in f32: softmax over the experts, the top k, their weights
 renormalised to sum to one, and the Switch load-balancing loss ``E *
-sum_e (share of routed slots to e) * (mean router probability of e)``.
+sum_e (share of routed slots to e) * (mean router probability of e)``,
+the shares taken over the global batch under a data-parallel train step
+(:func:`_data_parallel_sum`).
 
 Dispatch is grouped per sequence, as in the reference: within a row of the
 batch the ``S * k`` (token, choice) pairs are sorted by expert id with a
@@ -88,6 +90,29 @@ def capacity(S: int, top_k: int, n_experts: int,
     return max(1, int(S * top_k / n_experts * capacity_factor))
 
 
+def _data_parallel_sum(counts: torch.Tensor):
+    """``(counts summed over the data ranks, their number)``: the ranks
+    of the ambient mesh's 'data' axis (``launch.steps`` runs the train
+    step's loss under ``mesh_ctx``), else ``(counts, 1)``.
+
+    Each rank then takes ``E * sum(me_r * ce)``: its own mean router
+    probability ``me_r`` (which carries the gradient) against the global
+    share ``ce``.  The ranks' mean of that is the aux loss over the
+    global batch, and so is the mean of their gradients, since ``ce``
+    carries none: one integer all-reduce, no differentiable collective.
+    """
+    from ..distributed.sharding import ambient_mesh
+    from ..launch.mesh import axis_sizes
+    mesh = ambient_mesh()
+    if mesh is None or not hasattr(mesh, "get_group") \
+            or axis_sizes(mesh).get("data", 1) == 1:
+        return counts, 1
+    import torch.distributed as dist
+    dp = mesh["data"]
+    dist.all_reduce(counts, group=dp.get_group())
+    return counts, dp.size()
+
+
 def moe_route(p: MoE, x: torch.Tensor, *, top_k: int,
               capacity_factor: float = 1.25) -> Route:
     """Route x [B, S, d] to ``top_k`` of ``p``'s experts."""
@@ -97,8 +122,11 @@ def moe_route(p: MoE, x: torch.Tensor, *, top_k: int,
     w, idx = torch.topk(probs, top_k, dim=-1)
     w = w / torch.clamp_min(w.sum(-1, keepdim=True), 1e-9)
     me = probs.mean((0, 1))
-    ce = torch.bincount(idx.reshape(-1), minlength=E).float() \
-        / (B * S * top_k)
+    flat = idx.reshape(-1)
+    counts = torch.zeros(E, dtype=torch.int64, device=x.device).scatter_add_(
+        0, flat, torch.ones_like(flat))
+    counts, ranks = _data_parallel_sum(counts)
+    ce = counts.float() / (B * S * top_k * ranks)
     aux = E * torch.sum(me * ce)
     SK = S * top_k
     C = capacity(S, top_k, E, capacity_factor)

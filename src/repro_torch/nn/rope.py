@@ -37,7 +37,7 @@ def mrope_freqs(pos_thw: torch.Tensor, head_dim: int,
                                         device=pos_thw.device) / half))
     sec = torch.repeat_interleave(
         torch.arange(3, device=pos_thw.device),
-        torch.as_tensor(sections, device=pos_thw.device))
+        torch.as_tensor(sections, device=pos_thw.device), output_size=half)
     pos = pos_thw.to(torch.float32).movedim(0, -1)          # [..., seq, 3]
     ang = pos[..., sec] * inv                                # [..., seq, half]
     return torch.cos(ang), torch.sin(ang)

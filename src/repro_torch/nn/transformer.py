@@ -6,7 +6,8 @@ approximation, so the GELU MLP uses ``F.gelu(..., approximate="tanh")``.
 The norm is RMSNorm or LayerNorm.  A block built with ``cross_attn``
 (whisper's decoder) adds ``lnx`` and ``xattn``, attending to the encoder
 memory after the self-attention.  The reference's scanned stack becomes a
-Python loop over per-layer blocks in the models that use them.
+Python loop over per-layer blocks in the models that use them, each
+block called through :func:`remat_call`.
 """
 from __future__ import annotations
 
@@ -18,7 +19,24 @@ from .attention import MHA
 from .linear import Dense
 from .norms import LayerNorm, RMSNorm
 
-__all__ = ["MLP", "Block", "make_norm"]
+__all__ = ["MLP", "Block", "make_norm", "remat_call"]
+
+
+def remat_call(blk, *args, remat: str = "none", **kw):
+    """``blk(*args, **kw)`` under the reference's ``remat`` of a scanned
+    stack (``stack_apply``): ``"none"`` keeps the block's activations for
+    the backward; ``"full"`` keeps its inputs and recomputes it there
+    (non-reentrant ``torch.utils.checkpoint``; the blocks draw no random
+    numbers, so no RNG state is kept).  Under ``no_grad`` both run the
+    block as it is."""
+    if remat not in ("none", "full"):
+        raise ValueError(f"remat {remat!r}: 'none' or 'full' (the "
+                         f"reference's 'dots' is not carried)")
+    if remat == "none" or not torch.is_grad_enabled():
+        return blk(*args, **kw)
+    from torch.utils.checkpoint import checkpoint
+    return checkpoint(blk, *args, use_reentrant=False,
+                      preserve_rng_state=False, **kw)
 
 
 def make_norm(kind: str, d: int, *, device=None, dtype=torch.float32):

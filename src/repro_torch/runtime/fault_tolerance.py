@@ -14,14 +14,21 @@ of either package resumes in the other.
 ``StragglerMonitor`` records steps slower than ``timeout_factor`` x the
 trailing median (on one host it records and exposes the events).
 
-Not carried over yet: the reference's ``shardings`` argument (a restore
-placed on a device mesh), which waits for the port of ``distributed/``.
+``shardings`` (the reference's restore placed on a device mesh) is a
+placement with the sharding plan, as ``launch.steps.build_train_step``'s
+step is: a restored state is placed by it (``shardings.place(model,
+opt_state)``: each leaf and moment sharded on the plan's FSDP dim over
+the mesh's 'data' axis; at world size 1, whole on the model's device),
+and a checkpoint is gathered whole by it (``full_tree``, ``gather_opt``,
+collectives every rank joins) and written by rank 0 only.
 """
 from __future__ import annotations
 
 import statistics
 import time
 from dataclasses import dataclass, field
+
+import torch.distributed as dist
 
 from ..checkpoint.checkpointer import Checkpointer, restore_pytree
 from ..checkpoint.reference import (lm_train_state_from_reference,
@@ -59,17 +66,21 @@ class TrainLoop:
     ``launch.train.make_local_train_step`` makes it) and ``batch_fn(step)
     -> batch`` (tensors on the model's device).  With a checkpoint under
     ``ckpt_dir`` the loop starts from it, on a model rebuilt on the given
-    model's device (``self.model``)."""
+    model's device (``self.model``) and placed by ``shardings`` when
+    given (module docstring)."""
 
     def __init__(self, step_fn, model, opt_state, batch_fn, *,
                  ckpt_dir, ckpt_every: int = 50, keep: int = 3,
-                 log_every: int = 50):
+                 shardings=None, log_every: int = 50):
         self.step_fn = step_fn
         self.batch_fn = batch_fn
         self.ckpt = Checkpointer(ckpt_dir, keep=keep)
         self.ckpt_every = ckpt_every
         self.log_every = log_every
         self.monitor = StragglerMonitor()
+        self.shardings = shardings
+        self.writer = not (dist.is_available() and dist.is_initialized()) \
+            or dist.get_rank() == 0
 
         # resume-from-latest: a fresh job restores nothing
         latest = self.ckpt.latest_step()
@@ -78,6 +89,8 @@ class TrainLoop:
             device = next(model.parameters()).device
             model, opt_state, done = lm_train_state_from_reference(
                 flat, model.cfg, device=device)
+            if shardings is not None:
+                model, opt_state = shardings.place(model, opt_state)
             self.start_step = done + 1
         else:
             self.start_step = 0
@@ -99,11 +112,26 @@ class TrainLoop:
                 self.losses.append((step, float(loss)))
             self.monitor.observe(step, time.perf_counter() - t0)
             if step % self.ckpt_every == 0 or step == n_steps - 1:
-                self.ckpt.save_async(step, lm_train_state_to_reference(
-                    self.model, self.opt_state, step))
+                self._save(step)
             if crash_at is not None and step == crash_at:
                 self.ckpt.wait()
+                if self.shardings is not None and dist.is_initialized():
+                    dist.barrier()
                 raise RuntimeError(f"simulated node failure at step {step}")
             step += 1
         self.ckpt.wait()
+        if self.shardings is not None and dist.is_initialized():
+            dist.barrier()          # every rank returns once the file is whole
         return self.model, self.opt_state
+
+    def _save(self, step: int) -> None:
+        if self.shardings is None:
+            state = lm_train_state_to_reference(self.model, self.opt_state,
+                                                step)
+        else:
+            state = lm_train_state_to_reference(
+                self.model, self.shardings.gather_opt(self.model,
+                                                      self.opt_state),
+                step, params=self.shardings.full_tree(self.model))
+        if self.writer:
+            self.ckpt.save_async(step, state)

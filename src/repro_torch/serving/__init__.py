@@ -15,9 +15,7 @@ deployment record, ``drift.DriftMonitor`` watches the served condition
 stream through a bounded replay buffer, and ``refresh.RefreshWorker``
 turns drift reports into a G-Sampled teacher corpus, an off-path
 fine-tune, and a quality-gated hot swap (``MapperEngine.swap_params``).
-
-Not ported: the reference's data-parallel ``ReplicaGroup``
-(``serving/replicas.py``).
+``replicas.ReplicaGroup`` serves one engine's ticks on several devices.
 """
 from .bucketing import (batch_bucket, budget_bucket, coalesce,
                         default_nmax_buckets, nmax_bucket, pow2_buckets,
@@ -28,11 +26,12 @@ from .drift import (DriftMonitor, DriftReport, ReplayBuffer, ReplayRecord,
                     region_key_predicate)
 from .engine import MapperEngine, MapRequest, MapResponse
 from .refresh import RefreshWorker, probe_score
+from .replicas import ReplicaGroup
 from .scheduler import AdmissionError, AsyncMapperScheduler, MapFuture
 
 __all__ = ["MapperEngine", "MapRequest", "MapResponse", "StrategyCache",
            "CACHE_FORMAT", "AsyncMapperScheduler", "MapFuture",
-           "AdmissionError", "ServingConfig", "DriftConfig",
+           "AdmissionError", "ReplicaGroup", "ServingConfig", "DriftConfig",
            "DriftMonitor", "DriftReport", "ReplayBuffer", "ReplayRecord",
            "region_key_predicate", "RefreshWorker", "probe_score",
            "batch_bucket", "budget_bucket", "coalesce",

@@ -12,10 +12,6 @@ The older scattered kwargs keep working: each constructor shims them into
 a ``ServingConfig`` field for field, so kwarg construction is identical to
 config construction, and emits a :class:`DeprecationWarning` once per
 kwarg per process.
-
-Left out: data-parallel ``replicas`` (the reference's
-``serving/replicas.py``, which rides ``distributed/``); a config that asks
-for them raises.
 """
 from __future__ import annotations
 
@@ -53,8 +49,8 @@ class ServingConfig:
 
     Engine fields mirror the older ``MapperEngine`` kwargs; scheduler
     fields the ``AsyncMapperScheduler`` ones; ``drift`` the closed-loop
-    monitor.  ``replicas`` must stay ``None``: the port serves on one
-    card."""
+    monitor.  ``replicas`` is a replica count or a prebuilt
+    ``ReplicaGroup``; ``None`` serves single-device."""
     # -- engine --
     repair: bool = True
     nmax_buckets: tuple | None = None
@@ -74,7 +70,7 @@ class ServingConfig:
     approx_budget_sharing: bool = False
     cache_path: object = None
     checkpoint_id: str | None = None
-    # -- replicas (not ported) --
+    # -- replicas --
     replicas: object = None
     # -- scheduler --
     max_queue: int = 1024
@@ -84,13 +80,6 @@ class ServingConfig:
     drift: DriftConfig = field(default_factory=DriftConfig)
     known_accels: tuple[str, ...] = ()
     known_workloads: tuple[str, ...] = ()
-
-    def __post_init__(self):
-        if self.replicas is not None:
-            raise ValueError(
-                f"ServingConfig(replicas={self.replicas!r}): the port serves "
-                f"on one card; data-parallel replicas (serving/replicas.py) "
-                f"come with distributed/, ROADMAP queue 1 item 8")
 
 
 _ENGINE_FIELDS = ("repair", "nmax_buckets", "max_coalesce",

@@ -12,7 +12,8 @@ the one below:
    shape bucketing (``bucketing``: pow2 request batches x ``nmax``
    buckets), oversized-tick chunking (``bucketing.pow2_chunks``), and a
    solved-strategy cache with a persistent cross-process file layer
-   (``cache.StrategyCache``);
+   (``cache.StrategyCache``), and optional data-parallel device replicas
+   (``replicas.ReplicaGroup``);
  - **front door** (``scheduler.AsyncMapperScheduler``,
    ``examples/serve_mapper_torch.py``): accepts a request stream, forms
    ticks, calls :meth:`MapperEngine.serve`.
@@ -40,6 +41,7 @@ one copy of its results to the host.  The optional refinement stages
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import hashlib
 import time
@@ -63,6 +65,7 @@ from .bucketing import (MB, batch_bucket, budget_bucket, coalesce,
 from .cache import StrategyCache
 from .config import ServingConfig, _ENGINE_FIELDS, config_from_kwargs
 from .drift import DriftMonitor, ReplayRecord
+from .replicas import ReplicaGroup
 
 __all__ = ["MapRequest", "MapResponse", "MapperEngine"]
 
@@ -163,7 +166,8 @@ class MapperEngine:
     strategy-cache budget identity (exact f32 by default); ``cache_path``
     -- persistent strategy-cache file, read-through loaded at init;
     ``checkpoint_id`` -- cache identity override (defaults to a model
-    fingerprint); ``repair`` -- the inference-time budget guard;
+    fingerprint); ``replicas`` -- a ``ReplicaGroup`` or replica count for
+    data-parallel multi-device serving; ``repair`` -- the inference-time budget guard;
     ``polish`` / ``escalate`` -- the opt-in refinement stages; ``drift`` /
     ``known_accels`` / ``known_workloads`` -- the closed-loop monitor."""
 
@@ -217,6 +221,15 @@ class MapperEngine:
         self.monitor = DriftMonitor(config.drift,
                                     known_accels=config.known_accels,
                                     known_workloads=config.known_workloads)
+        replicas = config.replicas
+        if isinstance(replicas, int):
+            replicas = ReplicaGroup(replicas)
+        self.replicas = replicas
+        if replicas is not None and replicas.n > self.max_coalesce:
+            raise ValueError(f"{replicas.n} replicas need max_coalesce >= "
+                             f"{replicas.n}, got {self.max_coalesce}")
+        self._models = (replicas.replicate_params(model)
+                        if replicas is not None else [model])
         self.scheduler = None                    # backref set by the scheduler
         self._packed: dict = {}                  # (name, bpe, nmax) -> tensors
         self._hw_rows: dict = {}                 # accel -> (hw [10], feats)
@@ -366,6 +379,8 @@ class MapperEngine:
     def _serve_chunk(self, nb: int, group: list, out: list) -> None:
         C = len(group)
         Cb = batch_bucket(C)
+        if self.replicas is not None:
+            Cb = self.replicas.pad_width(Cb)     # >= one lane per replica
         rows = [self._pack(r.workload, r.accel, nb) for _, r, _ in group]
         hw_raw, hw_feat = zip(*(self._hw_row(r.accel) for _, r, _ in group))
         batches = [np.float32(r.batch) for _, r, _ in group]
@@ -387,10 +402,7 @@ class MapperEngine:
         hwf = None if hw_feat[0] is None else torch.stack(hw_feat)
         batches = np.asarray(batches, np.float32)
         budgets = np.asarray(budgets, np.float32)
-        res = _host(_infer._fused_batch(
-            self.model, wl, torch.as_tensor(batches, device=self.device),
-            torch.as_tensor(budgets, device=self.device), hwv, hwf,
-            repair=self.repair, max_batch=batches.max()))
+        res = self._episode(wl, batches, budgets, hwv, hwf)
         self.device_calls += 1
         self.coalesce_hist[C] = self.coalesce_hist.get(C, 0) + 1
         if self.polish or self.escalate:
@@ -413,6 +425,36 @@ class MapperEngine:
                          else _fits(peak, req_i.budget_bytes))
                 out[i] = MapResponse(req_i.workload.name, *entry,
                                      valid=valid, cached=k > 0)
+
+    def _episode(self, wl: dict, batches: np.ndarray, budgets: np.ndarray,
+                 hwv, hwf) -> dict:
+        """One chunk's batched episode, results on the host.  With
+        replicas, each replica's rows run on its device (every share
+        dispatched before any is read) under the whole chunk's
+        ``max_batch``, so each row meets the same guard as unsplit."""
+        tick = dict(wl, __batches=torch.as_tensor(batches, device=self.device),
+                    __budgets=torch.as_tensor(budgets, device=self.device),
+                    __hw=hwv, __hwf=hwf)
+        max_batch = batches.max()
+        if self.replicas is None:
+            shares = [tick]
+        else:
+            shares = self.replicas.shard_tick(tick, len(batches))
+            self.replicas.account_rows(len(batches))
+        outs = []
+        for i, share in enumerate(shares):
+            if share is None:
+                continue
+            rows = {k: v for k, v in share.items() if not k.startswith("__")}
+            ctx = self.replicas.on(i) if self.replicas is not None \
+                else contextlib.nullcontext()
+            with ctx:
+                outs.append(_infer._fused_batch(
+                    self._models[i], rows, share["__batches"],
+                    share["__budgets"], share["__hw"], share["__hwf"],
+                    repair=self.repair, max_batch=max_batch))
+        hosts = [_host(o) for o in outs]
+        return {k: np.concatenate([h[k] for h in hosts]) for k in hosts[0]}
 
     # -- propose-then-polish escalation --------------------------------------
 
@@ -580,6 +622,8 @@ class MapperEngine:
                     f"checkpoint.upgrade_pytree + a new engine for "
                     f"architecture changes)")
         self.model = new
+        self._models = (self.replicas.replicate_params(new)
+                        if self.replicas is not None else [new])
         self.checkpoint_id = _fingerprint(new)
         self.strategies.context["checkpoint"] = self.checkpoint_id
         n = self.strategies.invalidate(invalidate) if invalidate else 0
@@ -618,7 +662,9 @@ class MapperEngine:
             reps.setdefault(nmax_bucket(w.n + 1, self.nmax_buckets), w)
         for nb, w in sorted(reps.items()):
             for cb in pow2_buckets(cap):
-                if (nb, cb) in self._compiled:
+                eff = cb if self.replicas is None \
+                    else self.replicas.pad_width(cb)
+                if (nb, eff) in self._compiled:
                     continue
                 reqs = [MapRequest(w, 1 + i % 4, (8 + i) * MB, accel)
                         for i in range(cb)]
@@ -664,7 +710,8 @@ class MapperEngine:
                 "saves": self.strategies.saves,
                 "stale_skipped": self.strategies.stale_skipped,
             },
-            "replicas": None,
+            "replicas": (None if self.replicas is None
+                         else self.replicas.stats()),
             "drift": {
                 **self.monitor.stats(),
                 "swaps_accepted": self.swaps_accepted,

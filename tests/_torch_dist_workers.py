@@ -1,0 +1,175 @@
+"""Rank bodies of ``tests/test_torch_distributed.py``, in a module of
+their own so that a spawned rank imports only torch and the port.  Not
+collected by pytest.
+
+Each rank joins a gloo group over a ``file://`` store under the test's
+``tmp_path`` (no TCP port: the suite runs in parallel workers), runs the
+named jobs, and leaves its results in ``out/<job>_<rank>.pt``."""
+import os
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+CPU = "cpu"
+
+
+def run(rank, n, store, out, jobs, inputs):
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            rank=rank, world_size=n)
+    try:
+        for job in jobs:
+            res = globals()[f"_{job}"](rank, n, inputs)
+            torch.save(res, os.path.join(out, f"{job}_{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def _dp_dt(rank, n, inputs):
+    """Data-parallel DT training on the carried reference weights."""
+    from repro_torch.checkpoint import dt_params_from_reference, load_reference
+    from repro_torch.core import dataset as tds, model as tm, train as ttr
+    from repro_torch.distributed.sharding import data_parallel_mesh
+    ds = tds.TrajectoryDataset(**inputs["corpus"])
+    model = dt_params_from_reference(load_reference(inputs["weights"]),
+                                     n_heads=1, device=CPU)
+    mesh = data_parallel_mesh(device=CPU)
+    model, log = ttr.train_model(tm.dt_loss, model, ds,
+                                 ttr.TrainConfig(**inputs["tc"]), mesh=mesh,
+                                 device=CPU)
+    return {"losses": log["losses"],
+            "params": {k: v.detach().clone()
+                       for k, v in tm.param_tree(model).items()}}
+
+
+def _gpipe(rank, n, inputs):
+    """The reference test's ``tanh(x @ W)`` stages, S = n."""
+    from repro_torch.distributed.pipeline import (make_stage_mesh,
+                                                  pipeline_forward)
+    rng = np.random.default_rng(0)
+    S, n_micro, mb, d = n, 8, 2, 16
+    Ws = torch.as_tensor(rng.normal(size=(S, d, d)) / np.sqrt(d),
+                         dtype=torch.float32)
+    xs = torch.as_tensor(rng.normal(size=(n_micro, mb, d)),
+                         dtype=torch.float32)
+    out = pipeline_forward(Ws, xs, lambda W, x: torch.tanh(x @ W),
+                           make_stage_mesh(S, device=CPU),
+                           n_microbatches=n_micro)
+    want = xs
+    for i in range(S):
+        want = torch.tanh(want @ Ws[i])
+    return float((out - want).abs().max())
+
+
+def _fsdp(rank, n, inputs):
+    """``build_train_step`` on a (data=n, model=1) mesh against the
+    one-device step, for each arch of ``inputs["archs"]``."""
+    from repro_torch import optim
+    from repro_torch.configs import Shape, get_config
+    from repro_torch.core.model import param_tree
+    from repro_torch.launch import steps, train as lt
+    from repro_torch.launch.mesh import init_mesh
+    from repro_torch.models import get_model
+    mesh = init_mesh((n, 1), ("data", "model"), CPU)
+    res = {}
+    for arch in inputs["archs"]:
+        cfg = get_config(arch, reduced=True)
+        S, B = 32, 4
+        step, _ = steps.build_train_step(cfg, Shape("t", S, B, "train"),
+                                         mesh, dtype=torch.float32)
+        mod = get_model(cfg)
+        model = step.place(mod.init(cfg, seed=0, dtype=torch.float32,
+                                    device=CPU))
+        opt = step.init_opt(model)
+        ref = mod.init(cfg, seed=0, dtype=torch.float32, device=CPU)
+        tx = optim.adamw(3e-4, weight_decay=0.01, max_grad_norm=1.0)
+        local = lt.make_local_train_step(cfg, tx)
+        ropt = tx.init(param_tree(ref))
+        batch_fn = lt.make_batch_fn(cfg, seq_len=S, global_batch=B,
+                                    device=CPU)
+        losses = []
+        for i in range(3):
+            b = batch_fn(i)
+            model, opt, loss = step(model, opt, b)
+            ref, ropt, rl = local(ref, ropt, b)
+            losses.append((float(loss), float(rl)))
+        full = step.full_tree(model)
+        mu = step.gather_opt(model, opt).mu
+        # where sqrt(v_hat) is within 10x of Adam's eps (1e-8) the update
+        # is ~g / eps: the rounding of a gradient that cancels to ~0 is
+        # lifted to a share of lr
+        atol = inputs["fsdp_atol"][arch]
+        errs = [((full[k].detach() - v.detach()).abs(),
+                 (ropt.nu[k] / (1 - 0.999 ** 3)).sqrt() < 1e-7)
+                for k, v in param_tree(ref).items()]
+        res[arch] = {
+            "losses": losses,
+            "param_err": max(float(torch.where(a, 0.0, e).max())
+                             for e, a in errs),
+            "amplified": sum(int((a & (e > atol)).sum()) for e, a in errs),
+            "amplified_err": max(float(torch.where(a, e, 0.0).max())
+                                 for e, a in errs),
+            "mu_err": max(float((mu[k] - v).abs().max())
+                          for k, v in ropt.mu.items()),
+            "sharded": sum(p.placements[0].dim != 0 for p in
+                           param_tree(model).values())}
+    return res
+
+
+def _loop(rank, n, inputs):
+    """``TrainLoop(shardings=)`` at n ranks: straight against crashed and
+    restarted, bit for bit."""
+    from repro_torch.configs import Shape, get_config
+    from repro_torch.launch import steps, train as lt
+    from repro_torch.launch.mesh import init_mesh
+    from repro_torch.models import get_model
+    from repro_torch.runtime import TrainLoop
+    mesh = init_mesh((n, 1), ("data", "model"), CPU)
+    cfg = get_config("gemma3_1b", reduced=True)
+    S, B = 16, 4
+    batch_fn = lt.make_batch_fn(cfg, seq_len=S, global_batch=B, device=CPU)
+
+    def loop(ckpt):
+        step, _ = steps.build_train_step(cfg, Shape("t", S, B, "train"),
+                                         mesh, dtype=torch.float32)
+        model = step.place(get_model(cfg).init(cfg, seed=0,
+                                               dtype=torch.float32,
+                                               device=CPU))
+        return step, TrainLoop(step, model, step.init_opt(model), batch_fn,
+                               ckpt_dir=ckpt, ckpt_every=2, shardings=step,
+                               log_every=1)
+    step, a = loop(os.path.join(inputs["dir"], "a"))
+    a.run(6)
+    straight = step.full_tree(a.model)
+    _, b = loop(os.path.join(inputs["dir"], "b"))
+    try:
+        b.run(6, crash_at=3)
+    except RuntimeError:
+        pass
+    step, c = loop(os.path.join(inputs["dir"], "b"))
+    start = c.start_step
+    c.run(6)
+    resumed = step.full_tree(c.model)
+    return {"start": start,
+            "equal": all(torch.equal(straight[k], resumed[k])
+                         for k in straight),
+            "losses": (a.losses[-1], c.losses[-1])}
+
+
+def _tp(rank, n, inputs):
+    """A (data=1, model=n) mesh: every builder refuses it."""
+    from repro_torch.configs import Shape, get_config
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import init_mesh
+    mesh = init_mesh((1, n), ("data", "model"), CPU)
+    cfg = get_config("gemma3_1b", reduced=True)
+    msgs = []
+    for build in (steps.build_train_step, steps.build_prefill,
+                  steps.build_decode_step):
+        try:
+            build(cfg, Shape("t", 16, 2, "train"), mesh)
+            msgs.append(None)
+        except NotImplementedError as e:
+            msgs.append(str(e))
+    return msgs

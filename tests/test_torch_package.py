@@ -29,7 +29,9 @@ PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
      ROOT / "examples" / "quickstart_torch.py",
      ROOT / "examples" / "serve_mapper_torch.py",
      ROOT / "examples" / "serve_llm_torch.py",
-     ROOT / "examples" / "train_with_mapper_torch.py"]
+     ROOT / "examples" / "train_with_mapper_torch.py",
+     ROOT / "examples" / "transfer_new_workload_torch.py",
+     ROOT / "tests" / "_torch_dist_workers.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro", "_torch_parity")
 
 
@@ -62,7 +64,11 @@ def test_port_imports_no_jax_and_no_reference(path):
                                     "nn.moe", "nn.ssm", "nn.losses",
                                     "workloads.lm_workloads",
                                     "launch.serve", "launch.train", "data",
-                                    "runtime", "optim.compression"])
+                                    "runtime", "optim.compression",
+                                    "distributed", "distributed.pipeline",
+                                    "launch.mesh", "launch.steps",
+                                    "launch.dryrun", "launch.cost_analysis",
+                                    "serving.replicas"])
 def test_each_layer_imports_first(module):
     """``nn`` imports the attention kernels, and ``kernels.fusion_eval``
     imports ``core``, whose DT imports ``nn``: each must import first in a
@@ -303,11 +309,11 @@ def test_register_backend_lets_a_third_model_ride():
 
 # names of ``repro.core.__all__`` the port leaves out (ROADMAP, "Not
 # carried over": the XLA/Pallas evaluator switch, the JAX pytree forms of
-# the hw row and the action codecs; queue 1 item 6: the replica group),
-# and names only the port exports (its torch modules and tree helpers)
+# the hw row and the action codecs), and names only the port exports (its
+# torch modules and tree helpers)
 NOT_CARRIED = {"HwVec", "as_hw", "hw_from_array", "encode_action_jnp",
                "decode_action_jnp", "default_evaluator",
-               "set_default_evaluator", "ReplicaGroup"}
+               "set_default_evaluator"}
 PORT_ONLY = {"DT", "S2S", "param_tree", "load_param_tree",
              "naive_uniform_mb"}
 
