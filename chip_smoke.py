@@ -191,7 +191,28 @@ Phases, each of which raises on failure (the script then exits non-zero):
    against ``make_local_train_step``, ms a step and peak; the dry-run's
    argument bytes and FLOPs equal to that real step's, its predicted peak
    beside the card's; ``build_prefill`` + ``build_decode_step`` at
-   qwen3_8b full width serving phase 10's tokens.
+   qwen3_8b full width serving phase 10's tokens;
+24. the LMs on a (data 1, model 2) mesh, two rank processes
+   (``tp_route``: NCCL with a card each where there are two, else gloo
+   with both on the one card, CUDA tensors), each model built as the
+   rank's shard of the seed-0 draw: qwen3_8b serving (the cache's
+   positions over the ranks, each step's ``flash_decode`` over the
+   rank's keys with its statistics, merged; phase 10's tokens and
+   36 x 7 launches a rank), qwen3_8b bf16 scoring at the rank's heads
+   (36 ``flash_attention`` a rank; logits against phase 9's; witnesses:
+   the same weights in f32 against phase 9's f32 forward, and a control
+   whose 'model' sums are coarser, which the bf16 limit must reject),
+   rwkv6_3b serving at 20 heads a rank (phase 14's tokens), qwen3_moe
+   (4 layers) scoring with the experts over 'model' (phase 17's f32
+   routing, every kept and dropped (token, expert) pair, and logits; in
+   bf16 its routing against phase 17's bf16 scoring's, with the router's
+   top-k margin of each token whose experts differ), gemma3_1b training
+   against phase 23's local step (losses
+   within 1e-5); walls, peaks and the bytes each part's collectives
+   moved.  Phase 8 also holds ``flash_decode``'s statistics (the output
+   with them bit-equal to the one-shot call's) and the merge of 2, 4
+   and 16 key shards to the unsharded call at G 1, 4, 5, 8 and 16, and
+   the ranks' attention and ``wkv6`` shapes.
 
 The last lines are the card's ``nvidia-smi`` name and power limit, a JSON
 line with each kernel's launches, error and times, and
@@ -201,6 +222,7 @@ is present or the port's sources are not beside it.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import pathlib
 import subprocess
@@ -447,6 +469,26 @@ def family_attention_shapes():
                  for S in (1, WHISPER_DEC, fwd)]
     fd_groups.append((SERVE_B, WHISPER_DEC + NEW_GEN + 8, *h, f32,
                       range(WHISPER_DEC + 1, WHISPER_DEC + NEW_GEN)))
+    # phase 9's f32 witness (qwen3_8b scoring in f32); phase 24's ranks:
+    # qwen3_8b's heads a rank scoring in bf16 and in f32 (and the warm-up),
+    # qwen3_moe's in its f32 forward and its bf16 scoring, and qwen3_8b's
+    # decode over a rank's TP-th of the cache, all q-heads: rank 0's keys
+    # all seen, the last rank's PROMPT + 1 .. PROMPT + DIST_DECODE - 1 less
+    # the shards before it
+    cfg = get_config(ARCH)
+    fa_cases.append((SCORE_B, SCORE_S, SCORE_S, cfg.n_heads, cfg.kv_heads,
+                     cfg.hd, f32, True, -1))
+    for arch in (ARCH, MOE):
+        cfg = get_config(arch)
+        h = (cfg.n_heads // TP, cfg.kv_heads // TP, cfg.hd)
+        fa_cases += [(SCORE_B, n, n, *h, t, True, -1) for n in (128, SCORE_S)
+                     for t in ((bf16, f32) if arch == ARCH else (bf16,))]
+    fa_cases.append((SERVE_B, PROMPT, PROMPT, *h, f32, True, -1))
+    cfg = get_config(ARCH)
+    Tl = (PROMPT + GEN + 8) // TP
+    fd_groups.append((SERVE_B, Tl, cfg.n_heads, cfg.kv_heads, cfg.hd, f32,
+                      sorted({Tl} | {kl - (TP - 1) * Tl for kl in range(
+                          PROMPT + 1, PROMPT + DIST_DECODE)})))
     return fa_cases, fd_groups
 
 
@@ -478,9 +520,9 @@ def record_main_path_shapes() -> None:
         USED.add(fa_shape(q, k, causal, window))
         return fa_launch(q, k, v, causal, window)
 
-    def fd_logged(q, k, v, kv_len, bk):
+    def fd_logged(q, k, v, kv_len, bk, stats):
         USED.add(fd_shape(q, k, kv_len, bk))
-        return fd_launch(q, k, v, kv_len, bk)
+        return fd_launch(q, k, v, kv_len, bk, stats)
 
     fa._launch, fd._launch = fa_logged, fd_logged
 
@@ -602,7 +644,7 @@ def attention_kernels(dev, parent=None) -> dict:
             big[f"B{B} S{S} hd{hd} x{scale:g}"] = (got, twin)
             del q, k, v, exact
         torch.cuda.empty_cache()
-    print(f"[8/23] flash_attention == plain on {len(fa_cases)} shapes (JAX "
+    print(f"[8/24] flash_attention == plain on {len(fa_cases)} shapes (JAX "
           f"sweep x f32/bf16 x causal/non-causal/window 96, one tile of 64 "
           f"and 128 rows at hd 64 and 128, GQA 4:1 and 8:1, ragged S/T "
           f"77/150, qwen3_8b heads at S {SCORE_S} and at ragged S "
@@ -691,6 +733,48 @@ def attention_kernels(dev, parent=None) -> dict:
           f"2048) beside the served kv_lens: " + "; ".join(
               f"{Hq}/{Hkv} hd {hd} T {T} kv_len {kls[0]}..{kls[-1]}"
               for _, T, Hq, Hkv, hd, _, kls in fam_fd))
+    # the statistics output and the sequence-parallel merge (phase 24):
+    # at G 1, 4, 5, 8 and 16 in f32 and bf16, the output path bit-equal to
+    # the one-shot call's, the log-sum-exp held to the twin's, and the
+    # merge (distributed.tp.merge_partials) of 2, 4 and 16 key shards,
+    # some with no visible key, held to the unsharded call
+    from repro_torch.distributed import tp as tpm
+    merges, lse_err, merge_err = 0, 0.0, {}
+    for Hq, Hkv, hd in ((8, 8, 64), (32, 8, 128), (25, 5, 64),
+                        (64, 8, 128), (64, 4, 128)):
+        for dt in (torch.float32, torch.bfloat16):
+            T, kl = 1152, 700
+            q, k, v = qkv(dt, SERVE_B, 1, T, Hq, Hkv, hd)
+            one = fd.flash_decode(q, k, v, kl)
+            o, lse = fd.flash_decode(q, k, v, kl, stats=True)
+            label = f"flash_decode stats Hq{Hq}/{Hkv} hd{hd} {str(dt)[6:]}"
+            check(torch.equal(o, one), f"{label}: the output with the "
+                  f"statistics differs from the one-shot call's")
+            lse_err = max(lse_err, held(label, lse, fd.flash_decode_plain(
+                q, k, v, kl, stats=True)[1], torch.float32)[0])
+            want = fd.flash_decode_plain(q, k, v, kl)
+            for R in (2, 4, 16):
+                Tl = T // R
+                parts = [fd.flash_decode(
+                    q, k[:, r * Tl:(r + 1) * Tl], v[:, r * Tl:(r + 1) * Tl],
+                    min(max(kl - r * Tl, 0), Tl), stats=True)
+                    for r in range(R)]
+                got = tpm.merge_partials(
+                    torch.stack([p[0].reshape(SERVE_B, Hq, hd)
+                                 for p in parts]),
+                    torch.stack([p[1] for p in parts])).reshape(one.shape)
+                err = held(f"{label}: merge of {R} shards", got, want,
+                           dt)[0]
+                merge_err[dt] = max(merge_err.get(dt, 0.0), err)
+                merges += 1
+    del q, k, v, one, o, lse, want, parts, got
+    print(f"      flash_decode statistics: the output with them bit-equal "
+          f"to the one-shot call's at G 1, 4, 5, 8, 16 (f32, bf16), lse "
+          f"within {lse_err:.3g} of the twin's; {merges} merges of 2, 4 and "
+          f"16 key shards of 1152 (kv_len 700: shards with no visible key "
+          f"launch nothing) == the unsharded call: max abs err f32 "
+          f"{merge_err[torch.float32]:.3g}, bf16 "
+          f"{merge_err[torch.bfloat16]:.3g}")
     print(f"      worst |got - want| / (atol + rtol |want|) outside bf16 "
           f"flash_attention: f32 {worst[torch.float32]:.3g} (2e-5, 2e-5), "
           f"bf16 {worst[torch.bfloat16]:.3g} (8e-3, 1e-3)")
@@ -783,6 +867,17 @@ def attention_kernels(dev, parent=None) -> dict:
             ms=device_ms(lambda: fd.flash_decode(q, k, v, kl_h), 300),
             bound_ms=fd_bound_ms(B, Hq, Hkv, hd, kl_h, dt)[0])
         del q, k, v
+    # phase 24's rank: all 32 q-heads over a TP-th of the cache, every key
+    # of it seen, with the statistics
+    Tl = T_srv // TP
+    q, k, v = qkv(torch.float32, SERVE_B, 1, Tl, 32, 8, 128)
+    tp_rank = dict(
+        shape=[SERVE_B, Tl, Tl, 32, 8, 128], plan=list(fd.plan(q, k, Tl)),
+        ms=device_ms(lambda: fd.flash_decode(q, k, v, Tl, stats=True), 300),
+        plain_ms=time_ms(lambda: fd.flash_decode_plain(q, k, v, Tl,
+                                                       stats=True), 50),
+        bound_ms=fd_bound_ms(SERVE_B, 32, 8, 128, Tl, torch.float32)[0])
+    del q, k, v
     tflops = 4 * 128 * visible_pairs(SCORE_S, SCORE_S, True, -1) \
         * SCORE_B * 32 / fa_ms / 1e9
     print(f"      flash_attention bf16, tensor-core path [B{SCORE_B} "
@@ -826,6 +921,12 @@ def attention_kernels(dev, parent=None) -> dict:
               f"{r['shape'][5]}] plan {r['bk']} x {r['ns']}: "
               f"{r['ms']:.5f} ms, bound {r['bound_ms']:.5f} ms"
               for a, r in by_head.items()))
+    r = tp_rank
+    print(f"      flash_decode f32 with statistics at phase 24's rank shape "
+          f"[B{SERVE_B} T{r['shape'][1]} kv_len {r['shape'][2]} Hq32/8 "
+          f"hd128] plan {r['plan'][0]} x {r['plan'][1]}: kernel "
+          f"{r['ms']:.5f} ms of device time a call, plain "
+          f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms")
     sc = f32["self_check"]
     return {"flash_attention": dict(
                 max_abs_err=fa_main_err, ms=fa_ms, plain_ms=fa_plain,
@@ -847,7 +948,7 @@ def attention_kernels(dev, parent=None) -> dict:
                                  plain_ms=fd_plain, bound_ms=fd_bound,
                                  bound_by=fd_by, library_ms=fd_lib,
                                  host_us=fd_host, bk=fd_bk, ns=fd_ns,
-                                 g16=g16, heads=by_head)}
+                                 g16=g16, heads=by_head, tp_rank=tp_rank)}
 
 
 def reset_counts() -> None:
@@ -909,7 +1010,16 @@ def self_check(dev, arch: str, served: dict, phase: int, *,
     torch.cuda.synchronize()
     reset_counts()
     t0 = time.perf_counter()
-    logits = mod.forward(model, batch)[:, first:]
+    if arch == MOE:                      # phase 24 replays this forward
+        with routes() as seen:
+            full = mod.forward(model, batch)
+        REF.update({"batch " + MOE: batch["tokens"].cpu().numpy(),
+                    "routes " + MOE: seen,
+                    "logits " + MOE: full[:, -TAIL:].float().cpu()})
+        logits = full[:, first:]
+        del full
+    else:
+        logits = mod.forward(model, batch)[:, first:]
     torch.cuda.synchronize()
     walls = [time.perf_counter() - t0]
     n = counts()
@@ -946,7 +1056,7 @@ def self_check(dev, arch: str, served: dict, phase: int, *,
     text = logits_held(f"self-check {arch}", got, logits, toks)
     par = (", parent's flash_attention " + " / ".join(
         f"{x:.4f}" for x in parent_walls) + " s" if parent_walls else "")
-    print(f"[{phase}/23] self-check {arch}: f32 forward over "
+    print(f"[{phase}/24] self-check {arch}: f32 forward over "
           f"{tuple(next(iter(batch.values())).shape)} (wall " + " / ".join(
               f"{x:.4f}" for x in walls) + f" s{par}; launches "
           f"{launched(n)}) reproduces the served logits at {rows}: "
@@ -1021,6 +1131,9 @@ def wkv_kernel(dev) -> dict:
                    False),
                   (SERVE_B, PROMPT, H, n, None, "model", torch.float32,
                    False)]
+    # phase 24's ranks: H / TP heads, the prefill and a decode step
+    main_cases += [(SERVE_B, T, H // TP, n, None, "model", torch.float32,
+                    False) for T in (PROMPT, 1)]
     cases += main_cases
     # the decode step (T 1) and the double buffer's edges: T 2, and 2 x
     # chunk + 1 (the third tile refills the first buffer); the default tile
@@ -1069,11 +1182,13 @@ def wkv_kernel(dev) -> dict:
         if case in main_cases:
             main_err[case], tiles[case] = float(diff.max()), tile
         del got, ins, want
-    sc32, sc16, pre = main_cases
-    print(f"[12/23] wkv6 == plain on {len(cases)} shapes (JAX sweep, strong "
+    sc32, sc16, pre, tp_pre, _ = main_cases
+    print(f"[12/24] wkv6 == plain on {len(cases)} shapes (JAX sweep, strong "
           f"decay U{strong}, T not whole chunks, strided, bf16 r/k/v, "
           f"{RWKV} scoring in f32 and bf16 at tiles {tiles[sc32]} and "
-          f"{tiles[sc16]}, the serving prefill at tile {tiles[pre]}, the "
+          f"{tiles[sc16]}, the serving prefill at tile {tiles[pre]}, phase "
+          f"24's rank ({H // TP} heads) prefill at tile {tiles[tp_pre]} and "
+          f"decode step, the "
           f"decode step T 1, T 2 and T 2 x chunk + 1): sT bit-equal in "
           f"every case; max abs err y {y_err:.3g}; worst |got - want| / "
           f"({atol:g} + {rtol:g} |want|) {worst:.3g}, at T {PROMPT} and "
@@ -1202,7 +1317,7 @@ def paper_loop(dev, grid: dict, gsampler: dict, untrained: dict):
           np.array_equal(np.stack(kept), corpus.rtg),
           "corpus: a replay of the pipeline keeps other rows")
     sp = np.array([m[2] for m in corpus.meta])
-    print(f"[6/23] corpus: generate_teacher_corpus over {C} conditions "
+    print(f"[6/24] corpus: generate_teacher_corpus over {C} conditions "
           f"(GA pop {ga.population} x {ga.generations}, top {top_k} + "
           f"{jitter} jittered copies of the top {top_k // 2}, {cand.shape[1]}"
           f" candidates a condition): wall {corpus_wall:.3f} s, "
@@ -1475,7 +1590,7 @@ def mapper_serving(dev, model) -> int:
                              np.array([resp[i].valid for i in idx])),
               f"served valid differs from the kernel re-score (bucket {nb})")
     hits = sum(r.cached for r in resp)
-    print(f"[7/23] serving on the card: repro_torch.serve(trained DT, "
+    print(f"[7/24] serving on the card: repro_torch.serve(trained DT, "
           f"warm=6 CNNs), default ServingConfig: warmup {warm_wall:.3f} s, "
           f"{sigs} signatures {sorted(eng._compiled)}; stream of "
           f"{STREAM_N} requests (6 CNNs x 5 parts x budgets "
@@ -1797,7 +1912,7 @@ def paper_table(dev, trained) -> int:
                       for k in twice[0]),
                   "two S2S trainings of one seed differ on the card")
     table_wall = time.perf_counter() - t_phase
-    print(f"[16/23] Table 1 on VGG16 (PAPER_ACCEL, nmax {TABLE1_NMAX}; "
+    print(f"[16/24] Table 1 on VGG16 (PAPER_ACCEL, nmax {TABLE1_NMAX}; "
           f"baselines at {TABLE1_SAMPLES} samples, pop {BASELINE_POP}, seed 0"
           f"; A2C {A2C_EPISODES} episodes; sequence models trained "
           f"{SEQ_STEPS} steps on {TRAIN_MB} MB, one shot by the fused "
@@ -1968,6 +2083,8 @@ def scoring(dev, arch: str, phase: int, B: int = SCORE_B, S: int = SCORE_S,
     check(tuple(logits.shape) == (B, S, cfg.vocab_padded)
           and bool(torch.isfinite(logits).all()), f"scoring {arch}: logits "
           "malformed or not finite")
+    if arch == ARCH:                     # held by phase 24's ranks
+        REF["logits " + arch] = logits[:, -TAIL:].float().cpu()
     note = ""
     if cfg.n_experts:
         aux = float(mod.forward_aux(model, batch)[1])
@@ -1984,13 +2101,25 @@ def scoring(dev, arch: str, phase: int, B: int = SCORE_B, S: int = SCORE_S,
         del again
     if probe is not None:
         note += "; " + probe(model, batch)
-    print(f"[{phase}/23] scoring {arch} ({cfg.n_layers} layers, d "
+    print(f"[{phase}/24] scoring {arch} ({cfg.n_layers} layers, d "
           f"{cfg.d_model}, {n_params / 1e9:.3f}e9 params, bf16, seeded "
           f"random weights; init {t_init:.2f} s) over {B}x{S}"
           f"{' embeds' if cfg.embed_inputs else ' tokens'}"
           f"{f' ({grid}x{grid} image grid in pos_thw)' if grid else ''}: "
           f"wall " + " / ".join(f"{w:.4f}" for w in walls) + f" s, launches "
           f"{launched(n)}, logits {tuple(logits.shape)} finite{note}")
+    if arch == MOE:                      # phase 24's bf16 routing
+        with routes() as seen:
+            mod.forward(model, batch)
+        REF["routes16 " + arch] = seen
+    if arch == ARCH:                     # phase 24's f32 witness: the
+        model.float()                    # same (bf16) weights in f32
+        REF["logits32 " + arch] = mod.forward(model, batch)[:, -TAIL:].cpu()
+        err = float((REF["logits " + arch] - REF["logits32 " + arch])
+                    .abs().max())
+        print(f"      {arch}: the same weights in f32: the bf16 logits' last"
+              f" {TAIL} positions within {err:.4g} of the f32 forward's "
+              f"(max |logit| {float(REF['logits32 ' + arch].abs().max()):.4g})")
     del model, logits, batch
     torch.cuda.empty_cache()
     return {"launches": n, "wall_s": walls}
@@ -2020,6 +2149,69 @@ def expert_loads(model, batch) -> str:
         f"{float(c.float().mean()):.1f} / max {int(c.max())}, capacity {C} "
         f"a row, dropped {1 - keep:.4f}"
         for i, (c, keep, C) in enumerate(seen))
+
+
+@contextlib.contextmanager
+def routes():
+    """Within the block ``moe_route`` appends each MoE layer's routing to
+    the list it yields: the expert ids [B, S, k], the kept mask [B, S*k]
+    (in the routing's sorted order) and each token's top-k margin, its
+    k-th router probability less its (k+1)-th."""
+    import torch
+    from repro_torch.nn import moe as tmoe
+    route, seen = tmoe.moe_route, []
+
+    def spy(p, x, *, top_k, **kw):
+        r = route(p, x, top_k=top_k, **kw)
+        probs = torch.softmax(x.float() @ p.router.w.float(), dim=-1)
+        top = torch.topk(probs, top_k + 1, dim=-1).values
+        seen.append((r.idx.cpu(), r.keep.cpu(),
+                     (top[..., top_k - 1] - top[..., top_k]).cpu()))
+        return r
+
+    tmoe.moe_route = spy
+    try:
+        yield seen
+    finally:
+        tmoe.moe_route = route
+
+
+def _kept_pairs(idx, keep) -> set:
+    """The kept (token, expert) pairs of a routing (``routes``), as
+    ``token << 20 | expert`` keys, the token counted over the batch."""
+    import torch
+    B, S, k = idx.shape
+    flat = idx.reshape(B, S * k)
+    order = torch.argsort(flat, dim=-1, stable=True)
+    tok = torch.arange(B)[:, None] * S + torch.div(order, k,
+                                                     rounding_mode="floor")
+    return set(((tok << 20) | flat.gather(1, order))[keep].tolist())
+
+
+def route_diff(got: list, want: list) -> list:
+    """Per MoE layer, a routing against ``want``'s (``routes``): the
+    tokens whose chosen experts differ, those of them that differ for
+    the first time (in no layer before), the kept pairs held by one side
+    only, the kept pairs, and ``want``'s top-k margins: of the tokens that
+    differ first here the largest and the median, each with the share of
+    all tokens at or below it, and the median of all."""
+    out, before = [], None
+    for (gi, gk, _), (wi, wk, wm) in zip(got, want, strict=True):
+        flip = (gi.sort(-1).values != wi.sort(-1).values).any(-1)
+        first = flip if before is None else flip & ~before
+        before = flip if before is None else flip | before
+        a, b = _kept_pairs(gi, gk), _kept_pairs(wi, wk)
+        share = lambda m: float((wm <= m).float().mean())
+        top = mid = None
+        if first.any():
+            top, mid = float(wm[first].max()), float(wm[first].median())
+        out.append(dict(flipped=int(flip.sum()), first=int(first.sum()),
+                        kept_diff=len(a ^ b), kept=len(b), margin=top,
+                        margin_share=None if top is None else share(top),
+                        mid_margin=mid,
+                        mid_share=None if mid is None else share(mid),
+                        median_margin=float(wm.median())))
+    return out
 
 
 def scan_share(model, batch) -> str:
@@ -2077,7 +2269,7 @@ def serving(dev, arch: str, phase: int, *, prompt: int = PROMPT,
           f"served {arch} tokens or logits malformed")
     shapes = ", ".join(f"{k} {tuple(v.shape)}"
                        for k, v in out["inputs"].items())
-    print(f"[{phase}/23] serving {arch}{label} ({cfg.n_layers} layers) f32, "
+    print(f"[{phase}/24] serving {arch}{label} ({cfg.n_layers} layers) f32, "
           f"impl {impl}, batch {SERVE_B}, prefill {shapes}, gen {gen}: "
           f"prefill {out['t_prefill_s']:.4f} s, decode "
           f"{out['t_decode_s']:.4f} s, {out['tok_per_s']:.2f} tok/s; wall "
@@ -2170,7 +2362,7 @@ def lm_mapping(dev, phase: int, cpu_jobs: dict) -> int:
     pop = gs.GSamplerConfig().population
     tile = fe.tile_for(1, pop, MAP_NMAX, _build.sm_count(
         torch.cuda.current_device()))
-    print(f"[{phase}/23] LM mapping: lm_workload(seq 4096, batch 32, "
+    print(f"[{phase}/24] LM mapping: lm_workload(seq 4096, batch 32, "
           f"prefill) of the ten archs, host gsampler_search (pop {pop}) at "
           f"{MAP_BUDGET_MB:g} MB, nmax {MAP_NMAX}, PAPER_ACCEL, through "
           f"fusion_eval (tile {tile}), each equal to the same search on the "
@@ -2355,7 +2547,7 @@ def lm_training(dev) -> dict:
           f"22 mapper: the card's search {mapped} differs from the CPU's "
           f"{cpu}")
     ga = mapped["grad_accum"]
-    print(f"[22/23] LM training: {TRAIN_ARCH} mapper (lm_workload train, "
+    print(f"[22/24] LM training: {TRAIN_ARCH} mapper (lm_workload train, "
           f"seq {TRAIN_S}, batch {TRAIN_B}, {TRAIN_BUDGET_MB:g} MB, nmax "
           f"{lt.MAPPER_NMAX}, host G-Sampler of 20 generations on "
           f"fusion_eval): micro-batch {mapped['micro_batch']}, grad_accum "
@@ -2655,7 +2847,7 @@ def distributed_half(dev, phase10_tokens) -> dict:
                            f"{g.speedup:.4f}x")
         out["23 answers"] = n = counts()
         expect_counts("23 answers", n, fusion_eval=n["fusion_eval"])
-        print(f"[23/23] distributed half on a one-rank {backend} group "
+        print(f"[23/24] distributed half on a one-rank {backend} group "
               f"(HashStore): (a) transfer on data_parallel_mesh(): corpus "
               f"of VGG16+ResNet18 x {TRANSFER_MB} MB, {len(corpus)} rows, "
               f"{out['23 corpus']['fusion_eval']} fusion_eval launches == "
@@ -2722,6 +2914,7 @@ def distributed_half(dev, phase10_tokens) -> dict:
         for b in batches:
             model, opt, loss = local(model, opt, b)
             want.append(float(loss))
+        REF["train losses"] = want                   # held by phase 24
         del model, opt, local, loss
         torch.cuda.empty_cache()
         cell = Shape("smoke", TRAIN_S, TRAIN_B, "train")
@@ -2846,6 +3039,419 @@ def distributed_half(dev, phase10_tokens) -> dict:
     return out
 
 
+
+# -- phase 24: the LMs on the 'model' axis -----------------------------------
+TP = 2                          # phase 24's 'model' axis
+TP_DIR = ROOT / "build" / "smoke_tp"
+TAIL = 8                        # the scoring logits' last positions held
+BF16_OVER_ROUND = 1.4           # (b): bf16 scoring logits, TP vs one card,
+                                # at most this times phase 9's own bf16
+                                # rounding (its bf16 logits against its f32
+                                # forward of the same weights), each of the
+                                # largest |logit|; read 1.233, the control
+                                # 1.610 (PERF.md, phase 24)
+COARSE_BITS = 2                 # (b)'s control: its 'model' sums' coarsening
+TP_LOSS_RTOL = 1e-5
+TP_F32_REL = 1e-4               # f32 logits, TP vs one card, of the largest
+REF: dict = {}                  # one card's results that phase 24 holds
+                                # its ranks to (phases 9, 10, 14, 17, 23)
+
+
+def tp_route() -> str:
+    """How phase 24's ranks run, chosen by the machine: NCCL with one card
+    a rank where there are TP cards, else gloo with both ranks on the one
+    card (the installed PyTorch's gloo takes the steps' collectives on
+    CUDA tensors: all_reduce, all_gather_into_tensor, reduce_scatter_tensor
+    and all_to_all_single; NCCL refuses two ranks on one device)."""
+    import torch
+    return "nccl" if torch.cuda.device_count() >= TP else "gloo"
+
+
+def _tp_serving(dev, mesh, rank, arch, n_decode, ref_tokens) -> dict:
+    """(a) and (c): ``build_prefill`` + ``build_decode_step`` of ``arch``
+    (full width, f32, built as this rank's shard of the seed-0 draw)
+    serving serve_greedy's prompt; the tokens and launches."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import Shape
+    from repro_torch.distributed import tp
+    from repro_torch.launch import steps
+    from repro_torch.models import get_model
+    cfg = family_config(arch)
+    shape = Shape("smoke", PROMPT + GEN + 8, SERVE_B, "decode")
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    model = get_model(cfg).init(cfg, seed=0, dtype=torch.float32, device=dev,
+                                shard=tp.Keep.of(cfg, rank, TP))
+    prefill, _ = steps.build_prefill(cfg, shape, mesh, dtype=torch.float32)
+    decode, _ = steps.build_decode_step(cfg, shape, mesh, dtype=torch.float32)
+    prefill.place(model)
+    decode.place(model)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    prompt = np.random.default_rng(0).integers(0, cfg.vocab,
+                                               (SERVE_B, PROMPT))
+    reset_counts()
+    t0 = time.perf_counter()
+    logits, state = prefill(model, {"tokens": torch.as_tensor(
+        prompt, device=dev)})
+    tok = logits[:, -1].argmax(-1)[:, None]
+    torch.cuda.synchronize()
+    t_pre = time.perf_counter() - t0
+    toks = [tok]
+    for _ in range(n_decode - 1):
+        tok, state = decode(model, state, {"tokens": tok})
+        toks.append(tok)
+    got = torch.cat([t.long() for t in toks], 1).cpu().numpy()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    held = state["k"].shape[2] if "k" in state else None
+    return dict(tokens=got, equal=bool(np.array_equal(got, ref_tokens)),
+                launches=counts(), wall_s=wall, prefill_s=t_pre,
+                init_s=t_init, peak=torch.cuda.max_memory_allocated(dev),
+                cache_positions=held, moved_prefill=dict(prefill.par.moved),
+                moved_decode=dict(decode.par.moved))
+
+
+def _tp_scoring(dev, mesh, rank, arch, ref_logits, *, dtype, cast=None,
+                batch=None, routing=None, coarse=0) -> dict:
+    """(b), (d) and their witnesses: ``arch`` (``dtype``, this rank's
+    shard of the seed-0 draw, then cast to ``cast``) scores ``batch``
+    (default phase 9's) through a ``Placement``; the logits' last TAIL
+    positions against one card's ``ref_logits``, the launches, and with
+    ``routing`` the MoE layers' routing against one card's
+    (``route_diff``).  ``coarse`` > 0 is (b)'s control: every bf16 sum
+    over 'model' takes its summands ``coarse`` mantissa bits coarser."""
+    import torch
+    from repro_torch.distributed import tp
+    from repro_torch.launch import steps
+    from repro_torch.models import get_model
+    cfg = family_config(arch)
+    mod = get_model(cfg)
+    torch.cuda.reset_peak_memory_stats(dev)
+    model = mod.init(cfg, seed=0, dtype=dtype, device=dev,
+                     shard=tp.Keep.of(cfg, rank, TP))
+    if cast is not None:
+        model.to(cast)
+    place = steps.Placement(cfg, mesh)
+    place.place(model)
+    if batch is None:
+        batch = family_batch(cfg, SCORE_B, SCORE_S, dev)
+        place.run(mod.forward, {k: v[:, :128] for k, v in batch.items()})
+    else:
+        batch = {"tokens": torch.as_tensor(batch, device=dev)}
+    torch.cuda.synchronize()
+    place.par.moved.clear()
+    reset_counts()
+    t0 = time.perf_counter()
+    with routes() as seen, _coarse_sums(coarse):
+        logits = place.run(mod.forward, batch)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    tail = logits[:, -TAIL:].float().cpu()
+    return dict(launches=counts(), wall_s=wall,
+                shape=tuple(logits.shape),
+                finite=bool(torch.isfinite(logits).all()),
+                err=None if ref_logits is None else
+                float((tail - ref_logits).abs().max()),
+                scale=None if ref_logits is None else
+                float(ref_logits.abs().max()),
+                routes=None if routing is None else route_diff(seen,
+                                                               routing),
+                peak=torch.cuda.max_memory_allocated(dev),
+                moved=dict(place.par.moved))
+
+
+@contextlib.contextmanager
+def _coarse_sums(bits: int):
+    """Within the block, for ``bits`` > 0, ``tp.all_reduce`` rounds the
+    summands of a bf16 sum to ``bits`` fewer mantissa bits (to the
+    nearest, ties away from zero): a sum over 'model' at a lower
+    precision than one card's, the control of (b)'s limit."""
+    import torch
+    from repro_torch.distributed import tp
+    reduce = tp.all_reduce
+
+    def coarse(x, ax, *, op="sum", part="tp"):
+        if x.dtype == torch.bfloat16 and op == "sum":
+            i = x.contiguous().view(torch.int16)
+            x = ((i + (1 << bits - 1)) & -(1 << bits)).view(torch.bfloat16)
+        return reduce(x, ax, op=op, part=part)
+
+    if bits:
+        tp.all_reduce = coarse
+    try:
+        yield
+    finally:
+        tp.all_reduce = reduce
+
+
+def _tp_training(dev, mesh, rank, want) -> dict:
+    """(e): ``build_train_step`` of gemma3_1b (full width, f32, this rank's
+    shard) on phase 23's batches; losses against phase 23's
+    ``make_local_train_step``."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import Shape, get_config
+    from repro_torch.distributed import tp
+    from repro_torch.launch import steps, train as lt
+    from repro_torch.models import get_model
+    cfg = get_config(TRAIN_ARCH)
+    bf = lt.make_batch_fn(cfg, seq_len=TRAIN_S, global_batch=TRAIN_B,
+                          device=dev)
+    batches = [{k: v.to(torch.int32) for k, v in bf(i).items()}
+               for i in range(DIST_STEPS)]
+    step, _ = steps.build_train_step(cfg, Shape("smoke", TRAIN_S, TRAIN_B,
+                                                "train"), mesh,
+                                     dtype=torch.float32)
+    torch.cuda.reset_peak_memory_stats(dev)
+    model = step.place(get_model(cfg).init(
+        cfg, seed=0, dtype=torch.float32, device=dev,
+        shard=tp.Keep.of(cfg, rank, TP)))
+    opt = step.init_opt(model)
+    reset_counts()
+    losses, walls = [], []
+    for b in batches:
+        step.par.moved.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model, opt, loss = step(model, opt, b)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+    return dict(losses=losses, want=list(want), walls=walls,
+                ms=float(np.median(walls[1:])) * 1e3, launches=counts(),
+                peak=torch.cuda.max_memory_allocated(dev),
+                moved=dict(step.par.moved),
+                params=sum(p.numel() for p in model.parameters()))
+
+
+def _tp_rank(rank: int, route: str, store: str, out: str) -> None:
+    """One rank of phase 24: joins the group (``route``; a ``file://``
+    store, no TCP port), runs (a)-(e) on a (data 1, model TP) mesh, and
+    leaves its results in ``out/rank<r>.pt``."""
+    import gc
+    import torch
+    import torch.distributed as dist
+    dev = torch.device("cuda", rank % torch.cuda.device_count())
+    torch.cuda.set_device(dev)
+    kw = {"device_id": dev} if route == "nccl" else {}
+    dist.init_process_group(route, init_method=f"file://{store}",
+                            rank=rank, world_size=TP, **kw)
+    try:
+        from repro_torch.launch.mesh import init_mesh
+        ref = torch.load(pathlib.Path(out) / "ref.pt", weights_only=False)
+        record_main_path_shapes()
+        mesh = init_mesh((1, TP), ("data", "model"), "cuda")
+        res = {}
+        parts = (
+            ("a", lambda: _tp_serving(dev, mesh, rank, ARCH, DIST_DECODE,
+                                      ref["tokens " + ARCH])),
+            ("b", lambda: _tp_scoring(dev, mesh, rank, ARCH,
+                                      ref["logits " + ARCH],
+                                      dtype=torch.bfloat16)),
+            ("b32", lambda: _tp_scoring(dev, mesh, rank, ARCH,
+                                        ref["logits32 " + ARCH],
+                                        dtype=torch.bfloat16,
+                                        cast=torch.float32)),
+            ("bc", lambda: _tp_scoring(dev, mesh, rank, ARCH,
+                                       ref["logits " + ARCH],
+                                       dtype=torch.bfloat16,
+                                       coarse=COARSE_BITS)),
+            ("c", lambda: _tp_serving(dev, mesh, rank, RWKV, DIST_DECODE,
+                                      ref["tokens " + RWKV])),
+            ("d", lambda: _tp_scoring(dev, mesh, rank, MOE,
+                                      ref["logits " + MOE],
+                                      dtype=torch.float32,
+                                      batch=ref["batch " + MOE],
+                                      routing=ref["routes " + MOE])),
+            ("d16", lambda: _tp_scoring(dev, mesh, rank, MOE, None,
+                                        dtype=torch.bfloat16,
+                                        routing=ref["routes16 " + MOE])),
+            ("e", lambda: _tp_training(dev, mesh, rank,
+                                       ref["train losses"])))
+        for name, part in parts:
+            res[name] = part()
+            gc.collect()               # a placed model and its root: a cycle
+            torch.cuda.empty_cache()
+        res["shapes"] = set(USED)
+        res["device"] = (torch.cuda.get_device_name(dev), dev.index)
+        torch.save(res, pathlib.Path(out) / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def model_axis(dev) -> dict:
+    """Phase 24: the LMs on a (data 1, model TP) mesh, the ranks in
+    processes of their own (``tp_route``): (a) qwen3_8b serving through
+    the builders (the decode cache's positions over 'model', each step's
+    ``flash_decode`` over the rank's keys with its statistics, merged
+    across the ranks) against phase 10's tokens; (b) qwen3_8b bf16
+    scoring, ``flash_attention`` at the rank's heads, against phase 9's
+    logits, with two witnesses of its limit: the same weights in f32
+    against phase 9's f32 forward, and a control whose bf16 sums over
+    'model' are COARSE_BITS coarser, which the limit must reject; (c)
+    rwkv6_3b serving, ``wkv6`` at the rank's heads, against phase 14's
+    tokens; (d) qwen3_moe (DEPTH layers) scoring with the experts over
+    'model', its routing (kept and dropped pairs) and logits against
+    phase 17's f32 forward's, and in bf16 its routing against phase 17's
+    bf16 scoring's; (e) gemma3_1b training, losses against phase 23's
+    local step.  Returns each part's launches, summed over the ranks (the
+    witnesses' apart)."""
+    import gc
+    import shutil
+    import torch
+    import torch.multiprocessing as mp
+    route = tp_route()
+    shutil.rmtree(TP_DIR, ignore_errors=True)
+    TP_DIR.mkdir(parents=True)
+    torch.save(REF, TP_DIR / "ref.pt")
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    print(f"      phase 24: this process holds "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+          f"({torch.cuda.memory_reserved() / 2**30:.2f} reserved); the card "
+          f"has {free / 2**30:.2f} of {total / 2**30:.2f} GiB free")
+    t0 = time.perf_counter()
+    mp.spawn(_tp_rank, args=(route, str(TP_DIR / "store"), str(TP_DIR)),
+             nprocs=TP, join=True)
+    wall = time.perf_counter() - t0
+    res = [torch.load(TP_DIR / f"rank{r}.pt", weights_only=False)
+           for r in range(TP)]
+    L, Lr, Lm = (family_config(a).n_layers for a in (ARCH, RWKV, MOE))
+    gib = lambda b: f"{b / 2**30:.2f} GiB"
+    mb = lambda m: ", ".join(f"{p} {k} {v / 1e6:.1f} MB"
+                             for (p, k), v in sorted(m.items())) or "none"
+    where = (f"{TP} ranks on {TP} cards over NCCL" if route == "nccl" else
+             f"{TP} processes on one card over gloo (CUDA tensors)")
+    print(f"[24/24] the LMs on a (data 1, model {TP}) mesh, {where}; "
+          f"{wall:.1f} s (spawn, build and the five parts)")
+    for r, x in enumerate(res):
+        a = x["a"]
+        expect_counts(f"24 (a) rank {r}", a["launches"],
+                      flash_decode=L * (DIST_DECODE - 1))
+        check(a["equal"], f"24 (a) rank {r}: tokens {a['tokens'].tolist()}"
+              f" differ from phase 10's")
+        check(a["cache_positions"] == (PROMPT + GEN + 8) // TP,
+              f"24 (a) rank {r}: the cache holds {a['cache_positions']} "
+              f"positions")
+        print(f"      (a) rank {r}: {ARCH} full width f32, batch {SERVE_B},"
+              f" prompt {PROMPT}, {DIST_DECODE} tokens == phase 10's; "
+              f"{a['cache_positions']} of {PROMPT + GEN + 8} cache positions;"
+              f" prefill {a['prefill_s']:.3f} s, wall {a['wall_s']:.3f} s "
+              f"(build {a['init_s']:.2f} s), peak {gib(a['peak'])}; "
+              f"launches {launched(a['launches'])}; moved: prefill "
+              f"{mb(a['moved_prefill'])}; {DIST_DECODE - 1} decode steps "
+              f"{mb(a['moved_decode'])}")
+    bf16_f32 = float((REF["logits " + ARCH] - REF["logits32 " + ARCH])
+                     .abs().max()) / float(REF["logits32 " + ARCH].abs().max())
+    limit = BF16_OVER_ROUND * bf16_f32
+    for r, x in enumerate(res):
+        b, b32, bc = x["b"], x["b32"], x["bc"]
+        for key, want in (("b", dict(fa_tensor_core=L)),
+                          ("b32", dict(fa_tensor_core_tf32x3=L)),
+                          ("bc", dict(fa_tensor_core=L))):
+            expect_counts(f"24 ({key}) rank {r}", x[key]["launches"],
+                          flash_attention=L, **want)
+        rel = {k: x[k]["err"] / x[k]["scale"] for k in ("b", "b32", "bc")}
+        print(f"      (b) rank {r}: {ARCH} bf16 scoring {SCORE_B}x{SCORE_S}"
+              f", logits {b['shape']}: last {TAIL} positions within "
+              f"{b['err']:.4g} of phase 9's (max |logit| {b['scale']:.4g}, "
+              f"{rel['b']:.3e} of it, {rel['b'] / bf16_f32:.3f} x phase 9's "
+              f"bf16 rounding, limit {BF16_OVER_ROUND} x); wall "
+              f"{b['wall_s']:.3f} s, peak {gib(b['peak'])}; launches "
+              f"{launched(b['launches'])}; moved {mb(b['moved'])}")
+        print(f"          witnesses: phase 9's bf16 logits against its f32 "
+              f"forward of the same weights {bf16_f32:.3e} of the largest; "
+              f"this rank in f32 against that f32 forward {rel['b32']:.3e} "
+              f"(limit {TP_F32_REL}; wall {b32['wall_s']:.3f} s, peak "
+              f"{gib(b32['peak'])}); the control, this rank in bf16 with "
+              f"each 'model' sum's summands {COARSE_BITS} mantissa bits "
+              f"coarser, {rel['bc']:.3e} against phase 9's, "
+              f"{rel['bc'] / bf16_f32:.3f} x its bf16 rounding (must exceed "
+              f"the limit)")
+        check(b["finite"] and rel["b"] <= limit,
+              f"24 (b) rank {r}: logits differ from phase 9's by {b['err']}"
+              f" (limit {limit:.4g} x {b['scale']})")
+        check(b32["finite"] and rel["b32"] <= TP_F32_REL,
+              f"24 (b) rank {r}: the f32 witness differs from phase 9's f32 "
+              f"forward by {b32['err']} (limit {TP_F32_REL} x "
+              f"{b32['scale']})")
+        check(rel["bc"] > limit, f"24 (b) rank {r}: the control "
+              f"({rel['bc']:.3e}) passes the limit {limit:.4g}")
+    for r, x in enumerate(res):
+        c = x["c"]
+        expect_counts(f"24 (c) rank {r}", c["launches"],
+                      wkv6=Lr * DIST_DECODE)
+        check(c["equal"], f"24 (c) rank {r}: tokens {c['tokens'].tolist()}"
+              f" differ from phase 14's")
+        print(f"      (c) rank {r}: {RWKV} full width f32 serving, "
+              f"{DIST_DECODE} tokens == phase 14's; prefill "
+              f"{c['prefill_s']:.3f} s, wall {c['wall_s']:.3f} s, peak "
+              f"{gib(c['peak'])}; launches {launched(c['launches'])}; moved: "
+              f"prefill {mb(c['moved_prefill'])}; decode "
+              f"{mb(c['moved_decode'])}")
+    for r, x in enumerate(res):
+        d, d16 = x["d"], x["d16"]
+        expect_counts(f"24 (d) rank {r}", d["launches"], flash_attention=Lm,
+                      fa_tensor_core_tf32x3=Lm)
+        expect_counts(f"24 (d) bf16 rank {r}", d16["launches"],
+                      flash_attention=Lm, fa_tensor_core=Lm)
+        same = all(t["flipped"] == 0 and t["kept_diff"] == 0
+                   for t in d["routes"])
+        print(f"      (d) rank {r}: {MOE} ({Lm} layers) f32 forward over "
+              f"phase 17's self-check prompt {d['shape'][:2]}, experts over "
+              f"'model': kept pairs a layer "
+              f"{[t['kept'] for t in d['routes']]}, tokens whose experts "
+              f"differ {[t['flipped'] for t in d['routes']]}, kept pairs on "
+              f"one side only {[t['kept_diff'] for t in d['routes']]}; "
+              f"logits within {d['err']:.4g} "
+              f"({d['err'] / d['scale']:.3e} of the largest); wall "
+              f"{d['wall_s']:.3f} s, peak {gib(d['peak'])}; launches "
+              f"{launched(d['launches'])}; moved {mb(d['moved'])}")
+        print(f"          in bf16 over phase 17's {SCORE_B}x{SCORE_S} "
+              f"scoring batch, against its bf16 routing: " + "; ".join(
+                  f"layer {i}: {t['flipped']} tokens' experts differ, "
+                  f"{t['first']} of them first here, "
+                  f"{t['kept_diff']} of {t['kept']} kept pairs on one side "
+                  f"only" + ("" if t["margin"] is None else
+                             f"; the first ones' top-k margins: median "
+                             f"{t['mid_margin']:.3e} (the lowest "
+                             f"{t['mid_share']:.2%} of tokens), largest "
+                             f"{t['margin']:.3e} (the lowest "
+                             f"{t['margin_share']:.2%}; median of all "
+                             f"{t['median_margin']:.3e})")
+                  for i, t in enumerate(d16["routes"])))
+        check(same and len(d["routes"]) == Lm, f"24 (d) rank {r}: the "
+              f"routing differs from phase 17's: {d['routes']}")
+        check(d["finite"] and d["err"] <= TP_F32_REL * d["scale"],
+              f"24 (d) rank {r}: logits differ from phase 17's by "
+              f"{d['err']} (limit {TP_F32_REL} x {d['scale']})")
+        check(d16["finite"], f"24 (d) bf16 rank {r}: logits not finite")
+    for r, x in enumerate(res):
+        e = x["e"]
+        expect_counts(f"24 (e) rank {r}", e["launches"])
+        rel = max(abs(g - w) / abs(w) for g, w in zip(e["losses"],
+                                                      e["want"]))
+        check(rel <= TP_LOSS_RTOL, f"24 (e) rank {r}: losses {e['losses']}"
+              f", make_local_train_step's {e['want']}")
+        print(f"      (e) rank {r}: {TRAIN_ARCH} training f32 "
+              f"{TRAIN_B}x{TRAIN_S}, {e['params'] / 1e9:.3f}e9 parameters a"
+              f" rank: losses " + ", ".join(f"{v:.6f}" for v in e["losses"])
+              + f" (max rel diff {rel:.3e} from phase 23's local step); "
+              f"{e['ms']:.2f} ms a step (median of steps 1-"
+              f"{DIST_STEPS - 1}; step 0 {e['walls'][0] * 1e3:.2f}), peak "
+              f"{gib(e['peak'])}; moved a step {mb(e['moved'])}")
+    for x in res:
+        USED.update(x["shapes"])
+    part = lambda key: {k: sum(x[key]["launches"][k] for x in res)
+                        for k in res[0][key]["launches"]}
+    return {"24 (a) serving": part("a"), "24 (b) scoring": part("b"),
+            "24 (c) rwkv serving": part("c"), "24 (d) moe scoring": part("d"),
+            "24 (e) training": part("e")}
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch port "
@@ -2876,7 +3482,7 @@ def main(argv=None) -> int:
     # -- 1. device ----------------------------------------------------------
     kind = torch.cuda.get_device_name(0)
     smi = smi_line()
-    print(f"[1/23] device: {kind} | nvidia-smi: {smi} | torch "
+    print(f"[1/24] device: {kind} | nvidia-smi: {smi} | torch "
           f"{torch.__version__} CUDA {torch.version.cuda} | devices "
           f"{torch.cuda.device_count()}")
 
@@ -2889,7 +3495,7 @@ def main(argv=None) -> int:
     parent = ab.finish_build(parent_job) if parent_job else None
     fe.compiled_backend_supported()
     infos = {src: _build.build_info(src) for src in sources}
-    print(f"[2/23] build: " + ", ".join(
+    print(f"[2/24] build: " + ", ".join(
         f"{src}.cu {infos[src]['build_s']:.2f} s" for src in sources) +
         f" (in parallel; cached={infos[fe.SOURCE]['cached']}), probe ok, "
         f"phase {time.perf_counter() - t0:.2f} s")
@@ -2989,7 +3595,7 @@ def main(argv=None) -> int:
         raw = fe.fusion_eval_raw(*args)
         check(all(torch.equal(g, w) for g, w in zip(raw[:6], want[1:7])),
               f"{label}: fusion_eval_raw differs from the raw form")
-        print(f"[3/23] kernel == plain on {label} [{Cc}x{pop}x{P}], "
+        print(f"[3/24] kernel == plain on {label} [{Cc}x{pop}x{P}], "
               f"forms cost, stats, raw: bit-equal, CostOut included")
         if label.startswith("main-path"):
             main_args[pop] = args
@@ -3041,7 +3647,7 @@ def main(argv=None) -> int:
           (C, 4, NMAX), "G-Sampler result malformed")
     check(res.valid[:, 0].mean() > 0.5, "G-Sampler found too few valid "
           "strategies")
-    print(f"[4/23] G-Sampler pop {cfg.population} x {cfg.generations} gens "
+    print(f"[4/24] G-Sampler pop {cfg.population} x {cfg.generations} gens "
           f"over {C} conditions: wall {gs_wall:.3f} s, fusion_eval launches "
           f"{gs_launches}, mean best speedup {best.mean():.4f}, valid share "
           f"{res.valid[:, 0].mean():.4f}")
@@ -3079,7 +3685,7 @@ def main(argv=None) -> int:
           "DT n_groups differs")
     dt_valid = out["valid"].float().mean().item()
     dt_speed = out["speedup"][out["valid"]].mean().item() if dt_valid else 0.0
-    print(f"[5/23] DT one shot (3x2x128, hw_dim 10, seeded random weights) "
+    print(f"[5/24] DT one shot (3x2x128, hw_dim 10, seeded random weights) "
           f"over {C} conditions: wall {dt_wall:.4f} s, valid share "
           f"{dt_valid:.4f}, mean valid speedup {dt_speed:.4f}; re-score "
           f"matches (rtol 1e-5); G-Sampler/DT wall ratio "
@@ -3107,6 +3713,7 @@ def main(argv=None) -> int:
                           fa_tensor_core=L)["launches"]["flash_attention"]
     served = serving(dev, ARCH, 10, gen=GEN, flash_decode=L * (GEN - 1))
     phase10_tokens = served["tokens"][:, :DIST_DECODE].copy()   # phase 23
+    REF["tokens " + ARCH] = phase10_tokens                       # phase 24
     fwd = self_check(dev, ARCH, served, 11, parent=parent,
                      flash_attention=L, fa_tensor_core_tf32x3=L)
     fd_launches = served["launches"]["flash_decode"]
@@ -3117,6 +3724,7 @@ def main(argv=None) -> int:
     wkv = wkv_kernel(dev)
     wkv_launches = scoring(dev, RWKV, 13, wkv6=L)["launches"]["wkv6"]
     served = serving(dev, RWKV, 14, gen=GEN, wkv6=L + L * (GEN - 1))
+    REF["tokens " + RWKV] = served["tokens"][:, :DIST_DECODE].copy()
     self_check(dev, RWKV, served, 15, want_prefill={"wkv6": L},
                want_step={"wkv6": L}, wkv6=L)
     wkv_served = served["launches"]["wkv6"]
@@ -3195,11 +3803,14 @@ def main(argv=None) -> int:
     new.update(lm_training(dev))
     print(f"      phase 22 {time.perf_counter() - t0:.1f} s")
     new.update(distributed_half(dev, phase10_tokens))
+    t0 = time.perf_counter()
+    new.update(model_axis(dev))
+    print(f"      phase 24 {time.perf_counter() - t0:.1f} s")
     missing = sorted(USED - HELD, key=str)
     check(not missing, f"the main path launched the attention kernels at "
           f"{len(missing)} shapes that phase 8 did not hold against their "
           f"plain versions: {missing}")
-    print(f"      the main path (phases 9-23) launched the attention kernels "
+    print(f"      the main path (phases 9-24) launched the attention kernels "
           f"at {len(USED)} shapes (dtype, dims, causal/window; decode kv_len "
           f"and plan), each held against its plain version in phase 8 "
           f"({len(HELD)} held)")
@@ -3247,7 +3858,8 @@ def main(argv=None) -> int:
          **attn["flash_decode"]},
         {"name": "wkv6", "route": "cuda", "source": f"{csrc}/wkv6.cu",
          "replaces": "src/repro/kernels/rwkv6_scan.py:26",
-         "launches": wkv_launches + wkv_served, **wkv}]}))
+         "launches": wkv_launches + wkv_served + new_n("wkv6"),
+         "launches_new_phases": by_phase("wkv6"), **wkv}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -40,12 +40,7 @@ from ..launch.mesh import (_AMBIENT, axis_sizes, batch_axes, dp_axes,
 __all__ = ["shard_spec_for_path", "param_specs", "batch_specs",
            "decode_state_specs_sharded", "logical_shard", "ambient_mesh",
            "data_parallel_mesh", "replicate_tree", "shard_leading_axis",
-           "to_placements", "stacked_path", "shard_bytes", "TP_ITEM"]
-
-# the ROADMAP item that brings tensor-parallel execution of the LMs
-TP_ITEM = ("ROADMAP queue 1 item 1 (tensor-parallel execution: "
-           "column/row-parallel Dense, the vocab-parallel head and loss, "
-           "expert-parallel MoE, the logical_shard call sites)")
+           "to_placements", "stacked_path", "shard_bytes"]
 
 _STACKS = ("blocks", "enc_blocks", "dec_blocks")
 
@@ -100,14 +95,14 @@ def ambient_mesh():
 
 def logical_shard(x, *dims):
     """In-model sharding constraint with logical dim names ("batch",
-    "model", "seq", None).  The port runs no tensor-parallel layer yet:
-    this returns ``x`` unless an ambient mesh has a 'model' axis above 1,
-    where it raises, naming the ROADMAP item that brings that."""
-    am = ambient_mesh()
-    if am is None or axis_sizes(am).get("model", 1) == 1:
-        return x
-    raise NotImplementedError(f"logical_shard over a 'model' axis of "
-                              f"{axis_sizes(am)['model']}: {TP_ITEM}")
+    "model", "seq", None): returns ``x``.  The reference's GSPMD needs
+    the constraint to place its collectives; the port's modules hold
+    their shards as plain tensors and make each collective explicitly
+    where the reference constrains a layout (``distributed.tp``: the MoE
+    all-to-alls in ``nn.moe``, the vocab-parallel statistics in
+    ``nn.losses``, the RWKV heads in ``nn.rwkv``), so there is no layout
+    left to constrain."""
+    return x
 
 
 # (regex, (tp_dim_from_end, fsdp_dim_from_end)) -- dims counted from the END

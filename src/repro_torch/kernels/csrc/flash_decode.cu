@@ -57,6 +57,10 @@
 //   loads of o are in flight together (at G 16 a thread merges 16
 //   outputs).  The counters live in the wrapper's per-stream workspace,
 //   zeroed once when it is made.
+// - Optionally (a non-null `lse`) the merging block also writes each
+//   q-head's log-sum-exp over the keys this launch saw, max + log(sum), in
+//   f32: a sequence-parallel decode merges the ranks' outputs over their
+//   key shards with it.  The output path is the same with or without it.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -144,7 +148,8 @@ __global__ void __launch_bounds__(kThreads)
 fd_kernel(const T* __restrict__ q, const T* __restrict__ k,
           const T* __restrict__ v, T* __restrict__ out,
           float* __restrict__ o_part, float* __restrict__ m_part,
-          float* __restrict__ l_part, int* __restrict__ counters, int Hq,
+          float* __restrict__ l_part, int* __restrict__ counters,
+          float* __restrict__ lse, int Hq,
           int G, int kv_len, int bk, int ns, long long qsb, long long qsh,
           long long ksb, long long kst, long long ksh, long long vsb,
           long long vst, long long vsh, float scale) {
@@ -362,6 +367,8 @@ fd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       den += w * sLs[tid * ns + s];
     }
     sDen[tid] = den;
+    if (lse != nullptr)
+      lse[(long long)b * Hq + hk * G + tid] = mg + logf(den);
   }
   __syncthreads();
   // each output sums its splits in split order; a thread's outputs (idx
@@ -391,8 +398,8 @@ fd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int HD, int MG>
 int launch(const void* q, const void* k, const void* v, void* out,
-           int* counters, float* part, int B, int Hq, int Hkv, int kv_len,
-           int bk, int ns, const long long* st, int device,
+           int* counters, float* part, float* lse, int B, int Hq, int Hkv,
+           int kv_len, int bk, int ns, const long long* st, int device,
            cudaStream_t stream) {
   static uint64_t attr_set = 0;           // per device, once
   const int G = Hq / Hkv;
@@ -413,7 +420,7 @@ int launch(const void* q, const void* k, const void* v, void* out,
   float* l_part = m_part + rows;
   fd_kernel<T, HD, MG><<<dim3(ns, Hkv, B), kThreads, smem, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (T*)out, o_part, m_part, l_part,
-      counters, Hq, G, kv_len, bk, ns, st[0], st[1], st[2], st[3], st[4],
+      counters, lse, Hq, G, kv_len, bk, ns, st[0], st[1], st[2], st[3], st[4],
       st[5], st[6], st[7], 1.0f / sqrtf((float)HD));
   return (int)cudaGetLastError();
 }
@@ -422,12 +429,13 @@ int launch(const void* q, const void* k, const void* v, void* out,
 
 extern "C" {
 
-// One call, its arguments packed into 24 int64 (one ctypes argument keeps
+// One call, its arguments packed into 25 int64 (one ctypes argument keeps
 // the wrapper's host path short):
 //   a[0..4]   q, k, v, out, work (addresses)
 //   a[5..13]  ncnt, dtype (0 f32, 1 bf16), B, Hq, Hkv, hd, kv_len, bk, ns
 //   a[14..21] strides in elements: q (b, h), k (b, t, h), v (b, t, h)
 //   a[22..23] device, stream
+//   a[24]     lse (address of f32 [B, Hq], or 0: not written)
 // ns = ceil(kv_len / bk) splits are launched, one block per (split,
 // kv-head, batch).  `work` is the workspace: `ncnt` int32 counters, zero
 // between launches (the first B * Hkv are used), then f32 partials o [B,
@@ -445,6 +453,7 @@ int flash_decode_launch(const long long* a) {
             kv_len = (int)a[11], bk = (int)a[12], ns = (int)a[13];
   const long long* st = a + 14;
   const int device = (int)a[22];
+  float* lse = (float*)a[24];
   if (Hkv <= 0 || Hq % Hkv != 0 || Hq / Hkv > kMaxG || kv_len <= 0 ||
       bk <= 0 || ns != (kv_len + bk - 1) / bk || ncnt < B * Hkv ||
       ncnt % 4 != 0)
@@ -461,10 +470,10 @@ int flash_decode_launch(const long long* a) {
   const bool wide = Hq / Hkv > 8;        // the 16-head build
   int rc = (int)cudaErrorInvalidValue;
 #define FD_LAUNCH(T, HD)                                                     \
-  rc = wide ? launch<T, HD, 16>(q, k, v, out, cnt, part, B, Hq, Hkv, kv_len, \
-                                bk, ns, st, device, s)                       \
-            : launch<T, HD, 8>(q, k, v, out, cnt, part, B, Hq, Hkv, kv_len,  \
-                               bk, ns, st, device, s)
+  rc = wide ? launch<T, HD, 16>(q, k, v, out, cnt, part, lse, B, Hq, Hkv,   \
+                                kv_len, bk, ns, st, device, s)               \
+            : launch<T, HD, 8>(q, k, v, out, cnt, part, lse, B, Hq, Hkv,    \
+                               kv_len, bk, ns, st, device, s)
   if (dtype == 0 && hd == 64)
     FD_LAUNCH(float, 64);
   else if (dtype == 0 && hd == 128)

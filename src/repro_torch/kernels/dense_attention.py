@@ -6,6 +6,12 @@ Query ``i`` (global ``i + q_offset``) sees key ``j`` iff ``j <= i +
 q_offset`` (causal), ``i + q_offset - j < window`` (window > 0) and ``j <
 kv_len`` (when given).  GQA is a grouped einsum: q-head ``h`` reads
 kv-head ``h // G`` with ``G = Hq // Hkv``, and K/V are never repeated.
+
+:func:`attend_stats` is the same attention over one shard of the keys
+(``q_offset`` may then be negative: the keys are global positions from the
+shard's first), with each row's log-sum-exp beside its output, for the
+sequence-parallel merge (``distributed.tp.merge_partials``); a row that
+sees no key of the shard gives 0 and -inf.
 """
 from __future__ import annotations
 
@@ -13,7 +19,8 @@ import math
 
 import torch
 
-__all__ = ["attend_dense", "attend_chunked", "visible_mask", "NEG_INF"]
+__all__ = ["attend_dense", "attend_chunked", "attend_stats",
+           "visible_mask", "NEG_INF"]
 
 NEG_INF = -1e30
 
@@ -82,3 +89,29 @@ def attend_chunked(q, k, v, *, causal: bool = True, window: int = -1,
         l = p.sum(-1, keepdim=True)
         outs.append(_grouped_out(p / torch.clamp_min(l, 1e-30), v))
     return torch.cat(outs, dim=1).to(q.dtype)
+
+
+def attend_stats(q, k, v, *, causal: bool = True, window: int = -1,
+                 q_offset: int = 0, kv_len: int | None = None,
+                 q_chunk: int = 512):
+    """``(out [B,S,Hq,hd] f32, lse [B,S,Hq] f32)``: q [B,S,Hq,hd] over
+    k/v [B,T,Hkv,hd] under :func:`visible_mask`'s rule, over query blocks
+    of ``q_chunk`` rows; a row that sees no key gives 0 and -inf."""
+    B, S, Hq, hd = q.shape
+    T = k.shape[1]
+    outs, lses = [], []
+    for c0 in range(0, S, q_chunk):
+        qi = q[:, c0:c0 + q_chunk]
+        rows = torch.arange(c0, c0 + qi.shape[1], device=q.device) + q_offset
+        ok = visible_mask(rows, T, causal=causal, window=window,
+                          kv_len=kv_len)
+        s = torch.where(ok, _grouped_scores(qi, k), float("-inf"))
+        m = s.amax(-1, keepdim=True)
+        m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+        p = torch.exp(s - m)
+        l = p.sum(-1, keepdim=True)
+        o = _grouped_out(p / torch.clamp_min(l, 1e-30), v)
+        outs.append(o.reshape(B, -1, Hq, hd))
+        lse = (m + torch.log(l))[..., 0]              # [B,Hkv,G,s]
+        lses.append(lse.permute(0, 3, 1, 2).reshape(B, -1, Hq))
+    return torch.cat(outs, 1), torch.cat(lses, 1)

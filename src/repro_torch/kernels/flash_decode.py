@@ -31,6 +31,14 @@ merge counters live in one workspace per (device, stream), allocated and
 zeroed once and grown when a call needs more; calls on one stream are
 ordered, so they share it.
 
+With ``stats=True`` a call also returns each (batch, q-head) row's
+log-sum-exp over the keys it saw, ``lse`` [B, Hq] f32 (the splits' global
+max plus the log of their merged sum, written by the launch's merge): a
+sequence-parallel decode (``nn.attention``) merges its ranks' outputs over
+their key shards with it (``distributed.tp.merge_partials``).  A shard
+with no visible key (``kv_len`` 0) launches nothing and gives output 0
+and ``lse`` -inf, which the merge weighs 0.
+
 :func:`flash_decode_plain` is the same split-K decode and merge in plain
 PyTorch: the kernel's oracle on the card and its path on the CPU.
 :func:`flash_decode` takes the plain path only for tensors on the CPU; for
@@ -144,12 +152,26 @@ def plan(q, k, kv_len: int, bk: int | None = None) -> tuple[int, int]:
                  q.shape[2] // max(k.shape[2], 1))
 
 
-def flash_decode_plain(q, k, v, kv_len: int, *, bk: int | None = None):
+def _empty(q, stats: bool):
+    """A shard with no visible key: output 0 and ``lse`` -inf."""
+    B, _, Hq, hd = q.shape
+    out = q.new_zeros((B, 1, Hq * hd))
+    if not stats:
+        raise ValueError("flash_decode: kv_len 0 (no visible key) needs "
+                         "stats=True")
+    return out, torch.full((B, Hq), float("-inf"), dtype=torch.float32,
+                           device=q.device)
+
+
+def flash_decode_plain(q, k, v, kv_len: int, *, bk: int | None = None,
+                       stats: bool = False):
     """Split-K decode in f32 and its merge: q [B,1,Hq,hd], cache
     [B,T,Hkv,hd] -> [B,1,Hq*hd] in q's type, over the splits of
-    :func:`plan`."""
+    :func:`plan`; with ``stats``, ``(out, lse [B, Hq] f32)``."""
     B, _, Hq, hd = q.shape
     T, Hkv = k.shape[1], k.shape[2]
+    if int(kv_len) == 0:
+        return _empty(q, stats)
     bk, ns = plan(q, k, kv_len, bk)
     n = ns * bk                                   # keys of the live splits
     kk, vv = k[:, :n].float(), v[:, :n].float()
@@ -170,7 +192,10 @@ def flash_decode_plain(q, k, v, kv_len: int, *, bk: int | None = None):
     w = torch.exp(m - mg)
     den = (w * l).sum(-1)
     out = (o * w[..., None]).sum(-2) / torch.clamp_min(den, 1e-30)[..., None]
-    return out.reshape(B, 1, Hq * hd).to(q.dtype)
+    out = out.reshape(B, 1, Hq * hd).to(q.dtype)
+    if not stats:
+        return out
+    return out, (mg[..., 0] + torch.log(den)).reshape(B, Hq)
 
 
 def check_decode(q, k, v) -> tuple:
@@ -222,7 +247,7 @@ def _workspace(index: int, stream: int, ncnt: int, nfloat: int):
     return ws
 
 
-def _launch(q, k, v, kv_len: int, bk: int | None) -> torch.Tensor:
+def _launch(q, k, v, kv_len: int, bk: int | None, stats: bool):
     (B, _, Hq, hd), (_, T, Hkv, _), qst, kst, vst = check_decode(q, k, v)
     index = q.get_device()
     bk, ns = plan(q, k, kv_len, bk)
@@ -233,8 +258,10 @@ def _launch(q, k, v, kv_len: int, bk: int | None) -> torch.Tensor:
                          f"kv-head, the kernel's shared memory for a "
                          f"split's scores or the merge")
     out = q.new_empty((B, 1, Hq * hd))
+    lse = torch.empty((B, Hq), dtype=torch.float32, device=q.device) \
+        if stats else None
     if B == 0:
-        return out
+        return (out, lse) if stats else out
     stream = torch._C._cuda_getCurrentRawStream(index)
     ws = _WORK.get((index, stream))
     if ws is None or ws[1] < B * Hkv or ws[2] < B * Hq * ns * (hd + 2):
@@ -244,25 +271,29 @@ def _launch(q, k, v, kv_len: int, bk: int | None) -> torch.Tensor:
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         work.data_ptr(), ncnt, DTYPES[q.dtype], B, Hq, Hkv, hd, kv_len, bk,
         ns, qst[0], qst[2], kst[0], kst[1], kst[2], vst[0], vst[1], vst[2],
-        index, stream))
+        index, stream, lse.data_ptr() if stats else 0))
     rc = _lib().flash_decode_launch(args.buffer_info()[0])
     if rc != 0:
         raise RuntimeError(f"flash_decode kernel launch failed: CUDA error "
                            f"{rc}")
     STATS.launches += 1
-    return out
+    return (out, lse) if stats else out
 
 
-def flash_decode(q, k, v, kv_len: int, *,
-                 bk: int | None = None) -> torch.Tensor:
+def flash_decode(q, k, v, kv_len: int, *, bk: int | None = None,
+                 stats: bool = False):
     """q [B,1,Hq,hd] over the first ``kv_len`` keys of the cache k/v
     [B,T,Hkv,hd] -> [B,1,Hq*hd]: the kernel for CUDA tensors, the plain
-    twin for CPU tensors, both over the splits of :func:`plan`.  Refuses
-    inputs that require grad under grad mode (:func:`_build.refuse_grad`)."""
+    twin for CPU tensors, both over the splits of :func:`plan`.  With
+    ``stats``, ``(out, lse [B, Hq] f32)``, and ``kv_len`` may be 0 (no
+    launch).  Refuses inputs that require grad under grad mode
+    (:func:`_build.refuse_grad`)."""
     _build.refuse_grad("flash_decode", q, k, v)
     kv_len = int(kv_len)
-    if q.is_cuda:
-        return _launch(q, k, v, kv_len, bk)
-    if q.device.type != "cpu":
+    if q.device.type not in ("cuda", "cpu"):
         raise ValueError(f"flash_decode: no kernel for device {q.device}")
-    return flash_decode_plain(q, k, v, kv_len, bk=bk)
+    if kv_len == 0:
+        return _empty(q, stats)
+    if q.is_cuda:
+        return _launch(q, k, v, kv_len, bk, stats)
+    return flash_decode_plain(q, k, v, kv_len, bk=bk, stats=stats)

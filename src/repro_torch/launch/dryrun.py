@@ -26,7 +26,9 @@ on ``meta`` and fake tensors on one host and prices it by the plan
   and temporaries; a bound, where FSDP2 keeps a gradient shard and TP
   would shard activations) and a train step's update's, scaled by the
   plan's per-device share of the parameters;
-- collective bytes: analytic from the plan (``launch.cost_analysis``);
+- collective bytes: from the plan (``launch.cost_analysis``: FSDP's
+  gathers and scatters, and the TP, EP and SP payloads the sharded steps
+  make, held equal to what the CPU ranks of the tests count);
 - the three roofline terms on H100 datasheet constants and the
   bottleneck.  All are predictions.
 
@@ -301,8 +303,7 @@ def lower_cell(arch, shape_name, *, multi_pod: bool = False, mesh=None,
     given ``cfg``/``shape`` and ``mesh``) on the production mesh."""
     from ..configs import SHAPES, get_config
     from ..core.model import param_tree
-    from ..distributed.sharding import (decode_state_specs_sharded,
-                                        param_specs)
+    from ..distributed.sharding import param_specs
     from . import cost_analysis as ca
     from .mesh import make_production_mesh, mesh_size, MeshSpec
     cfg = cfg or get_config(arch)
@@ -318,14 +319,9 @@ def lower_cell(arch, shape_name, *, multi_pod: bool = False, mesh=None,
     cell = _abstract(cfg, shape, dtype)
     leaves = param_tree(cell[0])
     specs = param_specs(leaves, mesh, cfg)
-    state_specs = None
-    if shape.kind == "decode":
-        state_specs = decode_state_specs_sharded(
-            cell[1], mesh,
-            shard_seq=shape.global_batch == 1)
     act = torch.empty((), dtype=dtype).element_size()
     coll = ca.collective_bytes(specs, leaves, cfg, shape, mesh,
-                               act_bytes=act, state_specs=state_specs)
+                               act_bytes=act)
     if shape.kind == "train":
         touched = 4 * args["params"] + 2 * args["moments"] + args["batch"]
     elif shape.kind == "prefill":

@@ -25,7 +25,7 @@ from dataclasses import dataclass
 
 __all__ = ["MeshSpec", "make_production_mesh", "init_mesh", "mesh_ctx",
            "dp_axes", "batch_axes", "axis_sizes", "mesh_size",
-           "process_group"]
+           "process_group", "submesh"]
 
 
 @dataclass(frozen=True)
@@ -118,6 +118,17 @@ def make_production_mesh(*, multi_pod: bool = False,
 def dp_axes(mesh) -> tuple[str, ...]:
     """The data-parallel / FSDP axes of a mesh (everything but 'model')."""
     return tuple(a for a in axis_sizes(mesh) if a != "model")
+
+
+def submesh(mesh, axes: tuple):
+    """The 1-D ``DeviceMesh`` over ``axes`` of a ``DeviceMesh``: the axis
+    itself, or several flattened into one (FSDP over ``("pod", "data")``,
+    the reference's ``dp_axes``; a batch-1 decode cache over ``("data",
+    "model")``)."""
+    axes = tuple(axes)
+    if len(axes) == 1:
+        return mesh[axes[0]]
+    return mesh[axes]._flatten("_".join(axes))
 
 
 def batch_axes(mesh):

@@ -22,6 +22,10 @@ The decode state is ``{"k", "v": [L, B, T, Hkv, hd], "idx": int,
 "memory": [B, S_enc, d]}``; ``init_decode_state`` sizes the memory at
 ``max_len * DEC_FRAC`` frames, as the reference does, and ``prefill``
 stores the encoder's output there.
+
+Tensor parallelism as in ``models.lm``: both stacks run their shards, the
+token and position tables are vocab-parallel, and the memory is whole on
+every rank of 'model' (the plan shards it on the batch only).
 """
 from __future__ import annotations
 
@@ -31,6 +35,7 @@ from torch import nn
 
 from .. import resolve_device
 from ..configs import ArchConfig
+from ..distributed import tp
 from ..nn import Block, Embedding, LayerNorm, fused_linear_ce
 from ..nn.transformer import remat_call
 
@@ -54,7 +59,7 @@ class EncDec(nn.Module):
     """The encoder-decoder; ``cfg`` fixes its shapes."""
 
     def __init__(self, cfg: ArchConfig, *, generator=None, device=None,
-                 dtype=torch.bfloat16):
+                 dtype=torch.bfloat16, keep=tp.keep_all):
         super().__init__()
         self.cfg = cfg
         kw = dict(generator=generator, device=device, dtype=dtype)
@@ -65,13 +70,13 @@ class EncDec(nn.Module):
                          mlp_kind=cfg.mlp_kind, norm=cfg.norm,
                          cross_attn=cross, **kw)
 
-        self.enc_blocks = nn.ModuleList(block(False)
-                                        for _ in range(cfg.encoder_layers))
+        self.enc_blocks = nn.ModuleList(keep(f"enc_blocks/{i}", block(False))
+                                        for i in range(cfg.encoder_layers))
         self.enc_ln = LayerNorm(cfg.d_model, device=device, dtype=dtype)
-        self.tok = Embedding(cfg.vocab_padded, cfg.d_model, **kw)
-        self.pos = Embedding(POS_ROWS, cfg.d_model, **kw)
-        self.dec_blocks = nn.ModuleList(block(True)
-                                        for _ in range(cfg.n_layers))
+        self.tok = keep("tok", Embedding(cfg.vocab_padded, cfg.d_model, **kw))
+        self.pos = keep("pos", Embedding(POS_ROWS, cfg.d_model, **kw))
+        self.dec_blocks = nn.ModuleList(keep(f"dec_blocks/{i}", block(True))
+                                        for i in range(cfg.n_layers))
         self.dec_ln = LayerNorm(cfg.d_model, device=device, dtype=dtype)
 
 
@@ -79,13 +84,15 @@ MODEL = EncDec                    # the class a reference checkpoint fills
 
 
 def init(cfg: ArchConfig, *, seed: int = 0, dtype=torch.bfloat16,
-         device=None) -> EncDec:
+         device=None, shard: tp.Keep | None = None) -> EncDec:
     """A model with weights drawn from a ``torch.Generator`` seeded with
-    ``seed`` on ``device`` (``cuda`` unless given)."""
+    ``seed`` on ``device`` (``cuda`` unless given); with ``shard``, one
+    rank's 'model' shard of the same draw (``models.lm.init``)."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     with torch.no_grad():
-        return EncDec(cfg, generator=gen, device=dev, dtype=dtype).eval()
+        return EncDec(cfg, generator=gen, device=dev, dtype=dtype,
+                   keep=shard or tp.keep_all).eval()
 
 
 def _enc(model: EncDec, embeds: torch.Tensor, impl: str,
@@ -119,7 +126,7 @@ def _dec(model: EncDec, tokens, memory, *, state=None, impl: str,
 
 
 def _logits(model: EncDec, x: torch.Tensor) -> torch.Tensor:
-    return x @ model.tok.emb.T
+    return tp.logits(x, model.tok.emb.T, model.cfg.vocab_padded)
 
 
 @torch.no_grad()
@@ -138,7 +145,8 @@ def loss_fn(model: EncDec, batch: dict, *, impl: str = "dense",
     ``remat`` as ``nn.transformer.remat_call``'s)."""
     memory = _enc(model, batch["embeds"], impl, remat)
     x = _dec(model, batch["tokens"], memory, impl=impl, remat=remat)
-    return fused_linear_ce(x, model.tok.emb.T, batch["labels"])
+    return fused_linear_ce(x, model.tok.emb.T, batch["labels"],
+                           vocab=model.cfg.vocab_padded)
 
 
 def init_decode_state(cfg: ArchConfig, batch: int, max_len: int, *,
@@ -146,7 +154,8 @@ def init_decode_state(cfg: ArchConfig, batch: int, max_len: int, *,
     """Zero self-attention KV caches [L, B, max_len, Hkv, hd] and a zero
     memory [B, max_len * DEC_FRAC, d]."""
     dev = resolve_device(device)
-    shape = (cfg.n_layers, batch, max_len, cfg.kv_heads, cfg.hd)
+    shape = (cfg.n_layers, batch, tp.cache_len(max_len), cfg.kv_heads,
+             cfg.hd)
     return {"k": torch.zeros(shape, dtype=dtype, device=dev),
             "v": torch.zeros(shape, dtype=dtype, device=dev), "idx": 0,
             "memory": torch.zeros((batch, max_len * DEC_FRAC, cfg.d_model),
@@ -161,14 +170,14 @@ def prefill(model: EncDec, batch: dict, max_len: int, *,
     vocab_padded], decode state with the memory)``."""
     memory = _enc(model, batch["embeds"], impl)
     B = batch["tokens"].shape[0]
-    shape = (model.cfg.n_layers, B, max_len, model.cfg.kv_heads,
-             model.cfg.hd)
+    shape = (model.cfg.n_layers, B, tp.cache_len(max_len),
+             model.cfg.kv_heads, model.cfg.hd)
     state = {"k": torch.zeros(shape, dtype=cache_dtype, device=memory.device),
              "v": torch.zeros(shape, dtype=cache_dtype, device=memory.device),
              "idx": 0}
     x = _dec(model, batch["tokens"], memory, state=state, impl=impl)
     state["memory"] = memory.to(cache_dtype)
-    return _logits(model, x)[:, -1:], state
+    return _logits(model, x[:, -1:]), state
 
 
 @torch.no_grad()

@@ -20,6 +20,10 @@ The decode state is ``{"kv": {"k", "v": [L, B, T, Hkv, hd], "idx": int},
 "ssm": {"h": [L, B, d, N] f32, "cwin": [L, B, K-1, d]}}``, written in
 place.  The SSM's recurrence is a Python loop over positions: on the card
 about four launches a position and layer.
+
+Tensor parallelism as in ``models.lm``: attention and MLP run their
+shards; the SSM and the norms are whole on every rank (the plan
+replicates them), so their inputs and outputs are too.
 """
 from __future__ import annotations
 
@@ -28,6 +32,7 @@ from torch import nn
 
 from .. import resolve_device
 from ..configs import ArchConfig
+from ..distributed import tp
 from ..nn import (MHA, MLP, SSM, Dense, Embedding, RMSNorm, fused_linear_ce,
                   rope_freqs, ssm_init_state)
 from ..nn.transformer import remat_call
@@ -69,28 +74,32 @@ class Hymba(nn.Module):
     """The hybrid LM; ``cfg`` fixes its shapes."""
 
     def __init__(self, cfg: ArchConfig, *, generator=None, device=None,
-                 dtype=torch.bfloat16):
+                 dtype=torch.bfloat16, keep=tp.keep_all):
         super().__init__()
         self.cfg = cfg
         kw = dict(generator=generator, device=device, dtype=dtype)
-        self.embed = Embedding(cfg.vocab_padded, cfg.d_model, **kw)
-        self.blocks = nn.ModuleList(HymbaBlock(cfg, **kw)
-                                    for _ in range(cfg.n_layers))
+        self.embed = keep("embed", Embedding(cfg.vocab_padded, cfg.d_model,
+                                             **kw))
+        self.blocks = nn.ModuleList(keep(f"blocks/{i}", HymbaBlock(cfg, **kw))
+                                    for i in range(cfg.n_layers))
         self.ln_f = RMSNorm(cfg.d_model, device=device, dtype=dtype)
-        self.head = Dense(cfg.d_model, cfg.vocab_padded, bias=False, **kw)
+        self.head = keep("head", Dense(cfg.d_model, cfg.vocab_padded,
+                                       bias=False, **kw))
 
 
 MODEL = Hymba                     # the class a reference checkpoint fills
 
 
 def init(cfg: ArchConfig, *, seed: int = 0, dtype=torch.bfloat16,
-         device=None) -> Hymba:
+         device=None, shard: tp.Keep | None = None) -> Hymba:
     """A model with weights drawn from a ``torch.Generator`` seeded with
-    ``seed`` on ``device`` (``cuda`` unless given)."""
+    ``seed`` on ``device`` (``cuda`` unless given); with ``shard``, one
+    rank's 'model' shard of the same draw (``models.lm.init``)."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     with torch.no_grad():
-        return Hymba(cfg, generator=gen, device=dev, dtype=dtype).eval()
+        return Hymba(cfg, generator=gen, device=dev, dtype=dtype,
+                   keep=shard or tp.keep_all).eval()
 
 
 def _run(model: Hymba, ids, pos0: int = 0, *, state=None, impl: str,
@@ -122,7 +131,11 @@ def forward(model: Hymba, batch: dict, *,
             impl: str = "kernel") -> torch.Tensor:
     """Teacher-forced logits [B, S, vocab_padded] for ``batch["tokens"]``
     [B, S]."""
-    return model.head(_run(model, batch["tokens"], impl=impl))
+    return _logits(model, _run(model, batch["tokens"], impl=impl))
+
+
+def _logits(model: Hymba, x: torch.Tensor) -> torch.Tensor:
+    return tp.logits(x, model.head.w, model.cfg.vocab_padded)
 
 
 def loss_fn(model: Hymba, batch: dict, *, impl: str = "dense",
@@ -131,7 +144,8 @@ def loss_fn(model: Hymba, batch: dict, *, impl: str = "dense",
     aux loss: ``aux_weight`` is accepted and unused, as in the
     reference; ``remat`` as ``nn.transformer.remat_call``'s)."""
     x = _run(model, batch["tokens"], impl=impl, remat=remat)
-    return fused_linear_ce(x, model.head.w, batch["labels"])
+    return fused_linear_ce(x, model.head.w, batch["labels"],
+                           vocab=model.cfg.vocab_padded)
 
 
 def init_decode_state(cfg: ArchConfig, batch: int, max_len: int, *,
@@ -139,7 +153,7 @@ def init_decode_state(cfg: ArchConfig, batch: int, max_len: int, *,
     """Zero KV caches (as ``lm``'s) and zero SSM states for every layer."""
     dev = resolve_device(device)
     L = cfg.n_layers
-    shape = (L, batch, max_len, cfg.kv_heads, cfg.hd)
+    shape = (L, batch, tp.cache_len(max_len), cfg.kv_heads, cfg.hd)
     kv = {"k": torch.zeros(shape, dtype=dtype, device=dev),
           "v": torch.zeros(shape, dtype=dtype, device=dev), "idx": 0}
     ssm = ssm_init_state(batch, cfg.d_model, cfg.ssm_state, cfg.ssm_conv,
@@ -157,7 +171,7 @@ def prefill(model: Hymba, batch: dict, max_len: int, *,
     state = init_decode_state(model.cfg, ids.shape[0], max_len,
                               dtype=cache_dtype, device=ids.device)
     x = _run(model, ids, state=state, impl=impl)
-    return model.head(x[:, -1:]), state
+    return _logits(model, x[:, -1:]), state
 
 
 @torch.no_grad()
@@ -167,4 +181,4 @@ def decode_step(model: Hymba, state: dict, batch: dict, *,
     vocab_padded], state)``; the state is updated in place."""
     x = _run(model, batch["tokens"], state["kv"]["idx"], state=state,
              impl=impl)
-    return model.head(x), state
+    return _logits(model, x), state

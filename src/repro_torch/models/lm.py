@@ -31,6 +31,14 @@ card ``impl="kernel"`` decodes need the cache in the parameters' type (the
 defaults, bf16 and bf16, agree).  The decode state is ``{"k", "v": [L, B,
 T, Hkv, hd], "idx": int}``, written in place; its write index is a Python
 int, so a decode step makes no host sync.
+
+Tensor parallelism (``distributed.tp``): a model built with a
+``tp.Keep`` (``init(shard=...)``) holds one rank's 'model' shard of each
+leaf, cut block by block as it is built from the one-device draw; under
+an ambient ``tp.Parallel`` (``launch.steps``) the layers run their
+shards, the logits are all-gathered over the vocab (``tp.logits``), the
+loss is the vocab-parallel CE, and a decode cache holds the rank's share
+of the positions (``tp.cache_len``) with every kv-head.
 """
 from __future__ import annotations
 
@@ -41,6 +49,7 @@ from torch import nn
 
 from .. import resolve_device
 from ..configs import ArchConfig
+from ..distributed import tp
 from ..nn import (MHA, Block, Dense, Embedding, MoE, fused_linear_ce,
                   make_norm, moe_apply, mrope_freqs, rope_freqs)
 from ..nn.transformer import remat_call
@@ -81,25 +90,26 @@ class LM(nn.Module):
     """The decoder-only LM; ``cfg`` fixes its shapes."""
 
     def __init__(self, cfg: ArchConfig, *, generator=None, device=None,
-                 dtype=torch.bfloat16):
+                 dtype=torch.bfloat16, keep=tp.keep_all):
         super().__init__()
         self.cfg = cfg
         kw = dict(generator=generator, device=device, dtype=dtype)
-        self.embed = Embedding(cfg.vocab_padded, cfg.d_model, **kw)
-        if cfg.n_experts:
-            blocks = (MoEBlock(cfg, **kw) for _ in range(cfg.n_layers))
-        else:
-            blocks = (Block(cfg.d_model, n_heads=cfg.n_heads,
-                            head_dim=cfg.hd, d_ff=cfg.d_ff,
-                            kv_heads=cfg.kv_heads, mlp_kind=cfg.mlp_kind,
-                            norm=cfg.norm, qkv_bias=cfg.qkv_bias,
-                            qk_norm=cfg.qk_norm, **kw)
-                      for _ in range(cfg.n_layers))
-        self.blocks = nn.ModuleList(blocks)
+        self.embed = keep("embed", Embedding(cfg.vocab_padded, cfg.d_model,
+                                             **kw))
+
+        def block():
+            if cfg.n_experts:
+                return MoEBlock(cfg, **kw)
+            return Block(cfg.d_model, n_heads=cfg.n_heads, head_dim=cfg.hd,
+                         d_ff=cfg.d_ff, kv_heads=cfg.kv_heads,
+                         mlp_kind=cfg.mlp_kind, norm=cfg.norm,
+                         qkv_bias=cfg.qkv_bias, qk_norm=cfg.qk_norm, **kw)
+        self.blocks = nn.ModuleList(keep(f"blocks/{i}", block())
+                                    for i in range(cfg.n_layers))
         self.ln_f = make_norm(cfg.norm, cfg.d_model, device=device,
                               dtype=dtype)
-        self.head = (None if cfg.tie_embeddings else
-                     Dense(cfg.d_model, cfg.vocab_padded, bias=False, **kw))
+        self.head = (None if cfg.tie_embeddings else keep("head", Dense(
+            cfg.d_model, cfg.vocab_padded, bias=False, **kw)))
 
     def head_w(self) -> torch.Tensor:
         """[d_model, vocab_padded]: ``head.w``, or ``embed.emb.T`` when
@@ -111,13 +121,15 @@ MODEL = LM                        # the class a reference checkpoint fills
 
 
 def init(cfg: ArchConfig, *, seed: int = 0, dtype=torch.bfloat16,
-         device=None) -> LM:
+         device=None, shard: tp.Keep | None = None) -> LM:
     """A model with weights drawn from a ``torch.Generator`` seeded with
-    ``seed`` on ``device`` (``cuda`` unless given)."""
+    ``seed`` on ``device`` (``cuda`` unless given); with ``shard``, one
+    rank's 'model' shard of the same draw."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     with torch.no_grad():
-        return LM(cfg, generator=gen, device=dev, dtype=dtype).eval()
+        return LM(cfg, generator=gen, device=dev, dtype=dtype,
+                  keep=shard or tp.keep_all).eval()
 
 
 def _inputs(model: LM, batch: dict) -> torch.Tensor:
@@ -176,7 +188,7 @@ def _hidden(model: LM, batch: dict, impl: str, remat: str = "none"):
 
 
 def _logits(model: LM, x: torch.Tensor) -> torch.Tensor:
-    return model.ln_f(x) @ model.head_w()
+    return tp.logits(model.ln_f(x), model.head_w(), model.cfg.vocab_padded)
 
 
 @torch.no_grad()
@@ -200,16 +212,18 @@ def loss_fn(model: LM, batch: dict, *, impl: str = "dense",
     ``aux_weight * aux / n_layers``, with gradients; ``remat`` as
     ``nn.transformer.remat_call``'s."""
     x, aux = _hidden(model, batch, impl, remat)
-    ce = fused_linear_ce(model.ln_f(x), model.head_w(), batch["labels"])
+    ce = fused_linear_ce(model.ln_f(x), model.head_w(), batch["labels"],
+                         vocab=model.cfg.vocab_padded)
     return ce + aux_weight * aux / max(model.cfg.n_layers, 1)
 
 
 def init_decode_state(cfg: ArchConfig, batch: int, max_len: int, *,
                       dtype=torch.bfloat16, device=None) -> dict:
     """Per-layer KV caches ``{"k", "v": [L, B, T, Hkv, hd] zeros, "idx":
-    0}``."""
+    0}``, T this rank's share of ``max_len`` (``tp.cache_len``)."""
     dev = resolve_device(device)
-    shape = (cfg.n_layers, batch, max_len, cfg.kv_heads, cfg.hd)
+    shape = (cfg.n_layers, batch, tp.cache_len(max_len), cfg.kv_heads,
+             cfg.hd)
     return {"k": torch.zeros(shape, dtype=dtype, device=dev),
             "v": torch.zeros(shape, dtype=dtype, device=dev),
             "idx": 0}

@@ -18,6 +18,10 @@ single token included; ``impl="dense"`` is the reference's ``impl="xla"``
 :func:`loss_fn`'s default: ``wkv6`` has no backward.
 The decode state is ``{"s": [L,B,H,n,n] f32, "x_tm", "xc_tm": [L,B,d]}``
 in the cache type, O(1) in ``max_len``, and written in place.
+
+Tensor parallelism as in ``models.lm``: a rank's blocks run their heads
+(``nn.rwkv``), its state ``S`` holds them, and the logits are
+all-gathered over the vocab.
 """
 from __future__ import annotations
 
@@ -26,6 +30,7 @@ from torch import nn
 
 from .. import resolve_device
 from ..configs import ArchConfig
+from ..distributed import tp
 from ..nn import Dense, Embedding, LayerNorm, RWKVBlock, fused_linear_ce
 from ..nn.rwkv import rwkv_init_state
 from ..nn.transformer import remat_call
@@ -38,30 +43,35 @@ class RWKVLM(nn.Module):
     """The RWKV6 LM; ``cfg`` fixes its shapes."""
 
     def __init__(self, cfg: ArchConfig, *, generator=None, device=None,
-                 dtype=torch.bfloat16):
+                 dtype=torch.bfloat16, keep=tp.keep_all):
         super().__init__()
         self.cfg = cfg
         kw = dict(generator=generator, device=device, dtype=dtype)
-        self.embed = Embedding(cfg.vocab_padded, cfg.d_model, **kw)
+        self.embed = keep("embed", Embedding(cfg.vocab_padded, cfg.d_model,
+                                             **kw))
         self.blocks = nn.ModuleList(
-            RWKVBlock(cfg.d_model, n_heads=cfg.n_heads, head_dim=cfg.hd,
-                      d_ff=cfg.d_ff, **kw)
-            for _ in range(cfg.n_layers))
+            keep(f"blocks/{i}", RWKVBlock(cfg.d_model, n_heads=cfg.n_heads,
+                                          head_dim=cfg.hd, d_ff=cfg.d_ff,
+                                          **kw))
+            for i in range(cfg.n_layers))
         self.ln_f = LayerNorm(cfg.d_model, device=device, dtype=dtype)
-        self.head = Dense(cfg.d_model, cfg.vocab_padded, bias=False, **kw)
+        self.head = keep("head", Dense(cfg.d_model, cfg.vocab_padded,
+                                       bias=False, **kw))
 
 
 MODEL = RWKVLM                    # the class a reference checkpoint fills
 
 
 def init(cfg: ArchConfig, *, seed: int = 0, dtype=torch.bfloat16,
-         device=None) -> RWKVLM:
+         device=None, shard: tp.Keep | None = None) -> RWKVLM:
     """A model with weights drawn from a ``torch.Generator`` seeded with
-    ``seed`` on ``device`` (``cuda`` unless given)."""
+    ``seed`` on ``device`` (``cuda`` unless given); with ``shard``, one
+    rank's 'model' shard of the same draw (``models.lm.init``)."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     with torch.no_grad():
-        return RWKVLM(cfg, generator=gen, device=dev, dtype=dtype).eval()
+        return RWKVLM(cfg, generator=gen, device=dev, dtype=dtype,
+                   keep=shard or tp.keep_all).eval()
 
 
 def _run(model: RWKVLM, x, *, states=None, impl: str, remat: str = "none"):
@@ -79,7 +89,7 @@ def _run(model: RWKVLM, x, *, states=None, impl: str, remat: str = "none"):
 
 
 def _logits(model: RWKVLM, x: torch.Tensor) -> torch.Tensor:
-    return model.head(model.ln_f(x))
+    return tp.logits(model.ln_f(x), model.head.w, model.cfg.vocab_padded)
 
 
 @torch.no_grad()
@@ -97,14 +107,16 @@ def loss_fn(model: RWKVLM, batch: dict, *, impl: str = "dense",
     (``aux_weight`` unused, as in the reference; ``remat`` as
     ``nn.transformer.remat_call``'s)."""
     x = _run(model, model.embed(batch["tokens"]), impl=impl, remat=remat)
-    return fused_linear_ce(model.ln_f(x), model.head.w, batch["labels"])
+    return fused_linear_ce(model.ln_f(x), model.head.w, batch["labels"],
+                           vocab=model.cfg.vocab_padded)
 
 
 def init_decode_state(cfg: ArchConfig, batch: int, max_len: int, *,
                       dtype=torch.bfloat16, device=None) -> dict:
     """Zero recurrent state for every layer (``max_len`` unused: the state
     is O(1) in it)."""
-    st = rwkv_init_state(batch, cfg.n_heads, cfg.hd, cfg.d_model,
+    st = rwkv_init_state(batch, tp.local_heads(cfg.n_heads), cfg.hd,
+                         cfg.d_model,
                          dtype=dtype, device=resolve_device(device))
     return {key: a.expand(cfg.n_layers, *a.shape).clone()
             for key, a in st.items()}

@@ -30,14 +30,44 @@ Port of ``repro.nn.attention``:
   takes the dense or chunked math.  Uncached cross-attention is a full
   sequence, so it goes to ``flash_attention`` with ``causal=False``, a
   decode step's single query included.
+
+Under tensor parallelism (an ambient ``distributed.tp.Parallel`` with a
+'model' axis above 1) a rank holds the plan's shard of q, k, v and o:
+
+- q/o sharded (``n_heads % tp == 0``): the rank's contiguous q-heads; q
+  is column-parallel (its input through ``tp.copy_to_tp``), o
+  row-parallel (its output through ``tp.reduce_from_tp``), and qk-norm's
+  gains through ``copy_to_tp``, since each rank uses them on its own
+  heads only;
+- k/v sharded too (``kv_heads % tp == 0``): the rank's kv-heads, which
+  its q-heads read with the global grouping; else (the plan's veto) K/V
+  are whole on every rank and the rank takes the kv-heads its q-heads
+  read (``h // G`` on global indices; ``tp.tp_select``, whose backward
+  all-reduces), one per q-head where they do not group evenly;
+- q/o replicated (``n_heads % tp != 0``): the whole attention on every
+  rank, no collective.
+
+A decode cache under a sharded step (``Parallel.seq``) holds every
+kv-head of a contiguous share of the positions: rank ``r`` of the
+sequence axis holds ``[r * T_l, (r + 1) * T_l)``.  A prefill (write index
+0) attends its heads over the prompt's own keys (the dense route, as on
+one device) and writes the positions the rank holds, the kv-heads
+gathered over 'model'; a later step gathers q over 'model', writes the
+new keys on the rank that holds their positions, attends all q-heads over
+the rank's keys with their log-sum-exps (``flash_decode(stats=True)`` on
+the kernel route, ``attend_stats`` on the dense one and for windowed
+layers), merges the ranks' parts (``tp.sp_merge``) and keeps its own
+heads for the row-parallel o.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
+from ..distributed import tp
 from ..kernels import flash_attention as _fa, flash_decode as _fd
-from ..kernels.dense_attention import attend_chunked, attend_dense
+from ..kernels.dense_attention import (attend_chunked, attend_dense,
+                                       attend_stats)
 from .linear import Dense
 from .norms import RMSNorm
 from .rope import apply_rope
@@ -114,32 +144,105 @@ class MHA(nn.Module):
         """Returns ``(out, cache)``; with ``cache``, ``x`` holds the new
         tokens, which are written at ``cache["idx"]``.  With ``xkv`` [B,
         T, d] the layer cross-attends to it (no rope, no cache, not
-        causal)."""
+        causal).  Sharded as the module docstring says."""
         B, S, _ = x.shape
-        Hq, Hkv, hd = self.n_heads, self.kv_heads, self.head_dim
+        hd = self.head_dim
+        ax = tp.tp_axis()
+        Hq, Hkv = self.q.w.shape[1] // hd, self.k.w.shape[1] // hd
+        q_sh = ax is not None and Hq != self.n_heads
+        kv_sh = ax is not None and Hkv != self.kv_heads
         src = x if xkv is None else xkv
         T = src.shape[1]
-        q = self.q(x).reshape(B, S, Hq, hd)
-        k = self.k(src).reshape(B, T, Hkv, hd)
-        v = self.v(src).reshape(B, T, Hkv, hd)
+        xi = tp.copy_to_tp(x, ax) if q_sh else x
+        q = self.q(xi).reshape(B, S, Hq, hd)
+        si = (xi if xkv is None else tp.copy_to_tp(src, ax)) if kv_sh \
+            else src
+        k = self.k(si).reshape(B, T, Hkv, hd)
+        v = self.v(si).reshape(B, T, Hkv, hd)
         if self.qn is not None:
-            q, k = self.qn(q), self.kn(k)
-        if xkv is not None:
-            out = attend(q, k, v, causal=False, window=window, impl=impl)
-            return self.o(out), cache
-        if cos is not None:
+            q = self.qn(q, tp.copy_to_tp(self.qn.g, ax) if q_sh else None)
+            k = self.kn(k, tp.copy_to_tp(self.kn.g, ax) if kv_sh else None)
+        if cos is not None and xkv is None:
             q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
-        q_offset, kv_len = 0, None
-        if cache is not None:
-            idx = cache["idx"]
-            if idx + S > cache["k"].shape[1]:
-                raise ValueError(f"KV cache of length {cache['k'].shape[1]} "
-                                 f"cannot take {S} tokens at {idx}")
-            cache["k"][:, idx:idx + S] = k.to(cache["k"].dtype)
-            cache["v"][:, idx:idx + S] = v.to(cache["v"].dtype)
-            cache["idx"] = idx + S
-            k, v = cache["k"], cache["v"]
-            q_offset, kv_len = idx, idx + S
-        out = attend(q, k, v, causal=causal, window=window, q_offset=q_offset,
-                     kv_len=kv_len, impl=impl)
-        return self.o(out), cache
+        sel = self._kv_select(ax) if q_sh and not kv_sh else None
+        pick = (lambda t: t) if sel is None else \
+            (lambda t: tp.tp_select(t, ax, 2, sel))
+        seq = getattr(tp.current(), "seq", None)
+        if xkv is not None:
+            out = attend(q, pick(k), pick(v), causal=False, window=window,
+                         impl=impl)
+        elif cache is not None and (ax is not None or seq is not None):
+            out = self._sharded_cache(q, k, v, pick, cache, ax, seq, q_sh,
+                                      kv_sh, causal=causal, window=window,
+                                      impl=impl)
+        else:
+            q_offset, kv_len = 0, None
+            if cache is not None:
+                idx = cache["idx"]
+                if idx + S > cache["k"].shape[1]:
+                    raise ValueError(f"KV cache of length "
+                                     f"{cache['k'].shape[1]} cannot take "
+                                     f"{S} tokens at {idx}")
+                cache["k"][:, idx:idx + S] = k.to(cache["k"].dtype)
+                cache["v"][:, idx:idx + S] = v.to(cache["v"].dtype)
+                cache["idx"] = idx + S
+                k, v = cache["k"], cache["v"]
+                q_offset, kv_len = idx, idx + S
+            out = attend(q, pick(k), pick(v), causal=causal, window=window,
+                         q_offset=q_offset, kv_len=kv_len, impl=impl)
+        out = self.o(out)
+        return (tp.reduce_from_tp(out, ax) if q_sh else out), cache
+
+    def _kv_select(self, ax) -> list:
+        """The kv-heads this rank's q-heads read when K/V are whole, each
+        once; the kernels' GQA mapping then holds on local indices, which
+        needs the rank's q-heads to group evenly over them (every config
+        at a power-of-two 'model' axis does)."""
+        hq = self.n_heads // ax.size
+        G = self.n_heads // self.kv_heads
+        idx = [h // G for h in range(ax.rank * hq, (ax.rank + 1) * hq)]
+        uniq = sorted(set(idx))
+        if hq % len(uniq) or any(idx.count(u) != hq // len(uniq)
+                                 for u in uniq):
+            raise ValueError(f"{hq} q-heads a rank do not group evenly "
+                             f"over kv-heads {uniq}")
+        return uniq
+
+    def _sharded_cache(self, q, k, v, pick, cache, ax, seq, q_sh, kv_sh, *,
+                       causal, window, impl):
+        """Attention with a cache under a sharded step (module docstring):
+        ``q`` [B,S,Hq_l,hd] on this rank's heads, ``k``/``v`` [B,S,Hkv_l,
+        hd] (all kv-heads when the plan keeps them whole); returns [B, S,
+        Hq_l * hd]."""
+        B, S, Hq, hd = q.shape
+        idx, Tl = cache["idx"], cache["k"].shape[1]
+        off = (seq.rank if seq is not None else 0) * Tl
+        span = Tl * (seq.size if seq is not None else 1)
+        if idx + S > span:
+            raise ValueError(f"KV cache of length {span} cannot take {S} "
+                             f"tokens at {idx}")
+        kall = tp.gather_from_tp(k, ax, 2, "sp") if kv_sh else k
+        vall = tp.gather_from_tp(v, ax, 2, "sp") if kv_sh else v
+        lo, hi = max(idx, off), min(idx + S, off + Tl)
+        if lo < hi:
+            dt = cache["k"].dtype
+            cache["k"][:, lo - off:hi - off] = kall[:, lo - idx:hi - idx].to(dt)
+            cache["v"][:, lo - off:hi - off] = vall[:, lo - idx:hi - idx].to(dt)
+        cache["idx"] = idx + S
+        if idx == 0:                   # a prefill: the prompt's own keys
+            dt = cache["k"].dtype
+            return attend(q, pick(k).to(dt), pick(v).to(dt), causal=causal,
+                          window=window, q_offset=0, kv_len=S, impl=impl)
+        qall = tp.gather_from_tp(q, ax, 2, "sp") if q_sh else q
+        seen = min(max(idx + S - off, 0), Tl)
+        ck, cv = cache["k"], cache["v"]
+        if impl == "kernel" and S == 1 and causal and window == -1:
+            o, lse = _fd.flash_decode(qall, ck, cv, seen, stats=True)
+            o, lse = o.reshape(B, 1, -1, hd), lse[:, None]
+        else:
+            o, lse = attend_stats(qall, ck, cv, causal=causal, window=window,
+                                  q_offset=idx - off, kv_len=seen)
+        merged = tp.sp_merge(o, lse, seq)
+        if q_sh:
+            merged = merged[:, :, ax.rank * Hq:(ax.rank + 1) * Hq]
+        return merged.reshape(B, S, Hq * hd).to(q.dtype)

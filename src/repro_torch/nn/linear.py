@@ -8,6 +8,12 @@ one), so reference checkpoints load without transposes.
 the MoE dispatch and combine): the plain gather, with a backward
 (:func:`segment_sum`) that gives the same bits on every run and is
 linear in the ids.
+
+Under tensor parallelism (``distributed.tp``) a rank's :class:`Embedding`
+holds its contiguous share of the rows (the plan's vocab shard) and looks
+up through ``tp.vocab_lookup``; a :class:`Dense` holds its column or row
+shard as a plain weight, and the module that owns it places the
+collectives (``nn.transformer.MLP``, ``nn.attention.MHA``, ...).
 """
 from __future__ import annotations
 
@@ -15,6 +21,8 @@ import math
 
 import torch
 from torch import nn
+
+from ..distributed import tp
 
 __all__ = ["Dense", "Embedding", "take_rows", "segment_sum"]
 
@@ -97,7 +105,9 @@ class Dense(nn.Module):
 
 
 class Embedding(nn.Module):
-    """Lookup table ``emb`` [vocab, d], drawn N(0, 0.02^2)."""
+    """Lookup table ``emb`` [vocab, d], drawn N(0, 0.02^2); ``rows`` is
+    the table's global row count, above ``emb``'s on a rank that holds a
+    vocab shard."""
 
     def __init__(self, vocab: int, d: int, *,
                  generator: torch.Generator | None = None, device=None,
@@ -106,6 +116,7 @@ class Embedding(nn.Module):
         e = torch.randn((vocab, d), generator=generator, device=device,
                         dtype=torch.float32) * 0.02
         self.emb = nn.Parameter(e.to(dtype))
+        self.rows = vocab
 
     def forward(self, ids) -> torch.Tensor:
-        return take_rows(self.emb, ids)
+        return tp.vocab_lookup(self.emb, ids, self.rows, tp.tp_axis())

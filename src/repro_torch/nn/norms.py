@@ -18,13 +18,16 @@ class LayerNorm(nn.Module):
         self.g = nn.Parameter(torch.ones(d, device=device, dtype=dtype))
         self.b = nn.Parameter(torch.zeros(d, device=device, dtype=dtype))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, g=None, b=None) -> torch.Tensor:
+        """``g``, ``b`` stand in for the gains (a tensor-parallel caller
+        passes them through ``distributed.tp.copy_to_tp``)."""
+        g = self.g if g is None else g
+        b = self.b if b is None else b
         xf = x.to(torch.float32)
         mu = xf.mean(-1, keepdim=True)
         var = torch.square(xf - mu).mean(-1, keepdim=True)
         y = (xf - mu) * torch.rsqrt(var + self.eps)
-        return (y * self.g.to(torch.float32)
-                + self.b.to(torch.float32)).to(x.dtype)
+        return (y * g.to(torch.float32) + b.to(torch.float32)).to(x.dtype)
 
 
 class RMSNorm(nn.Module):
@@ -36,8 +39,10 @@ class RMSNorm(nn.Module):
         self.eps = eps
         self.g = nn.Parameter(torch.ones(d, device=device, dtype=dtype))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, g=None) -> torch.Tensor:
+        """``g`` stands in for the gain, as in :class:`LayerNorm`."""
+        g = self.g if g is None else g
         xf = x.to(torch.float32)
         y = xf * torch.rsqrt(torch.square(xf).mean(-1, keepdim=True)
                              + self.eps)
-        return (y * self.g.to(torch.float32)).to(x.dtype)
+        return (y * g.to(torch.float32)).to(x.dtype)

@@ -17,6 +17,17 @@ multi-token one to :func:`wkv_chunked` and a single token to the
 sequential step :func:`wkv_scan`, as the reference's ``"xla"`` path does.
 Decode carries O(1) state: S [B,H,n,n] and the last normed token of each
 shift.
+
+Under tensor parallelism (``distributed.tp``; the plan shards r, k, v, g,
+o by heads when ``n_heads % tp == 0`` and ck, cv, cr by width) a rank runs
+its ``H / tp`` heads: r, k, v and g are column-parallel (their token-shift
+mixes through ``tp.copy_to_tp``), o row-parallel; the decay, computed
+whole from the replicated LoRA, and the bonus ``u`` are cut to the rank's
+heads by ``tp.tp_select``; the per-head norm's gains, shared by all heads,
+pass through ``copy_to_tp``.  ``wkv6`` runs at the rank's heads and the
+state ``S`` holds them.  In the channel mix ck is column- and cv
+row-parallel over ``d_ff``, and cr column-parallel, its gate all-gathered
+over 'model' before the product with cv's sum.
 """
 from __future__ import annotations
 
@@ -24,6 +35,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..distributed import tp
 from ..kernels.rwkv6_scan import wkv6, wkv6_plain as wkv_scan
 from .attention import IMPLS
 from .linear import Dense
@@ -108,7 +120,7 @@ class RWKVBlock(nn.Module):
         if n_heads * head_dim != d:
             raise ValueError(f"n_heads {n_heads} x head_dim {head_dim} != "
                              f"d {d}")
-        self.n_heads, self.head_dim = n_heads, head_dim
+        self.n_heads, self.head_dim, self.d_ff = n_heads, head_dim, d_ff
         kw = dict(generator=generator, device=device, dtype=dtype)
 
         def full(n, val, dt=dtype):
@@ -134,22 +146,34 @@ class RWKVBlock(nn.Module):
 
     def _time_mix(self, xn, xs, s0, impl: str):
         B, T, d = xn.shape
-        H, n = self.n_heads, self.head_dim
+        n = self.head_dim
+        H = self.r.w.shape[1] // n                      # the rank's heads
+        ax = tp.tp_axis()
+        ax = ax if ax is not None and H != self.n_heads else None
+        cp = lambda t: tp.copy_to_tp(t, ax)
         proj = {m: _mix(xn, xs, self.mu[m]) for m in _MIX}
-        r = self.r(proj["r"]).reshape(B, T, H, n)
-        k = self.k(proj["k"]).reshape(B, T, H, n)
-        v = self.v(proj["v"]).reshape(B, T, H, n)
-        g = self.g(proj["g"])
+        r = self.r(cp(proj["r"])).reshape(B, T, H, n)
+        k = self.k(cp(proj["k"])).reshape(B, T, H, n)
+        v = self.v(cp(proj["v"])).reshape(B, T, H, n)
+        g = self.g(cp(proj["g"]))
         lora = self.w2(torch.tanh(self.w1(proj["w"])))
-        w = torch.exp(-torch.exp(self.w0 + lora.float())).reshape(B, T, H, n)
+        w = torch.exp(-torch.exp(self.w0 + lora.float()))
+        u = self.u
+        if ax is not None:
+            w = tp.tp_select(w, ax, -1, range(ax.rank * H * n,
+                                              (ax.rank + 1) * H * n))
+            u = tp.tp_select(u, ax, 0, range(ax.rank * H, (ax.rank + 1) * H))
+        w = w.reshape(B, T, H, n)
         if impl == "kernel":
-            y, sT = wkv6(r, k, v, w, self.u, s0)
+            y, sT = wkv6(r, k, v, w, u, s0)
         elif T > 1:
-            y, sT = wkv_chunked(r, k, v, w, self.u, s0)
+            y, sT = wkv_chunked(r, k, v, w, u, s0)
         else:
-            y, sT = wkv_scan(r, k, v, w, self.u, s0)
-        yn = self.gn(y.to(xn.dtype))                          # [B,T,H,n]
-        return self.o(yn.reshape(B, T, d) * F.silu(g)), sT
+            y, sT = wkv_scan(r, k, v, w, u, s0)
+        gains = (cp(self.gn.g), cp(self.gn.b)) if ax is not None else ()
+        yn = self.gn(y.to(xn.dtype), *gains)                  # [B,T,H,n]
+        out = self.o(yn.reshape(B, T, H * n) * F.silu(g))
+        return tp.reduce_from_tp(out, ax), sT
 
     def forward(self, x: torch.Tensor, *, state: dict | None = None,
                 impl: str = "dense"):
@@ -162,7 +186,8 @@ class RWKVBlock(nn.Module):
             raise ValueError(f"rwkv: impl must be one of {IMPLS}, got "
                              f"{impl!r}")
         B, T, _ = x.shape
-        H, n = self.n_heads, self.head_dim
+        n = self.head_dim
+        H = self.r.w.shape[1] // n
         s0 = state["s"] if state is not None else \
             torch.zeros((B, H, n, n), dtype=torch.float32, device=x.device)
         xn = self.ln1(x)
@@ -173,8 +198,15 @@ class RWKVBlock(nn.Module):
         xcs = _shift(xc, state["xc_tm"] if state is not None else None)
         kx = _mix(xc, xcs, self.mu_c["k"])
         rx = _mix(xc, xcs, self.mu_c["r"])
-        kk = torch.square(torch.relu(self.ck(kx)))
-        x = x + torch.sigmoid(self.cr(rx)) * self.cv(kk)
+        ax = tp.tp_axis()
+        fx = ax if ax is not None and self.ck.w.shape[1] != self.d_ff \
+            else None
+        rax = ax if ax is not None and self.cr.w.shape[1] != x.shape[-1] \
+            else None
+        kk = torch.square(torch.relu(self.ck(tp.copy_to_tp(kx, fx))))
+        vv = tp.reduce_from_tp(self.cv(kk), fx)
+        gate = torch.sigmoid(self.cr(tp.copy_to_tp(rx, rax)))
+        x = x + tp.gather_from_tp(gate, rax, -1) * vv
         new_state = None
         if state is not None:
             new_state = {"s": sT, "x_tm": xn[:, -1], "xc_tm": xc[:, -1]}

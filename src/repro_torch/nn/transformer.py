@@ -8,6 +8,11 @@ The norm is RMSNorm or LayerNorm.  A block built with ``cross_attn``
 memory after the self-attention.  The reference's scanned stack becomes a
 Python loop over per-layer blocks in the models that use them, each
 block called through :func:`remat_call`.
+
+Under tensor parallelism (``distributed.tp``) the MLP's gate and up are
+column-parallel and down row-parallel over the hidden dim (a rank holds
+``d_ff / tp`` of it; down's bias is added once, after the sum); the
+block's norms stay whole on every rank.
 """
 from __future__ import annotations
 
@@ -15,6 +20,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..distributed import tp
 from .attention import MHA
 from .linear import Dense
 from .norms import LayerNorm, RMSNorm
@@ -53,7 +59,7 @@ class MLP(nn.Module):
                  generator=None, device=None, dtype=torch.float32):
         super().__init__()
         kw = dict(generator=generator, device=device, dtype=dtype)
-        self.kind = kind
+        self.kind, self.d_ff = kind, d_ff
         if kind == "swiglu":
             self.gate = Dense(d, d_ff, bias=False, **kw)
             self.up = Dense(d, d_ff, bias=False, **kw)
@@ -65,9 +71,18 @@ class MLP(nn.Module):
             raise ValueError(f"unknown mlp kind {kind!r}")
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        ax = tp.tp_axis()
+        if ax is None or self.up.w.shape[1] == self.d_ff:
+            if self.kind == "swiglu":
+                return self.down(F.silu(self.gate(x)) * self.up(x))
+            return self.down(F.gelu(self.up(x), approximate="tanh"))
+        x = tp.copy_to_tp(x, ax)
         if self.kind == "swiglu":
-            return self.down(F.silu(self.gate(x)) * self.up(x))
-        return self.down(F.gelu(self.up(x), approximate="tanh"))
+            h = F.silu(self.gate(x)) * self.up(x)
+        else:
+            h = F.gelu(self.up(x), approximate="tanh")
+        y = tp.reduce_from_tp(h @ self.down.w, ax)
+        return y if self.down.b is None else y + self.down.b
 
 
 class Block(nn.Module):

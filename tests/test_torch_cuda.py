@@ -433,6 +433,39 @@ def test_flash_decode_card_plan_at_a_long_cache(dev, dtype, T, Hq, Hkv, hd):
     assert bk > fd.BK and ns <= fd.limits(Hq // Hkv)[1]
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Hq,Hkv,hd", [(8, 8, 64), (32, 8, 128),
+                                       (25, 5, 64), (64, 8, 128),
+                                       (64, 4, 128)])
+@pytest.mark.parametrize("R", [2, 4, 16])
+def test_flash_decode_stats_and_shard_merge(dev, dtype, Hq, Hkv, hd, R):
+    """The statistics output (G 1, 4, 5, 8, 16): the output path is the
+    one-shot call's bit for bit, the log-sum-exp within the gate of the
+    twin's, and the merge of R key shards (kv_len 700 of 1152: with 4 and
+    16 some shards hold no visible key and launch nothing) within the
+    gate of the unsharded call."""
+    from repro_torch.distributed import tp
+    q, k, v = _qkv(dev, dtype, 4, 1, 1152, Hq, Hkv, hd)
+    one = fd.flash_decode(q, k, v, 700)
+    out, lse = fd.flash_decode(q, k, v, 700, stats=True)
+    assert torch.equal(out, one) and lse.dtype == torch.float32
+    _close(lse, fd.flash_decode_plain(q, k, v, 700, stats=True)[1],
+           torch.float32)
+    Tl, outs, lses = 1152 // R, [], []
+    before = fd.STATS.launches
+    for r in range(R):
+        seen = min(max(700 - r * Tl, 0), Tl)
+        o, l = fd.flash_decode(q, k[:, r * Tl:(r + 1) * Tl],
+                               v[:, r * Tl:(r + 1) * Tl], seen, stats=True)
+        outs.append(o.reshape(4, Hq, hd))
+        lses.append(l)
+    assert fd.STATS.launches - before == -(-700 // Tl)
+    got = tp.merge_partials(torch.stack(outs), torch.stack(lses))
+    assert torch.isfinite(got).all()
+    _close(got.reshape(one.shape), fd.flash_decode_plain(q, k, v, 700),
+           dtype)
+
+
 def test_flash_decode_g16_limits(dev):
     q, k, v = _qkv(dev, torch.float32, 1, 1, 4200, 16, 1, 128)
     with pytest.raises(ValueError, match="above 2048"):

@@ -2,7 +2,8 @@
 split plan sized to the card, plain emulations of the arithmetic order of
 the ``flash_decode`` and ``wkv6`` kernels held to their plain twins, the
 wrappers' checks of what the card's kernels need, and the RWKV decode step
-routed to ``wkv6`` under ``impl="kernel"``.
+routed to ``wkv6`` under ``impl="kernel"``, and the softmax statistics
+that ``flash_decode(stats=True)`` returns for the sequence-parallel merge.
 
 The twins run on the CPU.  ``flash_decode_plain`` under the card's plan is
 held to the reference's ``ref.decode_ref`` and its Pallas
@@ -12,7 +13,12 @@ each kernel's order of operations in f32 (an FMA as one rounding of the
 exact product and sum) and are held to the twins within the kernels'
 gates: 2e-5 + 2e-5 for ``flash_decode``; for ``wkv6`` 5e-5 + 5e-5 on y and
 ``torch.equal`` on sT, which the kernel computes with the twin's
-roundings.  Inputs are made with numpy from a seed.
+roundings.  The statistics: the twin's log-sum-exp against one in f64,
+the kernel order's against the twin's, and the merge
+(``distributed.tp.merge_partials``) of 2, 4 and 16 key shards, one of
+them with no visible key, against the unsharded call, at G 1, 4, 5, 8 and
+16, within the same gate; the dense route's ``attend_stats`` likewise,
+windowed.  Inputs are made with numpy from a seed.
 """
 import re
 
@@ -23,7 +29,9 @@ import torch
 
 from _torch_parity import to_np
 from repro.kernels import ops, ref
+from repro_torch.distributed import tp
 from repro_torch.kernels import flash_decode as fd, rwkv6_scan as rk
+from repro_torch.kernels.dense_attention import attend_dense, attend_stats
 from repro_torch.nn import RWKVBlock
 from repro_torch.nn import rwkv as trwkv
 
@@ -198,7 +206,7 @@ def _fd_emulated(q, k, v, kv_len, bk):
         den = den + w * l
         acc = acc + o * w[..., None]
     out = acc / torch.clamp_min(den, 1e-30)[..., None]
-    return out.reshape(B, 1, Hq * hd)
+    return out.reshape(B, 1, Hq * hd), (mg + torch.log(den)).reshape(B, Hq)
 
 
 @pytest.mark.parametrize("B,T,Hq,Hkv,hd,kv_len,bk", [
@@ -210,9 +218,110 @@ def test_flash_decode_kernel_order_holds_the_twin(B, T, Hq, Hkv, hd, kv_len,
     q, k, v = map(torch.as_tensor, _qkv(2, B, T, Hq, Hkv, hd))
     if bk is None:
         bk = _card_bk(B, T, Hkv, kv_len)
-    got = _fd_emulated(q, k, v, kv_len, bk)
-    want = fd.flash_decode_plain(q, k, v, kv_len, bk=bk)
+    got, lse = _fd_emulated(q, k, v, kv_len, bk)
+    want, wlse = fd.flash_decode_plain(q, k, v, kv_len, bk=bk, stats=True)
     torch.testing.assert_close(got, want, **FD_TOL)
+    torch.testing.assert_close(lse, wlse, **FD_TOL)
+
+
+# -- flash_decode: the softmax statistics and the shard merge ------------------
+
+STATS_G = [(8, 8), (8, 2), (25, 5), (64, 8), (64, 4)]     # G 1, 4, 5, 8, 16
+
+
+def _lse64(q, k, kv_len):
+    """[B, Hq] log-sum-exp of the scaled scores over the first kv_len keys,
+    in f64."""
+    B, _, Hq, hd = q.shape
+    G = Hq // k.shape[2]
+    kk = k[:, :kv_len].double().repeat_interleave(G, dim=2)
+    s = torch.einsum("bhd,bthd->bht", q[:, 0].double(), kk) / np.sqrt(hd)
+    return torch.logsumexp(s, -1)
+
+
+@pytest.mark.parametrize("Hq,Hkv", STATS_G)
+@pytest.mark.parametrize("kv_len", [1, 300, 1088])
+def test_plain_stats_match_f64(Hq, Hkv, kv_len):
+    q, k, v = map(torch.as_tensor, _qkv(3, 2, 1160, Hq, Hkv, 64))
+    out, lse = fd.flash_decode_plain(q, k, v, kv_len, stats=True)
+    torch.testing.assert_close(lse.double(), _lse64(q, k, kv_len),
+                               **FD_TOL)
+    torch.testing.assert_close(out, fd.flash_decode_plain(q, k, v, kv_len))
+
+
+def _shards(q, k, v, kv_len, R, *, dtype=torch.float32):
+    """flash_decode with statistics over R contiguous shards of the
+    cache's positions, each over its visible keys, merged."""
+    B, _, Hq, hd = q.shape
+    Tl = k.shape[1] // R
+    outs, lses = [], []
+    for r in range(R):
+        seen = min(max(kv_len - r * Tl, 0), Tl)
+        o, l = fd.flash_decode(q.to(dtype), k[:, r * Tl:(r + 1) * Tl]
+                               .to(dtype), v[:, r * Tl:(r + 1) * Tl]
+                               .to(dtype), seen, stats=True)
+        outs.append(o.reshape(B, Hq, hd))
+        lses.append(l)
+    return tp.merge_partials(torch.stack(outs), torch.stack(lses)).reshape(
+        B, 1, Hq * hd)
+
+
+@pytest.mark.parametrize("Hq,Hkv", STATS_G)
+@pytest.mark.parametrize("R", [2, 4, 16])
+def test_shard_merge_equals_the_unsharded_call(Hq, Hkv, R):
+    """kv_len 700 of T 1152: with R 2 the last shard is partly seen, with
+    4 and 16 some shards hold no visible key (output 0, lse -inf)."""
+    q, k, v = map(torch.as_tensor, _qkv(4, 2, 1152, Hq, Hkv, 64))
+    got = _shards(q, k, v, 700, R)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, fd.flash_decode(q, k, v, 700),
+                               **FD_TOL)
+
+
+def test_a_shard_with_no_visible_key():
+    q, k, v = map(torch.as_tensor, _qkv(5, 2, 64, 8, 2, 64))
+    out, lse = fd.flash_decode(q, k, v, 0, stats=True)
+    assert (out == 0).all() and torch.isneginf(lse).all()
+    with pytest.raises(ValueError, match="kv_len 0"):
+        fd.flash_decode(q, k, v, 0)
+    both = tp.merge_partials(torch.stack([out.reshape(2, 8, 64)] * 2),
+                             torch.stack([lse] * 2))
+    assert (both == 0).all()           # no part saw a key: 0, not NaN
+
+
+@pytest.mark.parametrize("window", [-1, 40])
+def test_attend_stats_shards_merge_to_attend_dense(window):
+    """The dense route's statistics (a windowed decode, a prefill-sized
+    block of queries) over 4 shards of the keys, merged, equal
+    ``attend_dense`` over all of them."""
+    rng = np.random.default_rng(6)
+    q = torch.as_tensor(rng.normal(size=(2, 5, 8, 32)).astype(np.float32))
+    k = torch.as_tensor(rng.normal(size=(2, 96, 2, 32)).astype(np.float32))
+    v = torch.as_tensor(rng.normal(size=(2, 96, 2, 32)).astype(np.float32))
+    idx = 80                           # the queries sit at 80..84
+    want = attend_dense(q, k, v, window=window, q_offset=idx, kv_len=idx + 5)
+    outs, lses = [], []
+    for r in range(4):
+        o, l = attend_stats(q, k[:, r * 24:(r + 1) * 24],
+                            v[:, r * 24:(r + 1) * 24], window=window,
+                            q_offset=idx - r * 24,
+                            kv_len=min(max(idx + 5 - r * 24, 0), 24),
+                            q_chunk=2)
+        outs.append(o)
+        lses.append(l)
+    got = tp.merge_partials(torch.stack(outs), torch.stack(lses))
+    torch.testing.assert_close(got.reshape(want.shape), want, **FD_TOL)
+    o, l = attend_stats(q, k, v, window=window, q_offset=idx,
+                        kv_len=idx + 5)
+    B, S, Hq, hd = q.shape
+    G = Hq // k.shape[2]
+    kk = k.double().repeat_interleave(G, dim=2)
+    s = torch.einsum("bshd,bthd->bsht", q.double(), kk) / np.sqrt(hd)
+    i = torch.arange(S)[:, None] + idx
+    j = torch.arange(96)[None, :]
+    ok = (j <= i) & (j < idx + 5) & ((i - j < window) if window > 0 else True)
+    s = torch.where(ok[None, :, None, :], s, float("-inf"))
+    torch.testing.assert_close(l.double(), torch.logsumexp(s, -1), **FD_TOL)
 
 
 # -- flash_decode: what the card's kernel needs --------------------------------

@@ -17,8 +17,9 @@ results returned through files under ``tmp_path`` (its store is a
   qwen3_moe against the one-device step (``FSDP_TOL``);
 - ``TrainLoop(shardings=)`` at 2 ranks: a run crashed and restarted ends
   bit-identical to a straight one;
-- a (data=1, model=2) mesh: every step builder raises
-  ``NotImplementedError`` naming the ROADMAP item of tensor parallelism.
+- a (data=1, model=2) mesh: every step builder builds and runs (a train
+  step, a prefill and a decode step; ``tests/test_torch_tp.py`` holds
+  them to one device and to the reference).
 """
 import os
 
@@ -36,6 +37,7 @@ from repro.workloads import resnet18, tiny_cnn
 from repro_torch.checkpoint import dt_params_from_reference, load_reference
 from repro_torch.core import accel as taccel, dataset as tds
 from repro_torch.core import gsampler as tgs, model as tm, train as ttr
+from repro_torch.configs import get_config
 from repro_torch.distributed.sharding import data_parallel_mesh
 from repro_torch.launch.mesh import process_group
 
@@ -144,9 +146,11 @@ def test_two_ranks(setup):
         assert r["amplified"] <= n_past, (arch, r)
         assert r["amplified_err"] <= LR_STEPS, (arch, r)
         assert r["sharded"] > 0            # o/w, down/w: the plan's dim 1
-    for msgs in res["tp"]:                 # a 'model' axis of 2: refused
-        assert len(msgs) == 3 and all(
-            m is not None and "ROADMAP queue 1 item 1" in m for m in msgs)
+    for loss, logits, tok in res["tp"]:    # a 'model' axis of 2: runs
+        assert np.isfinite(loss) and tok == (2, 1)
+        assert logits == (2, 1, get_config("gemma3_1b",
+                                           reduced=True).vocab_padded)
+    assert len({r[0] for r in res["tp"]}) == 1
     for r in res["loop"]:
         assert r["start"] == 3 and r["equal"], r   # last saved: step 2
         assert r["losses"][0] == r["losses"][1]

@@ -254,9 +254,10 @@ def test_placements_and_leading_axis():
 
 
 def test_logical_shard_and_no_silent_mesh():
-    """``logical_shard`` passes its input through unless a 'model' axis
-    above 1 is ambient, where it raises naming the ROADMAP item; a real
-    mesh needs a process group of exactly its size."""
+    """``logical_shard`` passes its input through, a 'model' axis above
+    1 ambient included (the layers make their collectives explicitly,
+    ``distributed.tp``); a real mesh needs a process group of exactly its
+    size."""
     from repro_torch.launch.mesh import init_mesh, mesh_ctx
     x = torch.ones(4, 4)
     assert tsh.logical_shard(x, "batch", "model") is x
@@ -264,8 +265,8 @@ def test_logical_shard_and_no_silent_mesh():
         assert tsh.logical_shard(x, "batch", "model") is x
     with mesh_ctx(MESH):
         assert tsh.ambient_mesh() is MESH
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-            tsh.logical_shard(x, "batch", "model")
+        assert tsh.logical_shard(x, "batch", "model") is x
+        assert tsh.logical_shard(x, None, "seq") is x
     assert tsh.ambient_mesh() is None
     with pytest.raises(RuntimeError, match="no process group"):
         init_mesh((2,), ("data",), "cpu")
