@@ -213,6 +213,17 @@ Phases, each of which raises on failure (the script then exits non-zero):
    with them bit-equal to the one-shot call's) and the merge of 2, 4
    and 16 key shards to the unsharded call at G 1, 4, 5, 8 and 16, and
    the ranks' attention and ``wkv6`` shapes.
+25. bf16 training of the mixed-type LMs, on a one-rank NCCL group:
+   ``build_train_step`` at its default bf16 for hymba_15b at full width
+   (1.5e9 parameters; its SSM's ``A_log`` and ``D`` stay f32), reduced
+   qwen3_moe_235b (the f32 router) and reduced rwkv6_3b (``w0``, ``u``)
+   against ``make_local_train_step`` in bf16: leaf types kept, every f32
+   leaf moved, losses within 2e-3; then ``remat`` "none", "full" and
+   "dots" in turns at phase 23's gemma3_1b full-width f32 cell: the first
+   step's loss and gradients under "dots" bit-equal to "none"'s, the
+   bytes each policy's forward keeps for the backward ordered full <
+   dots < none, the losses of every turn equal; ms a step and peak GiB
+   of each.
 
 The last lines are the card's ``nvidia-smi`` name and power limit, a JSON
 line with each kernel's launches, error and times, and
@@ -644,7 +655,7 @@ def attention_kernels(dev, parent=None) -> dict:
             big[f"B{B} S{S} hd{hd} x{scale:g}"] = (got, twin)
             del q, k, v, exact
         torch.cuda.empty_cache()
-    print(f"[8/24] flash_attention == plain on {len(fa_cases)} shapes (JAX "
+    print(f"[8/25] flash_attention == plain on {len(fa_cases)} shapes (JAX "
           f"sweep x f32/bf16 x causal/non-causal/window 96, one tile of 64 "
           f"and 128 rows at hd 64 and 128, GQA 4:1 and 8:1, ragged S/T "
           f"77/150, qwen3_8b heads at S {SCORE_S} and at ragged S "
@@ -1056,7 +1067,7 @@ def self_check(dev, arch: str, served: dict, phase: int, *,
     text = logits_held(f"self-check {arch}", got, logits, toks)
     par = (", parent's flash_attention " + " / ".join(
         f"{x:.4f}" for x in parent_walls) + " s" if parent_walls else "")
-    print(f"[{phase}/24] self-check {arch}: f32 forward over "
+    print(f"[{phase}/25] self-check {arch}: f32 forward over "
           f"{tuple(next(iter(batch.values())).shape)} (wall " + " / ".join(
               f"{x:.4f}" for x in walls) + f" s{par}; launches "
           f"{launched(n)}) reproduces the served logits at {rows}: "
@@ -1183,7 +1194,7 @@ def wkv_kernel(dev) -> dict:
             main_err[case], tiles[case] = float(diff.max()), tile
         del got, ins, want
     sc32, sc16, pre, tp_pre, _ = main_cases
-    print(f"[12/24] wkv6 == plain on {len(cases)} shapes (JAX sweep, strong "
+    print(f"[12/25] wkv6 == plain on {len(cases)} shapes (JAX sweep, strong "
           f"decay U{strong}, T not whole chunks, strided, bf16 r/k/v, "
           f"{RWKV} scoring in f32 and bf16 at tiles {tiles[sc32]} and "
           f"{tiles[sc16]}, the serving prefill at tile {tiles[pre]}, phase "
@@ -1317,7 +1328,7 @@ def paper_loop(dev, grid: dict, gsampler: dict, untrained: dict):
           np.array_equal(np.stack(kept), corpus.rtg),
           "corpus: a replay of the pipeline keeps other rows")
     sp = np.array([m[2] for m in corpus.meta])
-    print(f"[6/24] corpus: generate_teacher_corpus over {C} conditions "
+    print(f"[6/25] corpus: generate_teacher_corpus over {C} conditions "
           f"(GA pop {ga.population} x {ga.generations}, top {top_k} + "
           f"{jitter} jittered copies of the top {top_k // 2}, {cand.shape[1]}"
           f" candidates a condition): wall {corpus_wall:.3f} s, "
@@ -1590,7 +1601,7 @@ def mapper_serving(dev, model) -> int:
                              np.array([resp[i].valid for i in idx])),
               f"served valid differs from the kernel re-score (bucket {nb})")
     hits = sum(r.cached for r in resp)
-    print(f"[7/24] serving on the card: repro_torch.serve(trained DT, "
+    print(f"[7/25] serving on the card: repro_torch.serve(trained DT, "
           f"warm=6 CNNs), default ServingConfig: warmup {warm_wall:.3f} s, "
           f"{sigs} signatures {sorted(eng._compiled)}; stream of "
           f"{STREAM_N} requests (6 CNNs x 5 parts x budgets "
@@ -1912,7 +1923,7 @@ def paper_table(dev, trained) -> int:
                       for k in twice[0]),
                   "two S2S trainings of one seed differ on the card")
     table_wall = time.perf_counter() - t_phase
-    print(f"[16/24] Table 1 on VGG16 (PAPER_ACCEL, nmax {TABLE1_NMAX}; "
+    print(f"[16/25] Table 1 on VGG16 (PAPER_ACCEL, nmax {TABLE1_NMAX}; "
           f"baselines at {TABLE1_SAMPLES} samples, pop {BASELINE_POP}, seed 0"
           f"; A2C {A2C_EPISODES} episodes; sequence models trained "
           f"{SEQ_STEPS} steps on {TRAIN_MB} MB, one shot by the fused "
@@ -2101,7 +2112,7 @@ def scoring(dev, arch: str, phase: int, B: int = SCORE_B, S: int = SCORE_S,
         del again
     if probe is not None:
         note += "; " + probe(model, batch)
-    print(f"[{phase}/24] scoring {arch} ({cfg.n_layers} layers, d "
+    print(f"[{phase}/25] scoring {arch} ({cfg.n_layers} layers, d "
           f"{cfg.d_model}, {n_params / 1e9:.3f}e9 params, bf16, seeded "
           f"random weights; init {t_init:.2f} s) over {B}x{S}"
           f"{' embeds' if cfg.embed_inputs else ' tokens'}"
@@ -2269,7 +2280,7 @@ def serving(dev, arch: str, phase: int, *, prompt: int = PROMPT,
           f"served {arch} tokens or logits malformed")
     shapes = ", ".join(f"{k} {tuple(v.shape)}"
                        for k, v in out["inputs"].items())
-    print(f"[{phase}/24] serving {arch}{label} ({cfg.n_layers} layers) f32, "
+    print(f"[{phase}/25] serving {arch}{label} ({cfg.n_layers} layers) f32, "
           f"impl {impl}, batch {SERVE_B}, prefill {shapes}, gen {gen}: "
           f"prefill {out['t_prefill_s']:.4f} s, decode "
           f"{out['t_decode_s']:.4f} s, {out['tok_per_s']:.2f} tok/s; wall "
@@ -2362,7 +2373,7 @@ def lm_mapping(dev, phase: int, cpu_jobs: dict) -> int:
     pop = gs.GSamplerConfig().population
     tile = fe.tile_for(1, pop, MAP_NMAX, _build.sm_count(
         torch.cuda.current_device()))
-    print(f"[{phase}/24] LM mapping: lm_workload(seq 4096, batch 32, "
+    print(f"[{phase}/25] LM mapping: lm_workload(seq 4096, batch 32, "
           f"prefill) of the ten archs, host gsampler_search (pop {pop}) at "
           f"{MAP_BUDGET_MB:g} MB, nmax {MAP_NMAX}, PAPER_ACCEL, through "
           f"fusion_eval (tile {tile}), each equal to the same search on the "
@@ -2401,11 +2412,13 @@ TRAIN_GRAD_TOL = 2e-4   # card vs CPU, of a leaf's largest: the CPU tests'
 MOE_MEM_B, MOE_MEM_S = 8, 4096  # take_rows' memory against a plain gather
 
 
-def train_bound_ms(n_params: int, tokens: int) -> float:
-    """6 operations a parameter and token (forward and backward) at the
-    f32 CUDA-core rate (TF32 is off in the port); attention's S^2 term
-    (under 1% at S 128) is left out."""
-    return 6.0 * n_params * tokens / H100_F32_OPS_PER_S * 1e3
+def train_bound_ms(n_params: int, tokens: int,
+                   ops_per_s: float = H100_F32_OPS_PER_S) -> float:
+    """6 operations a parameter and token (forward and backward) at
+    ``ops_per_s``: the f32 CUDA-core rate by default (TF32 is off in the
+    port), the bf16 tensor-core rate for a bf16 model; attention's S^2
+    term (under 1% at S 128) is left out."""
+    return 6.0 * n_params * tokens / ops_per_s * 1e3
 
 
 def _grads(model, mod, batch) -> tuple:
@@ -2547,7 +2560,7 @@ def lm_training(dev) -> dict:
           f"22 mapper: the card's search {mapped} differs from the CPU's "
           f"{cpu}")
     ga = mapped["grad_accum"]
-    print(f"[22/24] LM training: {TRAIN_ARCH} mapper (lm_workload train, "
+    print(f"[22/25] LM training: {TRAIN_ARCH} mapper (lm_workload train, "
           f"seq {TRAIN_S}, batch {TRAIN_B}, {TRAIN_BUDGET_MB:g} MB, nmax "
           f"{lt.MAPPER_NMAX}, host G-Sampler of 20 generations on "
           f"fusion_eval): micro-batch {mapped['micro_batch']}, grad_accum "
@@ -2847,7 +2860,7 @@ def distributed_half(dev, phase10_tokens) -> dict:
                            f"{g.speedup:.4f}x")
         out["23 answers"] = n = counts()
         expect_counts("23 answers", n, fusion_eval=n["fusion_eval"])
-        print(f"[23/24] distributed half on a one-rank {backend} group "
+        print(f"[23/25] distributed half on a one-rank {backend} group "
               f"(HashStore): (a) transfer on data_parallel_mesh(): corpus "
               f"of VGG16+ResNet18 x {TRANSFER_MB} MB, {len(corpus)} rows, "
               f"{out['23 corpus']['fusion_eval']} fusion_eval launches == "
@@ -3325,7 +3338,7 @@ def model_axis(dev) -> dict:
                              for (p, k), v in sorted(m.items())) or "none"
     where = (f"{TP} ranks on {TP} cards over NCCL" if route == "nccl" else
              f"{TP} processes on one card over gloo (CUDA tensors)")
-    print(f"[24/24] the LMs on a (data 1, model {TP}) mesh, {where}; "
+    print(f"[24/25] the LMs on a (data 1, model {TP}) mesh, {where}; "
           f"{wall:.1f} s (spawn, build and the five parts)")
     for r, x in enumerate(res):
         a = x["a"]
@@ -3452,6 +3465,247 @@ def model_axis(dev) -> dict:
             "24 (e) training": part("e")}
 
 
+# -- phase 25: bf16 training of the mixed-type LMs; remat="dots" -------------
+MIXED_B, MIXED_S = 2, 128       # hymba_15b at full width: a batch and length
+MIXED_STEPS = 3                 # ... that keep its 3 steps near half a minute
+MIXED_REDUCED_B, MIXED_REDUCED_S = 4, 128   # reduced qwen3_moe and rwkv6
+MIXED_REDUCED_STEPS = 2
+# build_train_step (FSDP2 at one rank, bf16) against make_local_train_step
+# in bf16: a loss within this share of the local step's (the CPU tests'
+# bf16 tolerance at two ranks, tests/test_torch_fsdp_mixed.py)
+MIXED_LOSS_RTOL = 2e-3
+REMATS = ("none", "full", "dots", "dots", "full", "none")   # in turns
+REMAT_STEPS = 3                 # steps of each turn at phase 23's cell
+
+
+def _free() -> None:
+    """Free what the deleted models held on the card: a placed model and
+    its FSDP2 root refer to each other, so only the cycle collector frees
+    them."""
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _mixed_cell(dev, mesh, arch: str, full: bool) -> tuple:
+    """One arch's bf16 steps through ``build_train_step`` against
+    ``make_local_train_step`` in bf16 on the same weights and batches:
+    ``(report line, launches)``."""
+    import numpy as np
+    import torch
+    from repro_torch import optim
+    from repro_torch.configs import Shape, get_config
+    from repro_torch.core.model import param_tree
+    from repro_torch.launch import steps, train as lt
+    from repro_torch.models import get_model
+    cfg = get_config(arch, reduced=not full)
+    B, S, n_steps = (MIXED_B, MIXED_S, MIXED_STEPS) if full else \
+        (MIXED_REDUCED_B, MIXED_REDUCED_S, MIXED_REDUCED_STEPS)
+    mod = get_model(cfg)
+    bf = lt.make_batch_fn(cfg, seq_len=S, global_batch=B, device=dev)
+    batches = [bf(i) for i in range(n_steps)]
+    tx = optim.adamw(3e-4, weight_decay=0.01, max_grad_norm=1.0)
+    model = mod.init(cfg, seed=0, device=dev)            # bf16, the default
+    tree = param_tree(model)
+    types = {k: p.dtype for k, p in tree.items()}
+    f32 = sorted(k for k, t in types.items() if t == torch.float32)
+    start = {k: tree[k].detach().clone() for k in f32}
+    local = lt.make_local_train_step(cfg, tx)
+    opt = tx.init(tree)
+    want = []
+    for b in batches:
+        model, opt, loss = local(model, opt, b)
+        want.append(float(loss))
+    local_f32 = {k: param_tree(model)[k].detach().clone() for k in f32}
+    del model, opt, local, loss, tree
+    _free()
+    step, _ = steps.build_train_step(cfg, Shape("smoke", S, B, "train"),
+                                     mesh)
+    torch.cuda.reset_peak_memory_stats()
+    model = step.place(mod.init(cfg, seed=0, device=dev))
+    opt = step.init_opt(model)
+    reset_counts()
+    losses, walls = [], []
+    for b in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model, opt, loss = step(model, opt, b)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+    n = counts()
+    label = f"25 {arch}"
+    expect_counts(label, n)
+    peak = torch.cuda.max_memory_allocated()
+    got = step.full_tree(model)
+    check(bool(f32) and sorted(step.whole) == f32, f"{label}: f32 leaves "
+          f"{f32}, the step keeps whole {sorted(step.whole)}")
+    check(all(got[k].dtype == t for k, t in types.items()),
+          f"{label}: a leaf changed type")
+    moved = {k: float((got[k] != start[k]).float().mean()) for k in f32}
+    check(all(v > 0 for v in moved.values()), f"{label}: an f32 leaf did "
+          f"not move: {moved}")
+    check(all(torch.isfinite(torch.tensor(losses))), f"{label}: {losses}")
+    rel = max(abs(g - w) / abs(w) for g, w in zip(losses, want))
+    check(rel <= MIXED_LOSS_RTOL, f"{label}: losses {losses}, "
+          f"make_local_train_step's {want}")
+    same_f32 = all(torch.equal(got[k], local_f32[k]) for k in f32)
+    n_params = sum(p.numel() for p in model.parameters())
+    ms = float(np.median(walls[1:])) * 1e3
+    bound = train_bound_ms(n_params, B * S, H100_BF16_OPS_PER_S)
+    line = (f"{arch} {'full width' if full else 'reduced'} "
+            f"({n_params:.4g} parameters, {len(f32)} f32 leaves "
+            f"kept whole: {', '.join(sorted({k.split('/', 2)[-1] for k in f32}))}"
+            f"), {B}x{S}, {n_steps} steps: {ms:.2f} ms a step (median of "
+            f"steps 1-{n_steps - 1}; step 0 {walls[0] * 1e3:.2f} ms), bound "
+            f"{bound:.3f} ms, peak {peak / 2**30:.2f} GiB; losses "
+            + ", ".join(f"{x:.6f}" for x in losses) + " vs the local "
+            "step's " + ", ".join(f"{x:.6f}" for x in want)
+            + f" (max rel diff {rel:.3e}, tolerance {MIXED_LOSS_RTOL:g}; "
+            f"{'bit-equal' if losses == want else 'not bit-equal'}); f32 "
+            f"leaves {'bit-equal' if same_f32 else 'not bit-equal'} to the "
+            f"local step's, least share of elements moved "
+            f"{min(moved.values()):.4f}; launches {launched(n)}")
+    del model, opt, step, got
+    _free()
+    return line, n
+
+
+def mixed_training(dev) -> dict:
+    """Phase 25 on a one-rank NCCL group (a ``HashStore``): (a)
+    ``build_train_step`` at its default bf16 for hymba_15b at full width
+    (its SSM keeps ``A_log`` and ``D`` in f32), reduced qwen3_moe_235b (the
+    router) and reduced rwkv6_3b (``w0``, ``u``), each against
+    ``make_local_train_step`` in bf16: leaf types kept, every f32 leaf
+    moved, losses within MIXED_LOSS_RTOL; (b) ``remat`` "none", "full" and
+    "dots" in turns at phase 23's gemma3_1b full-width f32 cell: the first
+    step's loss and gradients under "dots" equal "none"'s bit for bit
+    (``loss_fn`` on an unplaced model), the bytes each policy's forward
+    keeps for the backward ordered full < dots < none, and every turn's
+    losses equal; ms a step, the first-step gradient's peak and a step's
+    peak (AdamW's f32 temporaries dominate it) of each.  Returns the
+    launches of each part."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import Shape, get_config
+    from repro_torch.core.model import param_tree
+    from repro_torch.launch import steps, train as lt
+    from repro_torch.launch.mesh import init_mesh, process_group
+    from repro_torch.models import get_model
+    out = {}
+    t_phase = time.perf_counter()
+    with process_group(dev):
+        mesh = init_mesh((1, 1), ("data", "model"), dev.type)
+        lines = []
+        for arch, full in ((HYMBA, True), (MOE, False), (RWKV, False)):
+            t0 = time.perf_counter()
+            line, out[f"25 {arch}"] = _mixed_cell(dev, mesh, arch, full)
+            lines.append(f"{line}; {time.perf_counter() - t0:.1f} s")
+        print("[25/25] bf16 training of the mixed-type LMs on a one-rank "
+              "NCCL group, build_train_step at its default dtype against "
+              "make_local_train_step in bf16:\n      (a) "
+              + "\n      (a) ".join(lines))
+
+        # -- (b) remat none / full / dots at phase 23's cell --------------
+        gcfg = get_config(TRAIN_ARCH)
+        mod = get_model(gcfg)
+        bf = lt.make_batch_fn(gcfg, seq_len=TRAIN_S, global_batch=TRAIN_B,
+                              device=dev)
+        batches = [bf(i) for i in range(REMAT_STEPS)]
+        model = mod.init(gcfg, seed=0, dtype=torch.float32, device=dev)
+        pt = param_tree(model)
+        first, held, grad_peak = {}, {}, {}
+        for remat in ("none", "full", "dots"):
+            _free()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            loss = mod.loss_fn(model, batches[0], remat=remat)
+            held[remat] = torch.cuda.memory_allocated() - base
+            grads = torch.autograd.grad(loss, list(pt.values()),
+                                        allow_unused=True,
+                                        materialize_grads=True)
+            grad_peak[remat] = torch.cuda.max_memory_allocated() - base
+            first[remat] = (loss.detach(), grads)
+            del loss, grads
+        diff = [k for k, a, b in zip(pt, first["none"][1], first["dots"][1])
+                if not torch.equal(a, b)]
+        check(torch.equal(first["none"][0], first["dots"][0]) and not diff,
+              f"25 remat: the first step under 'dots' differs from 'none' "
+              f"(loss {float(first['dots'][0])} vs "
+              f"{float(first['none'][0])}; {len(diff)} leaves: {diff[:4]})")
+        check(held["full"] < held["dots"] < held["none"],
+              f"25 remat: the bytes the forward keeps for the backward "
+              f"{held} are not ordered full < dots < none")
+        del model, pt, first
+        _free()
+        cell = Shape("smoke", TRAIN_S, TRAIN_B, "train")
+        runs = {}
+        for remat in REMATS:
+            step, _ = steps.build_train_step(gcfg, cell, mesh,
+                                             dtype=torch.float32,
+                                             remat=remat)
+            torch.cuda.reset_peak_memory_stats()
+            model = step.place(mod.init(gcfg, seed=0, dtype=torch.float32,
+                                        device=dev))
+            opt = step.init_opt(model)
+            reset_counts()
+            losses, walls = [], []
+            for b in batches:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                model, opt, loss = step(model, opt, b)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+                losses.append(float(loss))
+            n = counts()
+            expect_counts(f"25 remat {remat}", n)
+            out[f"25 remat {remat}"] = n
+            runs.setdefault(remat, []).append(
+                (losses, walls[1:], torch.cuda.max_memory_allocated()))
+            del model, opt, step, loss
+            _free()
+        losses = {r: [x[0] for x in v] for r, v in runs.items()}
+        check(all(l == losses["none"][0] for r in losses for l in losses[r]
+                  if r != "full") and all(l == losses["full"][0]
+                                          for l in losses["full"]),
+              f"25 remat: losses differ between turns or from 'none' under "
+              f"'dots': {losses}")
+        peak = {r: max(x[2] for x in v) for r, v in runs.items()}
+        ms = {r: sorted(w * 1e3 for x in v for w in x[1])
+              for r, v in runs.items()}
+        print(f"      (b) remat in turns {REMATS} at {TRAIN_ARCH} full width"
+              f", f32, {TRAIN_B}x{TRAIN_S}, build_train_step on the (1, 1) "
+              f"mesh, {REMAT_STEPS} steps a turn: the first step's loss "
+              f"and gradients under 'dots' bit-equal to 'none''s (a plain "
+              f"loss_fn); losses "
+              + "; ".join(f"{r} " + ", ".join(f"{x:.6f}" for x in
+                                              losses[r][0])
+                          for r in ("none", "full", "dots"))
+              + " (dots == none bit for bit, every turn alike); ms a step "
+              "(steps 1-2 of both turns) "
+              + "; ".join(f"{r} {ms[r][0]:.2f}-{ms[r][-1]:.2f}"
+                          for r in ("none", "full", "dots"))
+              + "; kept by the forward for the backward (GiB) "
+              + "; ".join(f"{r} {held[r] / 2**30:.3f}"
+                          for r in ("none", "full", "dots"))
+              + " (full < dots < none); a first-step gradient's peak "
+              "above the weights (GiB) " + "; ".join(
+                  f"{r} {grad_peak[r] / 2**30:.3f}" for r in ("none", "full",
+                                                         "dots"))
+              + "; a step's peak (GiB, the update's "
+              "f32 temporaries on top) " + "; ".join(
+                  f"{r} {peak[r] / 2**30:.3f}" for r in ("none", "full",
+                                                         "dots"))
+              + f"; bound "
+              f"{train_bound_ms(gcfg.param_count(), TRAIN_B * TRAIN_S):.2f}"
+              f" ms")
+    check(not dist.is_initialized(), "25: the process group outlived the "
+          "phase")
+    print(f"      phase 25 {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch port "
@@ -3482,7 +3736,7 @@ def main(argv=None) -> int:
     # -- 1. device ----------------------------------------------------------
     kind = torch.cuda.get_device_name(0)
     smi = smi_line()
-    print(f"[1/24] device: {kind} | nvidia-smi: {smi} | torch "
+    print(f"[1/25] device: {kind} | nvidia-smi: {smi} | torch "
           f"{torch.__version__} CUDA {torch.version.cuda} | devices "
           f"{torch.cuda.device_count()}")
 
@@ -3495,7 +3749,7 @@ def main(argv=None) -> int:
     parent = ab.finish_build(parent_job) if parent_job else None
     fe.compiled_backend_supported()
     infos = {src: _build.build_info(src) for src in sources}
-    print(f"[2/24] build: " + ", ".join(
+    print(f"[2/25] build: " + ", ".join(
         f"{src}.cu {infos[src]['build_s']:.2f} s" for src in sources) +
         f" (in parallel; cached={infos[fe.SOURCE]['cached']}), probe ok, "
         f"phase {time.perf_counter() - t0:.2f} s")
@@ -3595,7 +3849,7 @@ def main(argv=None) -> int:
         raw = fe.fusion_eval_raw(*args)
         check(all(torch.equal(g, w) for g, w in zip(raw[:6], want[1:7])),
               f"{label}: fusion_eval_raw differs from the raw form")
-        print(f"[3/24] kernel == plain on {label} [{Cc}x{pop}x{P}], "
+        print(f"[3/25] kernel == plain on {label} [{Cc}x{pop}x{P}], "
               f"forms cost, stats, raw: bit-equal, CostOut included")
         if label.startswith("main-path"):
             main_args[pop] = args
@@ -3647,7 +3901,7 @@ def main(argv=None) -> int:
           (C, 4, NMAX), "G-Sampler result malformed")
     check(res.valid[:, 0].mean() > 0.5, "G-Sampler found too few valid "
           "strategies")
-    print(f"[4/24] G-Sampler pop {cfg.population} x {cfg.generations} gens "
+    print(f"[4/25] G-Sampler pop {cfg.population} x {cfg.generations} gens "
           f"over {C} conditions: wall {gs_wall:.3f} s, fusion_eval launches "
           f"{gs_launches}, mean best speedup {best.mean():.4f}, valid share "
           f"{res.valid[:, 0].mean():.4f}")
@@ -3685,7 +3939,7 @@ def main(argv=None) -> int:
           "DT n_groups differs")
     dt_valid = out["valid"].float().mean().item()
     dt_speed = out["speedup"][out["valid"]].mean().item() if dt_valid else 0.0
-    print(f"[5/24] DT one shot (3x2x128, hw_dim 10, seeded random weights) "
+    print(f"[5/25] DT one shot (3x2x128, hw_dim 10, seeded random weights) "
           f"over {C} conditions: wall {dt_wall:.4f} s, valid share "
           f"{dt_valid:.4f}, mean valid speedup {dt_speed:.4f}; re-score "
           f"matches (rtol 1e-5); G-Sampler/DT wall ratio "
@@ -3806,11 +4060,12 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     new.update(model_axis(dev))
     print(f"      phase 24 {time.perf_counter() - t0:.1f} s")
+    new.update(mixed_training(dev))
     missing = sorted(USED - HELD, key=str)
     check(not missing, f"the main path launched the attention kernels at "
           f"{len(missing)} shapes that phase 8 did not hold against their "
           f"plain versions: {missing}")
-    print(f"      the main path (phases 9-24) launched the attention kernels "
+    print(f"      the main path (phases 9-25) launched the attention kernels "
           f"at {len(USED)} shapes (dtype, dims, causal/window; decode kv_len "
           f"and plan), each held against its plain version in phase 8 "
           f"({len(HELD)} held)")

@@ -77,9 +77,9 @@ HW_FEATURE_DIM = len(HW_FIELDS)
  STREAM) = range(HW_FEATURE_DIM)
 
 _FEAT_LO = np.array([32, 1, 1e8, 1e8, 1e9, 0.25 * MB, 0.25, 1e-7, 1e-7,
-                     0.0625 * MB], np.float64)
+                     0.0625 * MB], np.float64)  # repro_torch: noqa[TDET002] -- host feature-normalization bounds, never on the device
 _FEAT_HI = np.array([2 ** 20, 64, 1e10, 1e13, 1e14, 16384 * MB, 8.0, 1e-3,
-                     1e-2, 1024 * MB], np.float64)
+                     1e-2, 1024 * MB], np.float64)  # repro_torch: noqa[TDET002] -- host feature-normalization bounds, never on the device
 
 
 def hw_array(hw, device=None) -> torch.Tensor:
@@ -124,7 +124,7 @@ def accel_from_features(feats, name: str = "decoded") -> AccelConfig:
     """Invert :func:`accel_features` back to an :class:`AccelConfig`."""
     if isinstance(feats, torch.Tensor):
         feats = feats.detach().cpu().numpy()
-    f = np.asarray(feats, np.float64)
+    f = np.asarray(feats, np.float64)  # repro_torch: noqa[TDET002] -- host feature decode after the copy; round-trips at f32 precision
     if f.shape != (HW_FEATURE_DIM,):
         raise ValueError(f"expected [{HW_FEATURE_DIM}] features, "
                          f"got shape {f.shape}")

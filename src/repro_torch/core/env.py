@@ -48,7 +48,7 @@ def encode_action(a, batch):
     is per row for tensors)."""
     if not isinstance(a, torch.Tensor):
         a = np.asarray(a, dtype=np.float32)
-        return np.where(a < 0, -0.5, a / float(batch)).astype(np.float32)
+        return np.where(a < 0, -0.5, a / float(batch)).astype(np.float32)  # repro_torch: noqa[TSYNC003] -- the numpy branch: host arrays only
     a = a.to(torch.float32)
     return torch.where(a < 0.0, -0.5, a / batch)
 

@@ -99,7 +99,7 @@ class _Chain:
     def __init__(self, wl_np: dict, batch: float, hw: AccelConfig):
         wl = scaled_wl_np(wl_np, hw)
         self.A, self.W, self.F, self.OE, self.UC = (
-            np.asarray(wl[k], dtype=np.float64)
+            np.asarray(wl[k], dtype=np.float64)  # repro_torch: noqa[TDET002] -- the f64 optimal oracle
             for k in ("A", "W", "F", "OE", "UC"))
         self.skip = np.asarray(wl["SKIP"], dtype=np.int64)
         self.n = int(wl["n"])
@@ -252,7 +252,7 @@ def _bounds_for_l(ch: _Chain, l: int, budget: float) -> dict:
     (so every UB is a true achievable segment cost, never below the
     optimum — the strict-inequality prune is therefore lossless)."""
     n, B = ch.n, ch.B
-    cand = np.arange(1.0, B + 1.0, dtype=np.float64)
+    cand = np.arange(1.0, B + 1.0, dtype=np.float64)  # repro_torch: noqa[TDET002] -- the f64 optimal oracle
     # cum[m] = sum of per-member componentwise minima over l+1..m
     cum = np.zeros((n + 1, 5))
     acc = np.zeros(5)
@@ -334,7 +334,7 @@ def _solve(ch: _Chain, budget: float, front_cap: int) -> dict:
     latency and tiling, effort counters) so wrappers can reconstruct the
     argmin strategy for any final cut."""
     n, B = ch.n, ch.B
-    cand_all = np.arange(1.0, B + 1.0, dtype=np.float64)
+    cand_all = np.arange(1.0, B + 1.0, dtype=np.float64)  # repro_torch: noqa[TDET002] -- the f64 optimal oracle
     segL = np.full((n + 2, n + 2), _INF)
     seg_tiling: dict[tuple[int, int], np.ndarray] = {}
     max_front, n_evals = 0, 0
@@ -557,7 +557,7 @@ def optimal_mapping(env, *, certify: bool = True,
         pop = torch.cat([pop, pop[win].expand(env.nmax - len(pop), -1)])
     out = cm.evaluate_population(env.wl, pop, float(ch.B), budget, env.hw)
     host = [x.cpu().numpy() for x in out]
-    lats = host[0].astype(np.float64)
+    lats = host[0].astype(np.float64)  # repro_torch: noqa[TDET002] -- the f64 optimal oracle's host readback
     # f32 may reorder near-ties among cuts, but never beyond rounding
     if lats[win] > lats.min() * (1.0 + 1e-5):
         raise AssertionError(

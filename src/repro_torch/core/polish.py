@@ -291,7 +291,7 @@ def _round_candidates(strategies: np.ndarray, mbs: np.ndarray,
     pos = np.arange(P)
     validp = pos[None, :] <= ns[:, None]
     sync = (strategies < 0) & mask
-    B = batches.astype(np.float64)[:, None, None]
+    B = batches.astype(np.float64)[:, None, None]  # repro_torch: noqa[TDET002] -- host re-round candidates; integer tiles exact, re-scored in f32
     tiles = np.concatenate([np.rint(mbs), np.floor(mbs), np.ceil(mbs)],
                            axis=1)
     tiles = np.clip(tiles, 1.0, B).astype(np.int32)

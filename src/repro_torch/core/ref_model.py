@@ -33,7 +33,7 @@ def evaluate_ref(wl_np: dict, strategy: np.ndarray, batch: float,
                  budget_bytes: float, hw: AccelConfig) -> dict:
     """Reference evaluation. ``wl_np``: numpy arrays from Workload.arrays
     scaled to bytes (same content as cost_model.pack_workload)."""
-    A, W, F, OE, UC = (np.asarray(wl_np[k], dtype=np.float64)
+    A, W, F, OE, UC = (np.asarray(wl_np[k], dtype=np.float64)  # repro_torch: noqa[TDET002] -- the f64 reference oracle
                        for k in ("A", "W", "F", "OE", "UC"))
     skip = np.asarray(wl_np["SKIP"], dtype=np.int64)
     mask = np.asarray(wl_np["mask"])
@@ -115,7 +115,7 @@ def evaluate_ref(wl_np: dict, strategy: np.ndarray, batch: float,
 
 
 def baseline_ref(wl_np: dict, batch: float, hw: AccelConfig) -> float:
-    A, W, F, OE, UC = (np.asarray(wl_np[k], dtype=np.float64)
+    A, W, F, OE, UC = (np.asarray(wl_np[k], dtype=np.float64)  # repro_torch: noqa[TDET002] -- the f64 reference oracle
                        for k in ("A", "W", "F", "OE", "UC"))
     n = int(wl_np["n"]); B = float(batch)
     lat = 0.0

@@ -118,11 +118,15 @@ def parallel_payloads(cfg, shape, mesh, *, act_bytes: int) -> dict:
     sharded steps make them: ``part`` is ``"tp"``, ``"ep"`` or ``"sp"``;
     an all-reduce counts its tensor, an all-gather its output, an
     all-to-all its input (``distributed.tp``).  A train step recomputes
-    each block (``remat="full"``), so a block's forward collectives count
+    each block (``remat="full"``, and ``"dots"``, whose recompute runs
+    the same collectives), so a block's forward collectives count
     twice, but for those after the block's last saved tensor, where the
     non-reentrant checkpoint stops its recompute: the MLP's row-parallel
     sum that ends a block, and the rows all-gathered after an
-    expert-parallel MoE layer.  ``act_bytes`` is the size of the
+    expert-parallel MoE layer.  The payloads are the same in bf16 (at
+    ``act_bytes=2``): the f32 leaves a bf16 model keeps are replicated
+    over 'model', and their data-parallel gradient sums are FSDP's part
+    (:func:`collective_bytes`, an all-reduce of a replicated leaf).  ``act_bytes`` is the size of the
     activations and parameters.  A prefill's prompt is ``seq_len`` tokens
     (whisper's: ``seq_len`` encoder frames and ``seq_len // 8`` decoder
     tokens)."""

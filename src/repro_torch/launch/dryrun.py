@@ -4,6 +4,7 @@ per-device budget of a sharded step, without devices (port of
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch gemma3_1b --shape train_4k
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--both-meshes] [--out DIR]
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --arch gemma3_1b --shape train_4k --remat dots
     PYTHONPATH=src python -m repro_torch.launch.dryrun --table [--out DIR]
 
 The reference lowers and compiles each cell on 256/512 fake host devices
@@ -14,9 +15,9 @@ on ``meta`` and fake tensors on one host and prices it by the plan
 - argument bytes, exact from the plan: each parameter's, AdamW moment's
   (train), batch leaf's and decode-state leaf's shard;
 - FLOPs: ``torch.utils.flop_counter.FlopCounterMode`` over the whole step
-  (forward and backward for train, at ``remat="full"`` as
-  ``launch.steps.build_train_step`` runs it, the recomputed forward
-  counted) on ``meta`` tensors at one device,
+  (forward and backward for train, at the ``--remat`` policy that
+  ``launch.steps.build_train_step`` runs, ``"full"`` by default, the
+  recomputed forward counted) on ``meta`` tensors at one device,
   divided by the data-parallel size and, module by module, by the TP
   size where the plan shards that module's weights ('model' replicated
   leaves, the head-count vetoes, are counted on every TP rank);
@@ -76,7 +77,8 @@ def _local_shape(shape, mesh):
 
 def _run_step(cfg, shape, args, dtype, remat: str = "full"):
     """The cell's step on the given (meta or fake) arguments; a train
-    step at ``remat`` (``launch.steps.build_train_step``'s default)."""
+    step at ``remat`` (``"full"``: ``launch.steps.build_train_step``'s
+    default)."""
     from ..models import registry
     mod = registry.get_model(cfg)
     if shape.kind == "train":
@@ -130,7 +132,8 @@ def _abstract(cfg, shape, dtype):
     return _ARGS[key]
 
 
-def _flops(cfg, shape, mesh, dtype, specs) -> tuple[float, float]:
+def _flops(cfg, shape, mesh, dtype, specs,
+           remat: str = "full") -> tuple[float, float]:
     """(FLOPs of the whole step at one device, per-device FLOPs under the
     plan) on ``meta`` tensors.  The counter attributes a backward op to
     the module whose hook is live, which can be a sibling leaf of the one
@@ -144,11 +147,11 @@ def _flops(cfg, shape, mesh, dtype, specs) -> tuple[float, float]:
     from .mesh import axis_sizes, dp_axes
     sizes = axis_sizes(mesh)
     dp = math.prod(sizes[a] for a in dp_axes(mesh))
-    key = (repr(cfg), repr(shape), str(dtype))
+    key = (repr(cfg), repr(shape), str(dtype), remat)
     if key not in _COUNTS:              # the count is the mesh's to divide
         args = steps.abstract_args(cfg, shape, dtype=dtype)
         with FlopCounterMode(display=False) as fc:
-            _run_step(cfg, shape, args, dtype)
+            _run_step(cfg, shape, args, dtype, remat)
         _COUNTS[key] = (float(fc.get_total_flops()), {
             k: float(sum(v.values()))
             for k, v in fc.get_flop_counts().items() if k != "Global"})
@@ -163,10 +166,11 @@ def _flops(cfg, shape, mesh, dtype, specs) -> tuple[float, float]:
     return total, per / dp
 
 
-def _temporaries(cfg, shape, dtype) -> tuple[float, float]:
+def _temporaries(cfg, shape, dtype,
+                 remat: str = "full") -> tuple[float, float]:
     """``(step, update)``: the peak activation + gradient + temporary
     bytes of the step at ``shape`` (one device's share; forward and
-    backward for train), and of a train step's update (the clip and
+    backward at ``remat`` for train), and of a train step's update (the clip and
     AdamW of ``launch.steps`` over the whole model, whose ``_foreach``
     results are whole-size temporaries; 0 otherwise), each from its own
     ``MemTracker`` under ``FakeTensorMode``.  Each is linear in the depth
@@ -203,7 +207,7 @@ def _temporaries(cfg, shape, dtype) -> tuple[float, float]:
             mt.track_external(model)
             with mt:
                 if phase == "step":
-                    _run_step(cfg, shape, args, dtype)
+                    _run_step(cfg, shape, args, dtype, remat)
                 else:
                     grads = {k: torch.zeros_like(p) if p.grad is None
                              else p.grad for k, p in params.items()}
@@ -256,7 +260,8 @@ def argument_bytes(cfg, shape, mesh, *, dtype=torch.bfloat16) -> dict:
     return out
 
 
-def step_costs(cfg, shape, mesh, *, dtype=torch.bfloat16) -> dict:
+def step_costs(cfg, shape, mesh, *, dtype=torch.bfloat16,
+               remat: str = "full") -> dict:
     """FLOPs (whole step and per device) and temporaries of the cell at
     ``cfg``'s depth, from its L = 1 and L = 2 variants.  The update's
     temporaries are elementwise over each device's shards, so they are
@@ -273,11 +278,11 @@ def step_costs(cfg, shape, mesh, *, dtype=torch.bfloat16) -> dict:
         c = with_layers(cfg, n)
         leaves = param_tree(steps.abstract_model(c, dtype))
         specs = param_specs(leaves, mesh, c)
-        total, per = _flops(c, shape, mesh, dtype, specs)
+        total, per = _flops(c, shape, mesh, dtype, specs, remat)
         share = sum(shard_bytes(t.shape, t.element_size(), specs[k], mesh)
                     for k, t in leaves.items()) / sum(
             t.numel() * t.element_size() for t in leaves.values())
-        step, update = _temporaries(c, local, dtype)
+        step, update = _temporaries(c, local, dtype, remat)
         vals.append((total, per, step, update * share))
     L = cfg.n_layers
     ext = lambda i: max(vals[0][i] + (vals[1][i] - vals[0][i]) * (L - 1),
@@ -298,9 +303,11 @@ def model_flops(cfg, shape) -> float:
 
 
 def lower_cell(arch, shape_name, *, multi_pod: bool = False, mesh=None,
-               dtype=torch.bfloat16, cfg=None, shape=None) -> dict:
+               dtype=torch.bfloat16, cfg=None, shape=None,
+               remat: str = "full") -> dict:
     """The per-device budget of one cell (``arch``/``shape_name``, or a
-    given ``cfg``/``shape`` and ``mesh``) on the production mesh."""
+    given ``cfg``/``shape`` and ``mesh``) on the production mesh; a train
+    cell at ``remat``."""
     from ..configs import SHAPES, get_config
     from ..core.model import param_tree
     from ..distributed.sharding import param_specs
@@ -315,7 +322,7 @@ def lower_cell(arch, shape_name, *, multi_pod: bool = False, mesh=None,
     n_dev = mesh_size(mesh)
     t0 = time.perf_counter()
     args = argument_bytes(cfg, shape, mesh, dtype=dtype)
-    costs = step_costs(cfg, shape, mesh, dtype=dtype)
+    costs = step_costs(cfg, shape, mesh, dtype=dtype, remat=remat)
     cell = _abstract(cfg, shape, dtype)
     leaves = param_tree(cell[0])
     specs = param_specs(leaves, mesh, cfg)
@@ -339,7 +346,7 @@ def lower_cell(arch, shape_name, *, multi_pod: bool = False, mesh=None,
         "arch": cfg.name if arch is None else arch,
         "shape": shape.name, "mesh": name, "n_devices": n_dev,
         "kind": shape.kind, "impl": "dense", "dtype": str(dtype),
-        "remat": "full" if shape.kind == "train" else None, "ok": True,
+        "remat": remat if shape.kind == "train" else None, "ok": True,
         "t_count_s": time.perf_counter() - t0,
         "memory": {"argument_size_in_bytes": args["total"],
                    "arguments": args,
@@ -365,8 +372,12 @@ def axis_tuple(mesh) -> tuple:
     return tuple(axis_sizes(mesh).values())
 
 
-def run_cell(arch, shape_name, multi_pod, out_dir, force=False, **kw):
+def run_cell(arch, shape_name, multi_pod, out_dir, force=False,
+             remat: str = "full", **kw):
+    from ..configs import SHAPES
     tag = f"{arch}__{shape_name}__{'2x16x16' if multi_pod else '16x16'}"
+    if remat != "full" and SHAPES[shape_name].kind == "train":
+        tag += f"__remat_{remat}"
     path = out_dir / f"{tag}.json"
     if path.exists() and not force:
         rec = json.loads(path.read_text())
@@ -375,7 +386,8 @@ def run_cell(arch, shape_name, multi_pod, out_dir, force=False, **kw):
                   f"{rec.get('roofline', {}).get('bottleneck')}")
             return rec
     try:
-        rec = lower_cell(arch, shape_name, multi_pod=multi_pod, **kw)
+        rec = lower_cell(arch, shape_name, multi_pod=multi_pod, remat=remat,
+                         **kw)
     except Exception as e:  # a failure here is a bug in the system
         rec = {"arch": arch, "shape": shape_name,
                "mesh": "2x16x16" if multi_pod else "16x16", "ok": False,
@@ -424,7 +436,9 @@ def table(out_dir) -> str:
     cells: dict = {}
     for path in sorted(pathlib.Path(out_dir).glob("*.json")):
         r = json.loads(path.read_text())
-        cells.setdefault(r["arch"], {}).setdefault(r["shape"], {})[
+        shape = r["shape"] if r.get("remat") in (None, "full") \
+            else f"{r['shape']} ({r['remat']})"
+        cells.setdefault(r["arch"], {}).setdefault(shape, {})[
             r["mesh"]] = r
     shapes = sorted({s for by in cells.values() for s in by},
                     key=lambda s: (_SHAPE_ORDER + (s,)).index(s))
@@ -449,6 +463,8 @@ def main(argv=None):
     ap.add_argument("--both-meshes", action="store_true")
     ap.add_argument("--force", action="store_true")
     ap.add_argument("--out", default="artifacts/dryrun_torch")
+    ap.add_argument("--remat", choices=("none", "full", "dots"),
+                    default="full", help="the train cells' policy")
     ap.add_argument("--table", action="store_true",
                     help="print the cells under --out as a markdown table")
     args = ap.parse_args(argv)
@@ -470,7 +486,8 @@ def main(argv=None):
     t0 = time.perf_counter()
     for a, s in todo:
         for mp in meshes:
-            rec = run_cell(a, s, mp, out_dir, force=args.force)
+            rec = run_cell(a, s, mp, out_dir, force=args.force,
+                           remat=args.remat)
             n_fail += 0 if rec.get("ok") else 1
     print(f"done: {len(todo) * len(meshes)} cells, {n_fail} failures, "
           f"{time.perf_counter() - t0:.1f} s")

@@ -23,14 +23,32 @@ whole on every rank of 'model'.  FSDP2 gathers a block's leaves into
 plain tensors before the block runs, so the attention kernels, which take
 plain tensors, never see a ``DTensor``, and the layers see their 'model'
 shards as plain tensors (``distributed.tp``: every step runs under the
-placement's ``tp.Parallel``).  A placement for inference (prefill,
-decode, scoring) freezes the leaves it wraps (``requires_grad`` off): FSDP2
-takes a group of mixed types (a bf16 model's f32 router, RWKV decay or
-SSM state) only when none of them is trained.
+placement's ``tp.Parallel``).
+
+A bf16 model keeps a few leaves in f32, as the reference does: the MoE
+router ``router/w``, RWKV's ``w0`` and ``u``, the SSM's ``A_log`` and
+``D``.  FSDP2 refuses a trainable group whose leaves have mixed types, so
+a train placement passes every leaf of a type other than the model's
+(:func:`_odd_leaves`) to ``fully_shard`` as ``ignored_params``: such a
+leaf stays a whole, plain ``nn.Parameter`` on each rank, and the step
+all-reduces its gradient over the data axes itself (one flat buffer a
+type, averaged as FSDP2 averages) and counts it once in the clip's
+global norm.  That is the plan's own placement for these leaves (it
+replicates all five: ``moe/router/w`` and ``ssm/`` rule ``(None,
+None)``, ``w0`` and ``u`` match no rule), and the one that
+``cost_analysis.collective_bytes`` prices for a replicated leaf (an
+all-reduce of its gradient), so the payload model needs no change; the
+router could have taken an FSDP2 group of its own, but then ``w0``,
+``u``, ``A_log`` and ``D``, direct leaves of modules that hold bf16
+leaves, would still need this route, and one route is simpler than two.
+An f32 model has no such leaf and runs as before.  A placement for
+inference (prefill, decode, scoring) freezes the leaves it wraps
+(``requires_grad`` off), which FSDP2 also takes.
 
 The train step differentiates the family's ``loss_fn`` at ``impl=
 "dense"`` (the reference's ``"xla"``) and ``remat="full"`` (the
-reference's default: each block recomputed in the backward) and runs
+reference's default: each block recomputed in the backward; ``"dots"``
+keeps the unbatched products' outputs, ``"none"`` everything) and runs
 AdamW (``default_tx``, no clipping inside) on each rank's local shards,
 after clipping by the global norm summed over the ranks.  The loss runs
 under the placement's ``tp.Parallel``, so a MoE layer's load-balancing
@@ -98,6 +116,15 @@ def abstract_args(cfg: ArchConfig, shape: Shape, *, dtype=torch.bfloat16):
     return model, state, batch
 
 
+def _odd_leaves(tree: dict) -> set:
+    """The keys of a ``param_tree``-keyed dict whose leaves have a type
+    other than the model's (its most common leaf type): a bf16 model's
+    f32 router, RWKV decay and SSM state; none in an f32 model."""
+    from collections import Counter
+    main = Counter(t.dtype for t in tree.values()).most_common(1)[0][0]
+    return {k for k, t in tree.items() if t.dtype != main}
+
+
 class _Root(nn.Module):
     """The module FSDP2 roots at: its forward runs ``fn(model, *args)``,
     so the model's own leaves (embeddings, final norm, head) are gathered
@@ -143,6 +170,7 @@ class Placement:
                                                 self.n))
         self.specs = param_specs(abstract_model(cfg), mesh, cfg)
         self.root = None
+        self.whole = set()    # leaves FSDP2 ignores: whole on every rank
 
     def place(self, model: nn.Module) -> nn.Module:
         """Shard ``model`` in place by the plan (its 'model' shard, then
@@ -153,6 +181,12 @@ class Placement:
         if getattr(model, "cfg", None) != self.cfg:
             raise ValueError(f"model of {getattr(model, 'cfg', None)}, the "
                              f"step is built for {self.cfg}")
+        if self.trains:
+            self.whole = _odd_leaves(param_tree(model))
+            if any(self.model_sharded(k) for k in self.whole):
+                raise ValueError(f"{sorted(self.whole)}: a leaf of another "
+                                 f"type than the model's must be whole over "
+                                 f"'model' (the plan replicates them)")
         if _ROOT in model.__dict__:
             if self.trains and not all(p.requires_grad
                                        for p in model.parameters()):
@@ -164,6 +198,7 @@ class Placement:
         self._cut(model)
         if not self.trains:
             model.requires_grad_(False)
+        ignored = {p for k, p in param_tree(model).items() if k in self.whole}
         dim_of = {}
         for k, p in param_tree(model).items():
             spec = self.specs[k]
@@ -176,9 +211,10 @@ class Placement:
         kw = dict(mesh=self.dp, shard_placement_fn=placement)
         for name in _STACKS:
             for blk in getattr(model, name, ()):
-                fully_shard(blk, **kw)
+                fully_shard(blk, ignored_params=ignored & set(
+                    blk.parameters()) or None, **kw)
         self.root = _Root(model)
-        fully_shard(self.root, **kw)
+        fully_shard(self.root, ignored_params=ignored or None, **kw)
         # a plain attribute, not a submodule: the model and its root live
         # and die together (a table keyed by the model would keep it)
         model.__dict__[_ROOT] = self.root
@@ -291,16 +327,20 @@ class TrainStep(Placement):
         if opt_state is None:
             return model
         from ..core.model import param_tree
-        dims = {k: p.placements[0].dim for k, p in param_tree(model).items()}
+        dims = {k: p.placements[0].dim for k, p in param_tree(model).items()
+                if k not in self.whole}
         cut = lambda tree: {k: self._chunk(tp.shard_leaf(
-            t, self.specs[k], self.tp.rank, self.tp.size), dims[k])
+            t, self.specs[k], self.tp.rank, self.tp.size), dims.get(k))
             for k, t in tree.items()}
         return model, type(opt_state)(opt_state.step, cut(opt_state.mu),
                                       cut(opt_state.nu))
 
     def _chunk(self, t: torch.Tensor, dim: int) -> torch.Tensor:
         """This rank's FSDP2 shard of a whole tensor (``torch.chunk``
-        semantics, as FSDP2 cuts)."""
+        semantics, as FSDP2 cuts); ``dim`` None: a leaf FSDP2 ignores,
+        whole."""
+        if dim is None:
+            return t
         parts = torch.chunk(t, self.n, dim=dim)
         if self.rank < len(parts):
             return parts[self.rank].contiguous()
@@ -316,7 +356,7 @@ class TrainStep(Placement):
         ptree = param_tree(model)
 
         def whole(k, t):
-            if self.n == 1:
+            if self.n == 1 or k in self.whole:
                 return t
             dim = ptree[k].placements[0].dim
             sizes = [c.shape[dim] for c in torch.chunk(
@@ -354,7 +394,9 @@ class TrainStep(Placement):
             grads[k] = g.to_local() if hasattr(g, "to_local") else g
             p.grad = None
         keys = list(grads)
-        if self.tp.size == 1:
+        if self.whole and self.n > 1:
+            self._all_reduce_whole(grads)
+        if self.tp.size == 1 and not (self.whole and self.n > 1):
             norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(
                 [grads[k].float() for k in keys])))
             if self.n > 1:
@@ -362,20 +404,22 @@ class TrainStep(Placement):
                 dist.all_reduce(sq, group=self.group)
                 norm = torch.sqrt(sq)
         else:                              # each leaf once over the ranks
-            sq = [torch.zeros((), device=loss.device) for _ in range(2)]
-            for i, part in enumerate(([k for k in keys if
-                                       self.model_sharded(k)],
-                                      [k for k in keys if
-                                       not self.model_sharded(k)])):
+            sq = [torch.zeros((), device=loss.device) for _ in range(3)]
+            for i, part in enumerate((
+                    [k for k in keys if self.model_sharded(k)],
+                    [k for k in keys if not self.model_sharded(k)
+                     and k not in self.whole],
+                    [k for k in keys if k in self.whole])):
                 if part:
                     sq[i] = torch.square(torch.linalg.vector_norm(
                         torch.stack(torch._foreach_norm(
                             [grads[k].float() for k in part]))))
-            dist.all_reduce(sq[0], group=self.tp.group)
+            if self.tp.size > 1:
+                dist.all_reduce(sq[0], group=self.tp.group)
             tot = sq[0] + sq[1]
             if self.n > 1:
                 dist.all_reduce(tot, group=self.group)
-            norm = torch.sqrt(tot)
+            norm = torch.sqrt(tot + sq[2]) if self.whole else torch.sqrt(tot)
         scale = torch.clamp_max(MAX_GRAD_NORM / (norm + 1e-9), 1.0)
         grads = dict(zip(keys, torch._foreach_mul(
             [grads[k] for k in keys], scale)))
@@ -385,6 +429,23 @@ class TrainStep(Placement):
             dist.all_reduce(loss, group=self.group)
             loss = loss / self.n
         return model, opt_state, loss
+
+
+    def _all_reduce_whole(self, grads: dict) -> None:
+        """The mean over the data ranks of the gradients of the leaves
+        FSDP2 ignores (:attr:`whole`), one flat all-reduce a type, copied
+        back into each gradient's own storage."""
+        import torch.distributed as dist
+        by_type = {}
+        for k in grads:
+            if k in self.whole:
+                by_type.setdefault(grads[k].dtype, []).append(k)
+        for ks in by_type.values():
+            flat = torch.cat([grads[k].reshape(-1) for k in ks])
+            dist.all_reduce(flat, group=self.group)
+            flat /= self.n
+            for k, g in zip(ks, flat.split([grads[k].numel() for k in ks])):
+                grads[k].copy_(g.view_as(grads[k]))
 
 
 def _with(shape, dim, size):
@@ -400,7 +461,9 @@ def build_train_step(cfg: ArchConfig, shape: Shape, mesh, *,
     ``model = step.place(model)``, ``opt = step.init_opt(model)``, then
     ``model, opt, loss = step(model, opt, batch)``.  ``remat="full"`` (the
     reference's default) keeps each block's input and recomputes the
-    block in the backward; ``"none"`` keeps every activation."""
+    block in the backward; ``"dots"`` also keeps the outputs of its
+    unbatched products (``nn.transformer.remat_call``); ``"none"`` keeps
+    every activation."""
     step = TrainStep(cfg, mesh, impl=impl, remat=remat)
     return step, abstract_args(cfg, shape, dtype=dtype)
 

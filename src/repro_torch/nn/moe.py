@@ -139,7 +139,7 @@ def moe_route(p: MoE, x: torch.Tensor, *, top_k: int,
     w = w / torch.clamp_min(w.sum(-1, keepdim=True), 1e-9)
     me = probs.mean((0, 1))
     flat = idx.reshape(-1)
-    counts = torch.zeros(E, dtype=torch.int64, device=x.device).scatter_add_(
+    counts = torch.zeros(E, dtype=torch.int64, device=x.device).scatter_add_(  # repro_torch: noqa[TDET003] -- int64 counts: exact in any order
         0, flat, torch.ones_like(flat))
     counts, ranks = _data_parallel_sum(counts)
     ce = counts.float() / (B * S * top_k * ranks)

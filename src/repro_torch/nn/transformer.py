@@ -16,6 +16,8 @@ block's norms stay whole on every rank.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -28,19 +30,41 @@ from .norms import LayerNorm, RMSNorm
 __all__ = ["MLP", "Block", "make_norm", "remat_call"]
 
 
+_SAVED_BY_DOTS = ("mm", "addmm")
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """The reference's ``checkpoint_dots_with_no_batch_dims`` as a
+    selective-checkpoint policy: keep the products with no batch
+    dimension (``aten.mm``/``aten.addmm``: every ``Dense`` and ``x @ W``
+    over flattened rows, the projections and MLPs), recompute the rest
+    (``aten.bmm`` included: attention scores, stacked experts and the SSM
+    readout, batched dot_generals in the reference, which it does not
+    keep either)."""
+    from torch.utils.checkpoint import CheckpointPolicy
+    if getattr(op, "_opname", None) in _SAVED_BY_DOTS:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
 def remat_call(blk, *args, remat: str = "none", **kw):
     """``blk(*args, **kw)`` under the reference's ``remat`` of a scanned
     stack (``stack_apply``): ``"none"`` keeps the block's activations for
     the backward; ``"full"`` keeps its inputs and recomputes it there
     (non-reentrant ``torch.utils.checkpoint``; the blocks draw no random
-    numbers, so no RNG state is kept).  Under ``no_grad`` both run the
-    block as it is."""
-    if remat not in ("none", "full"):
-        raise ValueError(f"remat {remat!r}: 'none' or 'full' (the "
-                         f"reference's 'dots' is not carried)")
+    numbers, so no RNG state is kept); ``"dots"`` keeps its inputs and
+    the outputs of its unbatched products and recomputes the rest
+    (selective checkpointing, :func:`_dots_policy`).  Under ``no_grad``
+    all three run the block as it is."""
+    if remat not in ("none", "full", "dots"):
+        raise ValueError(f"remat {remat!r}: 'none', 'full' or 'dots'")
     if remat == "none" or not torch.is_grad_enabled():
         return blk(*args, **kw)
-    from torch.utils.checkpoint import checkpoint
+    from torch.utils.checkpoint import (checkpoint,
+                                        create_selective_checkpoint_contexts)
+    if remat == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _dots_policy)
     return checkpoint(blk, *args, use_reentrant=False,
                       preserve_rng_state=False, **kw)
 

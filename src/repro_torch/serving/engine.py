@@ -103,7 +103,7 @@ class MapResponse:
 
 
 @functools.lru_cache(maxsize=1024)
-def _accel_key(accel: AccelConfig) -> tuple:
+def _accel_key(accel: AccelConfig) -> tuple:  # repro_torch: noqa[TJIT001] -- keys the strategy cache, builds nothing
     """Quantized accelerator identity for strategy-cache keys: the same
     normalized ``accel_features`` the model conditions on, rounded so f32
     noise cannot split one physical device into many keys."""

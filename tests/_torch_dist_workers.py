@@ -308,3 +308,72 @@ def _tp_cells(rank, n, inputs):
         if inputs.get("batch1") == name:       # the SP form of a 1-row batch
             res[name]["serve1"] = _tp_serve(cell, mesh, 1)
     return res
+
+
+# -- bf16 training of the mixed-type LMs (tests/test_torch_fsdp_mixed.py) ---
+
+def bf16_model(weights, cfg):
+    """The reference's perturbed weights carried in f32, then each leaf
+    cast to the type a bf16 model gives it (f32 for the router, RWKV's
+    decay and the SSM's state, bf16 for the rest)."""
+    from repro_torch.checkpoint import load_reference, lm_params_from_reference
+    from repro_torch.core.model import param_tree
+    from repro_torch.launch.steps import abstract_model
+    model = lm_params_from_reference(load_reference(weights), cfg, device=CPU)
+    types = {k: t.dtype for k, t in param_tree(abstract_model(cfg)).items()}
+    for k, p in param_tree(model).items():
+        p.data = p.data.to(types[k])
+    return model
+
+
+def _mixed_train(cell, mesh, S, B, n_steps, remat):
+    """``n_steps`` bf16 ``build_train_step`` steps at ``remat`` against bf16
+    ``make_local_train_step`` on the same weights: losses, the leaves'
+    types, each f32 leaf's update, and what the 'model' collectives
+    moved a step."""
+    from repro_torch import optim
+    from repro_torch.configs import Shape
+    from repro_torch.core.model import param_tree
+    from repro_torch.launch import steps, train as lt
+    cfg = cell["cfg"]
+    step, _ = steps.build_train_step(cfg, Shape("t", S, B, "train"), mesh,
+                                     remat=remat)
+    model = step.place(bf16_model(cell["weights"], cfg))
+    opt = step.init_opt(model)
+    ref = bf16_model(cell["weights"], cfg)
+    start = {k: v.detach().clone() for k, v in param_tree(ref).items()}
+    tx = optim.adamw(3e-4, weight_decay=0.01, max_grad_norm=1.0)
+    local = lt.make_local_train_step(cfg, tx)
+    ropt = tx.init(param_tree(ref))
+    batch_fn = lt.make_batch_fn(cfg, seq_len=S, global_batch=B, device=CPU)
+    losses, moved = [], []
+    for i in range(n_steps):
+        b = batch_fn(i)
+        step.par.moved.clear()
+        model, opt, loss = step(model, opt, b)
+        moved.append(dict(step.par.moved))
+        ref, ropt, rl = local(ref, ropt, b)
+        losses.append((float(loss), float(rl)))
+    full = step.full_tree(model)
+    local_tree = param_tree(ref)
+    f32 = sorted(k for k, v in start.items() if v.dtype == torch.float32)
+    return {"losses": losses, "whole": sorted(step.whole), "f32": f32,
+            "types": {k: (start[k].dtype, full[k].dtype,
+                          local_tree[k].dtype) for k in start},
+            "update": {k: ((full[k].detach() - start[k]).float(),
+                           (local_tree[k].detach() - start[k]).float())
+                       for k in f32},
+            "moved": moved}
+
+
+def _fsdp_mixed(rank, n, inputs):
+    """Every (mesh, cell) of ``inputs["runs"]`` in this group."""
+    res = {}
+    meshes = {}
+    for mesh, name, remat in inputs["runs"]:
+        if mesh not in meshes:
+            meshes[mesh] = _tp_mesh(mesh)
+        res[(mesh, name, remat)] = _mixed_train(
+            inputs["cells"][name], meshes[mesh], inputs["S"], inputs["B"],
+            inputs["steps"], remat)
+    return res

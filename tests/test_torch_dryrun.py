@@ -14,7 +14,11 @@
   (the reference's ``test_mini_dryrun_16_devices`` assertions);
 - the argument bytes at one device equal the real tensors' bytes;
 - ``roofline_terms``' arithmetic, the CLI writing one JSON per cell,
-  and its table: a row an arch, a column a shape.
+  and its table: a row an arch, a column a shape;
+- ``--remat``: a train cell priced at ``"dots"`` counts more FLOPs than
+  at ``"none"`` and fewer than at ``"full"`` (it recomputes all but the
+  unbatched products), its temporaries lie between theirs, its row
+  names the policy, and the CLI passes the flag to the cell.
 """
 import dataclasses
 import json
@@ -166,3 +170,31 @@ def test_table_has_a_row_an_arch_and_a_column_a_shape(tmp_path, capsys):
     temp = rec["memory"]["temp_size_in_bytes"] / 2 ** 30
     assert all(c.count("/") >= 6 and " GiB; " in c for c in cells)
     assert f"/{temp:.2f} GiB; " in cells[1]
+
+
+def test_dots_is_priced_between_none_and_full():
+    cfg = get_config("qwen3_8b", reduced=True)
+    shape = Shape("t", 512, 8, "train")
+    rec = {r: dryrun.lower_cell(None, None, mesh=ONE, cfg=cfg, shape=shape,
+                                dtype=torch.float32, remat=r)
+           for r in ("none", "full", "dots")}
+    assert [rec[r]["remat"] for r in rec] == list(rec)
+    flops = {r: v["flops_total"] for r, v in rec.items()}
+    temp = {r: v["memory"]["temp_step"] for r, v in rec.items()}
+    assert flops["none"] < flops["dots"] < flops["full"], flops
+    assert temp["full"] < temp["dots"] < temp["none"], temp
+
+
+def test_cli_passes_remat_to_the_cell(tmp_path, monkeypatch):
+    seen = []
+
+    def cell(arch, shape, **kw):
+        seen.append((arch, shape, kw["remat"]))
+        return {"ok": False, "error": "stub"}
+    monkeypatch.setattr(dryrun, "lower_cell", cell)
+    with pytest.raises(SystemExit):
+        dryrun.main(["--arch", "gemma3_1b", "--shape", "train_4k",
+                     "--remat", "dots", "--out", str(tmp_path)])
+    assert seen == [("gemma3_1b", "train_4k", "dots")]
+    assert (tmp_path / "gemma3_1b__train_4k__16x16__remat_dots.json") \
+        .exists()

@@ -8,10 +8,15 @@ build_train_step`` trains at ``remat="full"``, the reference's default):
   within ``GRAD_TOL`` of each leaf's largest;
 - the recompute keeps fewer activations: a fake-tensor step of reduced
   qwen3_8b at 8 x 512 peaks lower at ``"full"``;
+- at ``remat="dots"`` (selective checkpointing that keeps the unbatched
+  products, the reference's ``checkpoint_dots_with_no_batch_dims``) the
+  same: loss and gradients equal ``"none"``'s bit for bit in every
+  family (the recompute repeats the same ops), and the reference's
+  ``loss_fn(remat="dots")`` gradients within ``GRAD_TOL``; the bytes one
+  block adds to the step's peak (L = 2 less L = 1) lie strictly between
+  ``"full"``'s and ``"none"``'s;
 - an unknown ``remat`` raises.
 """
-import functools
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -52,6 +57,15 @@ def _grads(model, loss) -> dict:
 
 @pytest.mark.parametrize("family", sorted(FAMILIES))
 def test_full_remat_equals_none_and_the_reference(tmp_path, family):
+    _remat_equals_none_and_the_reference(tmp_path, family, "full")
+
+
+@pytest.mark.parametrize("family", sorted(FAMILIES))
+def test_dots_remat_equals_none_and_the_reference(tmp_path, family):
+    _remat_equals_none_and_the_reference(tmp_path, family, "dots")
+
+
+def _remat_equals_none_and_the_reference(tmp_path, family, remat):
     cfg, jmod, params, model = lm_pair(tmp_path, FAMILIES[family])
     b = _batch(cfg)
     tb = {k: torch.as_tensor(v.astype(np.int64) if v.dtype.kind == "i"
@@ -59,14 +73,14 @@ def test_full_remat_equals_none_and_the_reference(tmp_path, family):
     loss_fn = registry.get_model(model.cfg).loss_fn
     plain = loss_fn(model, tb, remat="none")
     g_plain = _grads(model, plain)
-    full = loss_fn(model, tb, remat="full")
+    full = loss_fn(model, tb, remat=remat)
     g_full = _grads(model, full)
     assert torch.equal(full.detach(), plain.detach())
     for k in g_plain:
         assert torch.equal(g_full[k], g_plain[k]), k
     want, jg = jax.value_and_grad(lambda p: jmod.loss_fn(
         p, cfg, {k: jnp.asarray(v) for k, v in b.items()}, impl="xla",
-        remat="full"))(params)
+        remat=remat))(params)
     jg = {k: np.asarray(v) for k, v in _flatten(jg)[0].items()}
     np.testing.assert_allclose(float(full.detach()), float(want), **TOL)
     got = _stack(g_full, model.cfg)
@@ -77,17 +91,32 @@ def test_full_remat_equals_none_and_the_reference(tmp_path, family):
                                    err_msg=k)
 
 
-def test_full_remat_keeps_fewer_activations(monkeypatch):
+def test_full_remat_keeps_fewer_activations():
     cfg = dryrun.with_layers(get_config("qwen3_8b", reduced=True), 4)
     shape = Shape("t", 512, 8, "train")
-    run, peaks = dryrun._run_step, {}
+    peaks = {}
     for remat in ("none", "full"):
-        monkeypatch.setattr(dryrun, "_run_step",
-                            functools.partial(run, remat=remat))
-        peaks[remat] = dryrun._temporaries(cfg, shape, torch.float32)[0]
+        peaks[remat] = dryrun._temporaries(cfg, shape, torch.float32,
+                                           remat)[0]
     assert 0 < peaks["full"] < peaks["none"], peaks
+
+
+def test_dots_keeps_activations_between_full_and_none():
+    """What one block adds to a fake-tensor train step's peak (reduced
+    qwen3_8b at 8 x 512, L = 2 less L = 1): its input at ``"full"``, its
+    input and its projections' and MLP's outputs at ``"dots"``, every
+    activation at ``"none"``."""
+    base = get_config("qwen3_8b", reduced=True)
+    shape = Shape("t", 512, 8, "train")
+    block = {}
+    for remat in ("none", "full", "dots"):
+        one, two = (dryrun._temporaries(dryrun.with_layers(base, n), shape,
+                                        torch.float32, remat)[0]
+                    for n in (1, 2))
+        block[remat] = two - one
+    assert 0 < block["full"] < block["dots"] < block["none"], block
 
 
 def test_unknown_remat_raises():
     with pytest.raises(ValueError, match="dots"):
-        remat_call(torch.nn.Identity(), torch.ones(2), remat="dots")
+        remat_call(torch.nn.Identity(), torch.ones(2), remat="dot")
