@@ -198,7 +198,11 @@ Phases, each of which raises on failure (the script then exits non-zero):
    rank's shard of the seed-0 draw: qwen3_8b serving (the cache's
    positions over the ranks, each step's ``flash_decode`` over the
    rank's keys with its statistics, merged; phase 10's tokens and
-   36 x 7 launches a rank), qwen3_8b bf16 scoring at the rank's heads
+   36 x 7 launches a rank; then the placement contract: a
+   ``build_prefill`` on a (data 2, model 1) mesh and a local ``prefill``
+   refuse the placed model, the prefill step refuses a model never
+   placed, and a fresh prefill and decode steps on the (1, 2) mesh serve
+   the same first tokens), qwen3_8b bf16 scoring at the rank's heads
    (36 ``flash_attention`` a rank; logits against phase 9's; witnesses:
    the same weights in f32 against phase 9's f32 forward, and a control
    whose 'model' sums are coarser, which the bf16 limit must reject),
@@ -3066,6 +3070,7 @@ BF16_OVER_ROUND = 1.4           # (b): bf16 scoring logits, TP vs one card,
 COARSE_BITS = 2                 # (b)'s control: its 'model' sums' coarsening
 TP_LOSS_RTOL = 1e-5
 TP_F32_REL = 1e-4               # f32 logits, TP vs one card, of the largest
+REFUSED_TOKENS = 4              # (a)'s tokens served again after the refusals
 REF: dict = {}                  # one card's results that phase 24 holds
                                 # its ranks to (phases 9, 10, 14, 17, 23)
 
@@ -3080,10 +3085,12 @@ def tp_route() -> str:
     return "nccl" if torch.cuda.device_count() >= TP else "gloo"
 
 
-def _tp_serving(dev, mesh, rank, arch, n_decode, ref_tokens) -> dict:
+def _tp_serving(dev, mesh, rank, arch, n_decode, ref_tokens, *,
+                refuse=False) -> dict:
     """(a) and (c): ``build_prefill`` + ``build_decode_step`` of ``arch``
     (full width, f32, built as this rank's shard of the seed-0 draw)
-    serving serve_greedy's prompt; the tokens and launches."""
+    serving serve_greedy's prompt; the tokens and launches; with
+    ``refuse``, then :func:`_tp_refusals` on the placed model."""
     import numpy as np
     import torch
     from repro_torch.configs import Shape
@@ -3119,11 +3126,61 @@ def _tp_serving(dev, mesh, rank, arch, n_decode, ref_tokens) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     held = state["k"].shape[2] if "k" in state else None
-    return dict(tokens=got, equal=bool(np.array_equal(got, ref_tokens)),
-                launches=counts(), wall_s=wall, prefill_s=t_pre,
-                init_s=t_init, peak=torch.cuda.max_memory_allocated(dev),
-                cache_positions=held, moved_prefill=dict(prefill.par.moved),
-                moved_decode=dict(decode.par.moved))
+    res = dict(tokens=got, equal=bool(np.array_equal(got, ref_tokens)),
+               launches=counts(), wall_s=wall, prefill_s=t_pre,
+               init_s=t_init, peak=torch.cuda.max_memory_allocated(dev),
+               cache_positions=held, moved_prefill=dict(prefill.par.moved),
+               moved_decode=dict(decode.par.moved))
+    if refuse:
+        del state, logits
+        res["refusals"] = _tp_refusals(dev, mesh, model, shape, prompt)
+    return res
+
+
+def _tp_refusals(dev, mesh, model, shape, prompt) -> dict:
+    """(a)'s placement contract on the card, after its serving (its
+    launches already read): a ``build_prefill`` on a (TP, 1) mesh and the
+    family's local ``prefill`` refuse the placed model, and the prefill
+    step refuses a model never placed (on ``meta``: nothing allocated),
+    each before any launch; then a fresh ``build_prefill`` +
+    ``build_decode_step`` on the (1, TP) mesh serve REFUSED_TOKENS tokens,
+    so no refusal left a device-side assert or a rank in a collective
+    behind.  Each refusal as ``"Type: message"``, None if the call ran."""
+    import torch
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import init_mesh
+    from repro_torch.models import get_model
+    cfg = model.cfg
+    batch = {"tokens": torch.as_tensor(prompt, device=dev)}
+
+    def refusal(call):
+        try:
+            call()
+        except (ValueError, RuntimeError) as e:
+            return f"{type(e).__name__}: {e}"
+        return None
+    t0 = time.perf_counter()
+    other = init_mesh((TP, 1), ("data", "model"), mesh.device_type)
+    elsewhere, _ = steps.build_prefill(cfg, shape, other, dtype=torch.float32)
+    prefill, _ = steps.build_prefill(cfg, shape, mesh, dtype=torch.float32)
+    decode, _ = steps.build_decode_step(cfg, shape, mesh, dtype=torch.float32)
+    out = dict(
+        other_mesh=refusal(lambda: elsewhere.place(model)),
+        unplaced=refusal(lambda: prefill(
+            steps.abstract_model(cfg, torch.float32), batch)),
+        local=refusal(lambda: get_model(cfg).prefill(
+            model, batch, prefill.max_len, cache_dtype=torch.float32)))
+    decode.place(prefill.place(model))
+    logits, state = prefill(model, batch)
+    tok = logits[:, -1].argmax(-1)[:, None]
+    toks = [tok]
+    for _ in range(REFUSED_TOKENS - 1):
+        tok, state = decode(model, state, {"tokens": tok})
+        toks.append(tok)
+    out["tokens"] = torch.cat([t.long() for t in toks], 1).cpu().numpy()
+    torch.cuda.synchronize()
+    out["wall_s"] = time.perf_counter() - t0
+    return out
 
 
 def _tp_scoring(dev, mesh, rank, arch, ref_logits, *, dtype, cast=None,
@@ -3150,7 +3207,8 @@ def _tp_scoring(dev, mesh, rank, arch, ref_logits, *, dtype, cast=None,
     place.place(model)
     if batch is None:
         batch = family_batch(cfg, SCORE_B, SCORE_S, dev)
-        place.run(mod.forward, {k: v[:, :128] for k, v in batch.items()})
+        place.run(model, mod.forward,
+                  {k: v[:, :128] for k, v in batch.items()})
     else:
         batch = {"tokens": torch.as_tensor(batch, device=dev)}
     torch.cuda.synchronize()
@@ -3158,7 +3216,7 @@ def _tp_scoring(dev, mesh, rank, arch, ref_logits, *, dtype, cast=None,
     reset_counts()
     t0 = time.perf_counter()
     with routes() as seen, _coarse_sums(coarse):
-        logits = place.run(mod.forward, batch)
+        logits = place.run(model, mod.forward, batch)
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     tail = logits[:, -TAIL:].float().cpu()
@@ -3259,7 +3317,7 @@ def _tp_rank(rank: int, route: str, store: str, out: str) -> None:
         res = {}
         parts = (
             ("a", lambda: _tp_serving(dev, mesh, rank, ARCH, DIST_DECODE,
-                                      ref["tokens " + ARCH])),
+                                      ref["tokens " + ARCH], refuse=True)),
             ("b", lambda: _tp_scoring(dev, mesh, rank, ARCH,
                                       ref["logits " + ARCH],
                                       dtype=torch.bfloat16)),
@@ -3313,6 +3371,7 @@ def model_axis(dev) -> dict:
     witnesses' apart)."""
     import gc
     import shutil
+    import numpy as np
     import torch
     import torch.multiprocessing as mp
     route = tp_route()
@@ -3357,6 +3416,32 @@ def model_axis(dev) -> dict:
               f"launches {launched(a['launches'])}; moved: prefill "
               f"{mb(a['moved_prefill'])}; {DIST_DECODE - 1} decode steps "
               f"{mb(a['moved_decode'])}")
+        f = a["refusals"]
+        names = (f"(data 1, model {TP})", f"(data {TP}, model 1)")
+        check(f["other_mesh"] is not None
+              and f["other_mesh"].startswith("ValueError")
+              and all(m in f["other_mesh"] for m in names),
+              f"24 (a) rank {r}: a build_prefill on ({TP}, 1) took the "
+              f"placed model: {f['other_mesh']}")
+        check(f["unplaced"] == "RuntimeError: place(model) first",
+              f"24 (a) rank {r}: the prefill step given a model never "
+              f"placed: {f['unplaced']}")
+        check(f["local"] is not None and f["local"].startswith("ValueError")
+              and "full_tree" in f["local"],
+              f"24 (a) rank {r}: a local prefill on the placed model: "
+              f"{f['local']}")
+        check(np.array_equal(f["tokens"], a["tokens"][:, :REFUSED_TOKENS]),
+              f"24 (a) rank {r}: after the refusals the builders served "
+              f"{f['tokens'].tolist()}, (a) "
+              f"{a['tokens'][:, :REFUSED_TOKENS].tolist()}")
+        print(f"      (a) rank {r}, one model one mesh: a build_prefill on "
+              f"(data {TP}, model 1) refused the placed model -- "
+              f"{f['other_mesh'][:140]}...; the prefill step given a model "
+              f"never placed -- {f['unplaced']}; a local prefill -- "
+              f"{f['local'][:110]}...; then a fresh prefill + "
+              f"{REFUSED_TOKENS - 1} decode steps on (data 1, model {TP}) "
+              f"served {f['tokens'].tolist()} == (a)'s first "
+              f"{REFUSED_TOKENS}; {f['wall_s']:.2f} s")
     bf16_f32 = float((REF["logits " + ARCH] - REF["logits32 " + ARCH])
                      .abs().max()) / float(REF["logits32 " + ARCH].abs().max())
     limit = BF16_OVER_ROUND * bf16_f32

@@ -48,6 +48,14 @@ CUDA tensor it launches the kernel or raises -- there is no fallback.
 Each wrapper counts its launches, so a run can show that the main path
 went through the kernel.
 
+Placement.  One model, one mesh (``launch.steps.Placement``): a model
+placed on a mesh runs on that mesh alone.  A builder on another mesh
+refuses it, naming both meshes, as the reference's ``in_shardings``
+refuse an argument committed to another sharding; a step runs the model
+it is given, placed first; a local call (a family's ``forward``,
+``prefill``, ``decode_step``, ``loss_fn``) refuses a model whose leaves
+are shards, and ``Placement.full_tree`` gathers them whole.
+
 Oracles and tolerances.  The port is held, on the same numpy-made inputs,
 against the reference's XLA paths (``evaluator="xla"``, ``impl="xla"``),
 against ``repro.kernels.ref`` and against the f64 loop model

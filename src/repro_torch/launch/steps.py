@@ -23,7 +23,9 @@ whole on every rank of 'model'.  FSDP2 gathers a block's leaves into
 plain tensors before the block runs, so the attention kernels, which take
 plain tensors, never see a ``DTensor``, and the layers see their 'model'
 shards as plain tensors (``distributed.tp``: every step runs under the
-placement's ``tp.Parallel``).
+placement's ``tp.Parallel``).  One model, one mesh (:class:`Placement`):
+a builder on another mesh refuses a placed model, a step runs the model
+it is given, and a local call refuses a model whose leaves are shards.
 
 A bf16 model keeps a few leaves in f32, as the reference does: the MoE
 router ``router/w``, RWKV's ``w0`` and ``u``, the SSM's ``A_log`` and
@@ -138,17 +140,45 @@ class _Root(nn.Module):
         return fn(self.model, *args)
 
 
-_ROOT = "_placement_root"      # the attribute a placed model keeps its root in
+_PLACED = "_placement"   # a placed model's (root, mesh key) in its __dict__
+
+
+def _mesh_key(mesh) -> tuple:
+    """What a placement is held to: the mesh's shape, its axis names and
+    the global ranks it covers."""
+    return (tuple(mesh.shape), tuple(mesh.mesh_dim_names),
+            mesh.mesh.tolist())
+
+
+def _mesh_name(key: tuple) -> str:
+    shape, names, ranks = key
+    return "(" + ", ".join(f"{a} {s}" for a, s in zip(names, shape)) + \
+        f") over ranks {ranks}"
 
 
 class Placement:
     """The cell's placement on a ``DeviceMesh`` with a 'data' axis (and a
     'pod' axis) and a 'model' axis: :meth:`place` shards a model by the
-    plan (once: a model placed before, by another builder's step, is
-    taken as it is), :meth:`share` takes this rank's rows of a batch,
-    :meth:`run` runs under the placement's ``tp.Parallel``.  ``trains``:
-    whether the leaves keep their gradients (else they are frozen at
-    :meth:`place`, and a train step refuses the model)."""
+    plan, :meth:`share` takes this rank's rows of a batch, :meth:`run`
+    runs a placed model under the placement's ``tp.Parallel``.
+    ``trains``: whether the leaves keep their gradients (else they are
+    frozen at :meth:`place`, and a train step refuses the model).
+
+    One model, one mesh: a placed model keeps its root and its mesh's key
+    (shape, axis names, global ranks), and a builder on an equal mesh (the
+    same one, or one built again) takes it as it is, while a builder on
+    another mesh refuses it (``ValueError`` naming both meshes) before any
+    collective, on every rank alike, as the reference's ``in_shardings``
+    refuse an argument committed to another sharding.  A step runs the
+    model it is given, through that model's own root; a model never
+    placed raises ``place(model) first``.  A local call (a family's
+    ``forward``, ``prefill``, ``decode_step``, ``loss_fn``, and what runs
+    them: ``make_local_train_step``, ``TrainLoop`` without
+    ``shardings``) on a model placed on more than one rank raises
+    ``ValueError`` before the model reads a leaf (:meth:`_refuse_local`):
+    its leaves are this rank's shards, and :meth:`full_tree` gathers them
+    whole.  On a one-rank mesh the leaves are whole and such a call runs
+    once a step has run the model (its root's leaves gathered)."""
 
     trains = False
 
@@ -169,6 +199,7 @@ class Placement:
         self.par = tp.Parallel(self.tp, tp.Axis(self.group, self.rank,
                                                 self.n))
         self.specs = param_specs(abstract_model(cfg), mesh, cfg)
+        self.key = _mesh_key(mesh)
         self.root = None
         self.whole = set()    # leaves FSDP2 ignores: whole on every rank
 
@@ -181,19 +212,20 @@ class Placement:
         if getattr(model, "cfg", None) != self.cfg:
             raise ValueError(f"model of {getattr(model, 'cfg', None)}, the "
                              f"step is built for {self.cfg}")
+        root = self._root_of(model) if _PLACED in model.__dict__ else None
         if self.trains:
             self.whole = _odd_leaves(param_tree(model))
             if any(self.model_sharded(k) for k in self.whole):
                 raise ValueError(f"{sorted(self.whole)}: a leaf of another "
                                  f"type than the model's must be whole over "
                                  f"'model' (the plan replicates them)")
-        if _ROOT in model.__dict__:
+        if root is not None:
             if self.trains and not all(p.requires_grad
                                        for p in model.parameters()):
                 raise ValueError("the model was placed for inference (its "
                                  "leaves frozen): a train step places a "
                                  "model of its own")
-            self.root = model.__dict__[_ROOT]
+            self.root = root
             return model
         self._cut(model)
         if not self.trains:
@@ -217,8 +249,49 @@ class Placement:
         fully_shard(self.root, ignored_params=ignored or None, **kw)
         # a plain attribute, not a submodule: the model and its root live
         # and die together (a table keyed by the model would keep it)
-        model.__dict__[_ROOT] = self.root
+        model.__dict__[_PLACED] = (self.root, self.key)
+        if self.mesh.size() > 1:
+            self._refuse_local(model)
         return model
+
+    def _root_of(self, model: nn.Module) -> nn.Module:
+        """The root of ``model``'s placement on this step's mesh; raises
+        when the model was never placed, is of another config, or was
+        placed on another mesh.  Host work only: no collective."""
+        placed = model.__dict__.get(_PLACED)
+        if placed is None:
+            raise RuntimeError("place(model) first")
+        root, key = placed
+        if key != self.key:
+            raise ValueError(
+                f"the model is placed on mesh {_mesh_name(key)}; this "
+                f"step's mesh is {_mesh_name(self.key)}: a model is placed "
+                f"on one mesh (place a fresh model here, e.g. from the "
+                f"placed one's Placement.full_tree)")
+        if model.cfg is not self.cfg and model.cfg != self.cfg:
+            raise ValueError(f"model of {model.cfg}, the step is built for "
+                             f"{self.cfg}")
+        return root
+
+    def _refuse_local(self, model: nn.Module) -> None:
+        """A forward pre-hook, ahead of FSDP2's, on each top module of
+        ``model`` (each block of its stacks, its embeddings, norms and
+        head), one of which every entry point calls before it reads a
+        leaf: outside a step (no ambient ``tp.Parallel``) it raises, so a
+        local call never runs this rank's shards as the whole leaves (a
+        vocabulary cut to a rank's rows is an out-of-range lookup, on the
+        card a device-side assert).  In a step it reads one list."""
+        msg = (f"the model is placed on mesh {_mesh_name(self.key)}: its "
+               f"leaves are this rank's shards, so a local call cannot run "
+               f"it; run it through a step on that mesh (launch.steps), or "
+               f"gather its whole leaves with Placement.full_tree")
+
+        def refuse(module, args):
+            if tp.current() is None:
+                raise ValueError(msg)
+        for child in model.children():
+            for m in child if isinstance(child, nn.ModuleList) else (child,):
+                m.register_forward_pre_hook(refuse, prepend=True)
 
     def _cut(self, model: nn.Module) -> None:
         """Each leaf of a whole model to this rank's 'model' shard; a leaf
@@ -255,11 +328,13 @@ class Placement:
             out[k] = v.narrow(0, self.rank * m, m)
         return out
 
-    def run(self, fn, *args):
-        if self.root is None:
-            raise RuntimeError("place(model) first")
+    def run(self, model, fn, *args):
+        """``fn(model, *args)`` through ``model``'s root (placed on this
+        step's mesh, by any builder), under this placement's
+        ``tp.Parallel``."""
+        root = self._root_of(model)
         with tp.parallel(self.par):
-            return self.root(fn, *args)
+            return root(fn, *args)
 
     def model_sharded(self, key: str) -> bool:
         """Whether the plan shards leaf ``key`` over 'model' (above 1)."""
@@ -379,9 +454,9 @@ class TrainStep(Placement):
     def __call__(self, model, opt_state, batch):
         import torch.distributed as dist
         from ..core.model import param_tree
-        if self.root is None or self.root.model is not model:
+        if self._root_of(model) is not self.root:
             raise RuntimeError("the step runs on the model it placed")
-        loss = self.run(self.loss, self.share(batch))
+        loss = self.run(model, self.loss, self.share(batch))
         with tp.parallel(self.par):        # the backward's collectives
             loss.backward()
         loss = loss.detach()
@@ -481,8 +556,9 @@ class Prefill(Placement):
             model, b, max_len, impl=impl, cache_dtype=cache_dtype)
 
     def __call__(self, model, batch):
+        self._root_of(model)                  # before _seq's collectives
         self.par.seq = self._seq(batch, self.max_len)
-        return self.run(self.fn, self.share(batch))
+        return self.run(model, self.fn, self.share(batch))
 
 
 class DecodeStep(Placement):
@@ -494,6 +570,7 @@ class DecodeStep(Placement):
         super().__init__(cfg, mesh)
         mod = registry.get_model(cfg)
         self.max_len = max_len
+        self._states = {}                     # (rows, cut) -> state shapes
 
         def step(model, state, b):
             logits, state = mod.decode_step(model, state, b, impl=impl)
@@ -502,8 +579,43 @@ class DecodeStep(Placement):
         self.fn = step
 
     def __call__(self, model, state, batch):
+        self._root_of(model)                  # before _seq's collectives
         self.par.seq = self._seq(batch, self.max_len)
-        return self.run(self.fn, state, self.share(batch))
+        rows = self.share(batch)
+        self._check_state(state, next(iter(rows.values())).shape[0])
+        return self.run(model, self.fn, state, rows)
+
+    def _check_state(self, state: dict, rows: int) -> None:
+        """Refuses a decode state this placement's prefill would not make
+        for ``rows`` rows: one a prefill on another mesh made (other rows,
+        or the cache's positions or the heads cut otherwise), or one of
+        another cache length.  The shapes wanted are the family's
+        ``init_decode_state`` on ``meta`` under this placement, kept by
+        (rows, cut); whisper's encoder ``memory`` is as long as the
+        prompt's frames, so only its caches are held."""
+        seq = self.par.seq
+        key = (rows, None if seq is None else seq.size)
+        want = self._states.get(key)
+        if want is None:
+            with tp.parallel(self.par):
+                made = registry.get_model(self.cfg).init_decode_state(
+                    self.cfg, rows, self.max_len, device="meta")
+            want = self._states[key] = _shapes(made)
+        got = _shapes(state)
+        if got != want:
+            raise ValueError(
+                f"a decode state of shapes {got}; a prefill on this step's "
+                f"mesh {_mesh_name(self.key)} makes {want} for {rows} rows "
+                f"of a {self.max_len}-position cache: the state was made "
+                f"on another mesh or for another cache")
+
+
+def _shapes(state: dict) -> dict:
+    """The shapes of a decode state's tensors (whisper's ``memory`` and
+    the host write index left out)."""
+    return {k: _shapes(v) if isinstance(v, dict) else tuple(v.shape)
+            for k, v in state.items()
+            if k != "memory" and isinstance(v, (dict, torch.Tensor))}
 
 
 def build_prefill(cfg: ArchConfig, shape: Shape, mesh, *,

@@ -274,7 +274,7 @@ def _tp_serve(cell, mesh, B):
             and cfg.family != "encdec" else {"tokens": tok_w}
         dec.par.moved.clear()
         dec.par.seq = dec._seq(sb, dec.max_len)
-        logits, state = dec.run(step, state, dec.share(sb))
+        logits, state = dec.run(model, step, state, dec.share(sb))
         tok = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
         moved.append(dict(dec.par.moved))
         want, wstate = mod.decode_step(one, wstate, sb)
@@ -307,6 +307,90 @@ def _tp_cells(rank, n, inputs):
                      "serve": _tp_serve(cell, mesh, inputs["B"])}
         if inputs.get("batch1") == name:       # the SP form of a 1-row batch
             res[name]["serve1"] = _tp_serve(cell, mesh, 1)
+    return res
+
+
+def _refusal(fn):
+    """``(type name, message)`` of what ``fn()`` raised, None if it ran."""
+    try:
+        fn()
+    except Exception as e:                 # recorded, and asserted by the test
+        return type(e).__name__, str(e)
+    return None
+
+
+def _tp_refusals(rank, n, inputs):
+    """The placement contract on two ranks, a (1, 2) mesh and a (2, 1) one
+    over the same group, on the cells ``inputs["refusals"]`` (the first
+    for every check, the rest for the decode state's): a model placed by
+    ``build_prefill`` on one mesh given to each builder on the other
+    (placed, and called without placing), and to a builder on the first
+    mesh built again (its logits against the first builder's); the
+    family's local entry points on a placed model; a decode step on one
+    mesh given a state a prefill made on the other.  Each rank records
+    what each call raised."""
+    from repro_torch import optim
+    from repro_torch.core.model import param_tree
+    from repro_torch.launch import steps, train as lt
+    from repro_torch.models import get_model
+    from repro_torch.runtime import TrainLoop
+    meshes = {"1x2": _tp_mesh((1, 2)), "2x1": _tp_mesh((2, 1))}
+    again = _tp_mesh((1, 2))
+    build = {"prefill": steps.build_prefill,
+             "decode": steps.build_decode_step,
+             "train": steps.build_train_step}
+    res = {"other_mesh": {}, "local": {}, "state": {}}
+    for i, name in enumerate(inputs["refusals"]):
+        cell = inputs["cells"][name]
+        cfg, shape = cell["cfg"], cell["serve"]["shape"]
+        mod = get_model(cfg)
+        batch = {k: torch.as_tensor(v) for k, v in
+                 cell["serve"]["prompt"].items()}
+        for a, b in (("1x2", "2x1"), ("2x1", "1x2")):
+            pre, _ = steps.build_prefill(cfg, shape, meshes[a],
+                                         dtype=torch.float32)
+            model = pre.place(_tp_model(cell))
+            logits, state = pre(model, batch)
+            tok = logits[:, -1:].argmax(-1)
+            other = {k: f(cfg, shape, meshes[b], dtype=torch.float32)[0]
+                     for k, f in build.items()}
+            dec, _ = steps.build_decode_step(cfg, shape, meshes[b],
+                                             dtype=torch.float32)
+            mine = dec.place(_tp_model(cell))
+            res["state"][(name, a, b)] = _refusal(
+                lambda: dec(mine, state, {"tokens": tok}))
+            if i:
+                continue
+            for k, step in other.items():
+                res["other_mesh"][(a, b, k)] = _refusal(
+                    lambda: step.place(model))
+            res["other_mesh"][(a, b, "prefill call")] = _refusal(
+                lambda: other["prefill"](model, batch))
+            res["other_mesh"][(a, b, "decode call")] = _refusal(
+                lambda: other["decode"](model, state, {"tokens": tok}))
+            if a == "1x2":
+                pre2, _ = steps.build_prefill(cfg, shape, again,
+                                              dtype=torch.float32)
+                res["rebuilt"] = _refusal(lambda: pre2.place(model))
+                res["rebuilt_equal"] = bool(torch.equal(
+                    pre2(model, batch)[0], logits))
+            tx = optim.adamw(3e-4, weight_decay=0.01, max_grad_norm=1.0)
+            train = lt.make_batch_fn(cfg, seq_len=inputs["S"],
+                                     global_batch=inputs["B"], device=CPU)
+            opt = tx.init(param_tree(model))
+            local = lt.make_local_train_step(cfg, tx)
+            calls = {
+                "forward": lambda: mod.forward(model, batch),
+                "prefill": lambda: mod.prefill(model, batch, pre.max_len),
+                "decode_step": lambda: mod.decode_step(model, state,
+                                                       {"tokens": tok}),
+                "loss_fn": lambda: mod.loss_fn(model, train(0)),
+                "make_local_train_step": lambda: local(model, opt, train(0)),
+                "TrainLoop": lambda: TrainLoop(
+                    local, model, opt, train, ckpt_dir=os.path.join(
+                        inputs["dir"], f"{a}_{rank}")).run(1)}
+            for k, call in calls.items():
+                res["local"][(a, k)] = _refusal(call)
     return res
 
 

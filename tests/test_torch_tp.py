@@ -22,7 +22,14 @@ whole on every rank), on the reference's perturbed weights carried by
   the JAX package's ``loss_fn``/``prefill``/``decode_step`` at
   ``impl="xla"``, within ``TOL`` (``_torch_parity``'s);
 - the bytes each step's TP, EP and SP collectives moved on a rank, by
-  kind, equal to ``launch.cost_analysis.parallel_payloads``.
+  kind, equal to ``launch.cost_analysis.parallel_payloads``;
+- the placement contract, in the (1, 2) group beside a (2, 1) mesh
+  (``_tp_refusals``): a placed model refused by every builder on the
+  other mesh, both orders; taken, with bit-equal logits, by a builder on
+  the same mesh built again; refused by the family's local entry points;
+  a decode state from the other mesh refused.  One-rank groups hold the
+  rest: a step runs the model it is given, refuses one never placed, and
+  a local call at one rank stays bit-equal.
 """
 import dataclasses
 import math
@@ -63,6 +70,11 @@ MESHES = {
 }
 BATCH1 = ("2x2", "qwen3_8b")
 RUNS = [(m, c) for m, (_, cells) in MESHES.items() for c in cells]
+REFUSALS = ["gemma3_1b", "rwkv6_3b"]   # the first for every check, the
+                                       # rest for the decode state's
+MESH_NAME = {"1x2": "(data 1, model 2) over ranks [[0, 1]]",
+             "2x1": "(data 2, model 1) over ranks [[0], [1]]"}
+ORDERS = [("1x2", "2x1"), ("2x1", "1x2")]
 
 
 def _cell(root, name):
@@ -116,10 +128,12 @@ def runs(cells):
         out.mkdir()
         inputs = {"mesh": shape, "cells": {c: cell[c] for c in names},
                   "S": S, "B": B,
-                  "batch1": BATCH1[1] if m == BATCH1[0] else None}
+                  "batch1": BATCH1[1] if m == BATCH1[0] else None,
+                  "refusals": REFUSALS, "dir": str(root / "refusals")}
+        jobs = ["tp_cells"] + (["tp_refusals"] if m == "1x2" else [])
         started[m] = (n, out, mp.spawn(
             workers.run, args=(n, str(root / f"store_{m}"), str(out),
-                               ["tp_cells"], inputs), nprocs=n, join=False))
+                               jobs, inputs), nprocs=n, join=False))
     want = {name: _reference(cell[name], *ref[name])
             for name in MESHES["1x2"][1]}
     res = {}
@@ -128,6 +142,9 @@ def runs(cells):
             pass
         res[m] = [torch.load(out / f"tp_cells_{r}.pt", weights_only=False)
                   for r in range(n)]
+    out = root / "out_1x2"
+    res["refusals"] = [torch.load(out / f"tp_refusals_{r}.pt",
+                                  weights_only=False) for r in range(2)]
     return res, want
 
 
@@ -235,9 +252,162 @@ def test_world_size_one_moves_nothing():
                                     act_bytes=2) == {}
 
 
+@pytest.mark.parametrize("kind", ["prefill", "decode", "train",
+                                  "prefill call", "decode call"])
+@pytest.mark.parametrize("first,second", ORDERS)
+def test_a_builder_on_another_mesh_refuses_a_placed_model(runs, first,
+                                                          second, kind):
+    """A model placed by ``build_prefill`` on one mesh, given to a builder
+    on the other (``place``, or a step called on it unplaced): a
+    ``ValueError`` naming both meshes on every rank (the train step's
+    before its refusal of a frozen model), as the reference's
+    ``in_shardings`` name both shardings."""
+    for rank in runs[0]["refusals"]:
+        err = rank["other_mesh"][(first, second, kind)]
+        assert err is not None and err[0] == "ValueError", err
+        assert MESH_NAME[first] in err[1] and MESH_NAME[second] in err[1]
+
+
+def test_a_rebuilt_equal_mesh_takes_the_model_bit_equal(runs):
+    """``init_mesh`` called again with the same shape and names: its
+    builder takes the placed model and answers bit-equal logits."""
+    for rank in runs[0]["refusals"]:
+        assert rank["rebuilt"] is None and rank["rebuilt_equal"]
+
+
+@pytest.mark.parametrize("entry", ["forward", "prefill", "decode_step",
+                                   "loss_fn", "make_local_train_step",
+                                   "TrainLoop"])
+@pytest.mark.parametrize("mesh", ["1x2", "2x1"])
+def test_a_local_call_refuses_a_model_placed_on_two_ranks(runs, mesh,
+                                                          entry):
+    """A family's entry point outside any step, on a model whose leaves
+    are shards: a ``ValueError`` naming the mesh and ``full_tree``, never
+    the out-of-range lookup or the DTensor mix of an unchecked call."""
+    for rank in runs[0]["refusals"]:
+        err = rank["local"][(mesh, entry)]
+        assert err is not None and err[0] == "ValueError", err
+        assert MESH_NAME[mesh] in err[1] and "full_tree" in err[1]
+
+
+@pytest.mark.parametrize("first,second", ORDERS)
+@pytest.mark.parametrize("name", REFUSALS)
+def test_a_decode_step_refuses_a_state_from_another_mesh(runs, name, first,
+                                                         second):
+    """A decode step on one mesh given a state a prefill made on the other
+    (the reference refuses it by its ``in_shardings``): refused on every
+    rank by its shapes, where gemma3_1b's (1, 2) state answered on (2, 1)
+    before (its cache half as long, twice the rows)."""
+    for rank in runs[0]["refusals"]:
+        err = rank["state"][(name, first, second)]
+        assert err is not None and err[0] == "ValueError", err
+        assert MESH_NAME[second] in err[1]
+
+
+def _one_rank_serving(seed_b=1):
+    """A one-rank group's mesh, two prefill and two decode builders, two
+    models (seeds 0 and ``seed_b``) and a prompt of reduced gemma3_1b."""
+    from repro_torch.launch import steps
+    from repro_torch.models import get_model
+    cfg = get_config("gemma3_1b", reduced=True)
+    shape = Shape("s", 32, 2, "decode")
+    mod = get_model(cfg)
+    a, b = (mod.init(cfg, seed=s, dtype=torch.float32, device="cpu")
+            for s in (0, seed_b))
+    tokens = torch.as_tensor(np.random.default_rng(2).integers(
+        0, cfg.vocab, (2, 12)))
+    return cfg, shape, mod, a, b, {"tokens": tokens}
+
+
+def test_a_step_runs_the_model_it_is_given():
+    """``pre`` placed A; B placed by a second builder on the same mesh:
+    ``pre(B)`` and ``dec(B)`` answer B's logits and tokens, bit-equal to
+    B's own builders', not A's (which they answered before)."""
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import init_mesh, process_group
+    cfg, shape, mod, a, b, batch = _one_rank_serving()
+    with process_group("cpu"):
+        mesh = init_mesh((1, 1), ("data", "model"), "cpu")
+        pre, _ = steps.build_prefill(cfg, shape, mesh, dtype=torch.float32)
+        dec, _ = steps.build_decode_step(cfg, shape, mesh,
+                                         dtype=torch.float32)
+        pre_b, _ = steps.build_prefill(cfg, shape, mesh, dtype=torch.float32)
+        dec_b, _ = steps.build_decode_step(cfg, shape, mesh,
+                                           dtype=torch.float32)
+        dec.place(pre.place(a))
+        dec_b.place(pre_b.place(b))
+        got, state = pre(b, batch)
+        want, want_state = pre_b(b, batch)
+        of_a = pre(a, batch)[0]
+        assert torch.equal(got, want)
+        assert not torch.equal(got, of_a)
+        tok = want[:, -1:].argmax(-1)
+        for _ in range(3):
+            t, state = dec(b, state, {"tokens": tok})
+            tok, want_state = dec_b(b, want_state, {"tokens": tok})
+            assert torch.equal(t, tok)
+        assert torch.equal(state["k"], want_state["k"])
+
+
+def test_a_step_refuses_a_model_never_placed():
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import init_mesh, process_group
+    cfg, shape, mod, a, b, batch = _one_rank_serving()
+    with process_group("cpu"):
+        mesh = init_mesh((1, 1), ("data", "model"), "cpu")
+        pre, _ = steps.build_prefill(cfg, shape, mesh, dtype=torch.float32)
+        dec, _ = steps.build_decode_step(cfg, shape, mesh,
+                                         dtype=torch.float32)
+        logits, state = pre(pre.place(a), batch)
+        tok = {"tokens": logits[:, -1:].argmax(-1)}
+        with pytest.raises(RuntimeError, match=r"place\(model\) first"):
+            pre(b, batch)
+        with pytest.raises(RuntimeError, match=r"place\(model\) first"):
+            dec(b, state, tok)
+        with pytest.raises(RuntimeError, match=r"place\(model\) first"):
+            pre.run(b, lambda m: None)
+
+
+def test_a_rebuilt_equal_mesh_takes_a_placed_model():
+    """``init_mesh`` called twice with the same shape and names: the
+    second mesh's builder takes the model the first placed, and answers
+    bit-equal logits."""
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import init_mesh, process_group
+    cfg, shape, mod, a, b, batch = _one_rank_serving()
+    with process_group("cpu"):
+        first = init_mesh((1, 1), ("data", "model"), "cpu")
+        pre, _ = steps.build_prefill(cfg, shape, first, dtype=torch.float32)
+        want = pre(pre.place(a), batch)[0]
+        second = init_mesh((1, 1), ("data", "model"), "cpu")
+        again, _ = steps.build_prefill(cfg, shape, second,
+                                       dtype=torch.float32)
+        assert again.place(a) is a
+        assert torch.equal(again(a, batch)[0], want)
+
+
+def test_a_local_call_at_one_rank_is_bit_equal():
+    """On a one-rank mesh the leaves are whole: once a step has run the
+    model, the family's ``prefill`` and ``forward`` outside any step
+    answer bit-equal to an unplaced model's, as the reference computes a
+    call on committed arrays."""
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import init_mesh, process_group
+    cfg, shape, mod, a, b, batch = _one_rank_serving(seed_b=0)
+    f32 = dict(cache_dtype=torch.float32)
+    want = mod.prefill(b, batch, 32, **f32)[0]
+    want_fwd = mod.forward(b, batch)
+    with process_group("cpu"):
+        mesh = init_mesh((1, 1), ("data", "model"), "cpu")
+        pre, _ = steps.build_prefill(cfg, shape, mesh, dtype=torch.float32)
+        assert torch.equal(pre(pre.place(a), batch)[0], want)
+        assert torch.equal(mod.prefill(a, batch, 32, **f32)[0], want)
+        assert torch.equal(mod.forward(a, batch), want_fwd)
+
+
 def test_a_train_step_refuses_a_model_placed_for_inference():
-    """A placed model keeps its root for the next builder, but a train
-    step does not take one an inference builder froze (a one-rank
+    """A placed model is taken by the next builder on its mesh, but a
+    train step does not take one an inference builder froze (a one-rank
     group)."""
     from repro_torch.launch import steps
     from repro_torch.launch.mesh import init_mesh, process_group
