@@ -8,6 +8,9 @@ Every population and grid evaluator goes through the ``fusion_eval``
 kernel wrapper (``kernels/fusion_eval.py``): the hand-written CUDA kernel
 for tensors on the card, its plain PyTorch twin for tensors on the CPU.
 The reference's ``evaluator="xla"|"pallas"`` switch is not carried over.
+Packing, stacking and each grid evaluation run in spans (``runtime.obs``:
+``cost_model.pack_workload``, ``cost_model.stack_workloads``,
+``cost_model.evaluate`` with the launch's form, shape and live positions).
 
 Array convention (``Workload.arrays``): position 0 is the network-input
 pseudo tensor, positions ``1..n`` are layers, padded to ``nmax``.  The
@@ -20,12 +23,14 @@ axis: consts fields are ``[R, P]`` or ``[R]``, carry fields ``[R]``.
 """
 from __future__ import annotations
 
+import weakref
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from .. import resolve_device
+from ..runtime import obs
 from .accel import (BPE, BW_OFF, BW_ON, FREQ, LANES, NPE, STREAM, T_PASS,
                     T_SYNC, AccelConfig, stack_hw)
 
@@ -35,11 +40,16 @@ __all__ = ["SYNC", "CostOut", "pack_workload", "stack_workloads",
            "evaluate_grid_stats", "baseline_no_fusion", "baseline_grid",
            "PrefixConsts", "PrefixCarry", "prefix_consts", "prefix_init",
            "prefix_step", "prefix_out", "prefix_probe_peak", "prefix_trace",
-           "prefix_scan", "random_strategy", "fixed_sum"]
+           "prefix_scan", "random_strategy", "fixed_sum", "live_positions"]
 
 SYNC = -1  # strategy sentinel: flush activation off-chip after this layer
 _UTIL_MIN = 1.0 / 4096.0
 _F32_KEYS = ("A", "W", "F", "OE", "UC", "SHAPE6")
+# Live positions (the layers summed over rows) of the packed workloads and
+# of those stacked while tracing, by the id of their ``n`` tensor, so that
+# a span names them without reading the card; an entry goes with its
+# tensor.
+_LIVE: dict[int, int] = {}
 
 
 class CostOut(NamedTuple):
@@ -54,27 +64,50 @@ def pack_workload(workload, hw: AccelConfig, nmax: int = 64,
                   device=None) -> dict[str, torch.Tensor]:
     """Device-ready workload tensors, bytes scaled by ``hw.bytes_per_elem``;
     ``BPE`` records that pack-time bytes/elem."""
-    dev = resolve_device(device)
-    arrs = workload.arrays(nmax, bytes_per_elem=hw.bytes_per_elem)
-    out = {k: torch.as_tensor(np.asarray(arrs[k]).astype(np.float32),
-                              device=dev) for k in _F32_KEYS}
-    out["SKIP"] = torch.as_tensor(np.asarray(arrs["SKIP"], np.int32),
-                                  device=dev)
-    out["mask"] = torch.as_tensor(np.asarray(arrs["mask"], bool), device=dev)
-    out["n"] = torch.tensor(int(arrs["n"]), dtype=torch.int32, device=dev)
-    out["BPE"] = torch.tensor(float(hw.bytes_per_elem), dtype=torch.float32,
-                              device=dev)
-    return out
+    with obs.span("cost_model.pack_workload"):
+        dev = resolve_device(device)
+        arrs = workload.arrays(nmax, bytes_per_elem=hw.bytes_per_elem)
+        out = {k: torch.as_tensor(np.asarray(arrs[k]).astype(np.float32),
+                                  device=dev) for k in _F32_KEYS}
+        out["SKIP"] = torch.as_tensor(np.asarray(arrs["SKIP"], np.int32),
+                                      device=dev)
+        out["mask"] = torch.as_tensor(np.asarray(arrs["mask"], bool),
+                                      device=dev)
+        out["n"] = torch.tensor(int(arrs["n"]), dtype=torch.int32,
+                                device=dev)
+        out["BPE"] = torch.tensor(float(hw.bytes_per_elem),
+                                  dtype=torch.float32, device=dev)
+        _note_live(out, int(arrs["n"]))
+        return out
 
 
 def stack_workloads(wls: list[dict]) -> dict[str, torch.Tensor]:
     """Stack packed workloads (same ``nmax``) along a leading condition
     axis; rows ride their own ``n``, padding stays masked."""
-    sizes = sorted({int(w["A"].shape[-1]) for w in wls})
-    if len(sizes) > 1:
-        raise ValueError(f"cannot stack workloads packed to different nmax "
-                         f"{sizes}; repack to a shared bucket")
-    return {k: torch.stack([w[k] for w in wls]) for k in wls[0]}
+    with obs.span("cost_model.stack_workloads"):
+        sizes = sorted({int(w["A"].shape[-1]) for w in wls})
+        if len(sizes) > 1:
+            raise ValueError(f"cannot stack workloads packed to different "
+                             f"nmax {sizes}; repack to a shared bucket")
+        out = {k: torch.stack([w[k] for w in wls]) for k in wls[0]}
+        if obs.tracing():
+            live = [live_positions(w) for w in wls]
+            if None not in live:
+                _note_live(out, sum(live))
+        return out
+
+
+def _note_live(wl: dict, live: int) -> None:
+    key = id(wl["n"])
+    _LIVE[key] = live
+    weakref.finalize(wl["n"], _LIVE.pop, key, None)
+
+
+def live_positions(wl: dict) -> int | None:
+    """The layers of a packed workload, summed over its rows when stacked
+    while tracing was on (None for one this module did not pack or so
+    stack)."""
+    return _LIVE.get(id(wl["n"]))
 
 
 def _col(hw: torch.Tensor, k: int) -> torch.Tensor:
@@ -155,16 +188,32 @@ def evaluate_grid_stats(wls: dict, strategies, batches, budgets, hw):
     (anything ``accel.stack_hw`` accepts): one ``fusion_eval`` launch on
     the card."""
     from ..kernels.fusion_eval import fusion_eval_grid_stats
-    return fusion_eval_grid_stats(wls, _as_strategies(strategies, wls["A"]),
-                                  batches, budgets, hw)
+    with _evaluate_span(1, wls, strategies):
+        return fusion_eval_grid_stats(
+            wls, _as_strategies(strategies, wls["A"]), batches, budgets, hw)
 
 
 def evaluate_grid(wls: dict, strategies, batches, budgets, hw) -> CostOut:
     """CostOut [C, POP]; see :func:`evaluate_grid_stats` (the launch writes
     no group matrix)."""
     from ..kernels.fusion_eval import fusion_eval_grid
-    return fusion_eval_grid(wls, _as_strategies(strategies, wls["A"]),
-                            batches, budgets, hw)
+    with _evaluate_span(0, wls, strategies):
+        return fusion_eval_grid(wls, _as_strategies(strategies, wls["A"]),
+                                batches, budgets, hw)
+
+
+def _evaluate_span(form: int, wls: dict, strategies):
+    """The ``cost_model.evaluate`` span of a grid evaluation: ``form`` (0
+    the cost alone, 1 with the group stats), ``C``, ``POP``, ``P`` and the
+    ``live`` positions the launch evaluates for each candidate."""
+    attrs = {}
+    if obs.tracing():
+        C, POP, P = np.shape(strategies)
+        attrs = dict(form=form, C=C, POP=POP, P=P)
+        live = live_positions(wls)
+        if live is not None:
+            attrs["live"] = live
+    return obs.span("cost_model.evaluate", **attrs)
 
 
 def _lift(wl: dict) -> dict:

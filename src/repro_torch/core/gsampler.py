@@ -12,7 +12,11 @@ the ``fusion_eval`` kernel.  Two forms:
   so its strategies equal the reference's exactly wherever the two cost
   models rank the population alike;
 - ``gsampler_search_grid``, every condition of a (workload x accelerator x
-  budget) grid at once over a [C, POP, P] strategy tensor.
+  budget) grid at once over a [C, POP, P] strategy tensor.  A call is one
+  ``gsampler.round`` span (``runtime.obs``) over ``gsampler.prepare``,
+  ``ga.init``, a ``ga.generation`` a generation (``ga.evaluate``,
+  ``ga.select``, ``ga.mutate``, ``ga.repair`` with a ``ga.repair_round``
+  a try), ``ga.final`` and ``gsampler.to_host``.
 
 Differences of the grid form from the reference, none of which changes
 the operator:
@@ -34,6 +38,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..runtime import obs
 from . import cost_model as cm
 from .accel import AccelConfig, stack_hw
 
@@ -295,29 +300,32 @@ def _repair_grid(gen, wls, brood, batches, budgets, hw, cfg: GSamplerConfig):
     mask = wls["mask"]
     s = brood
     for _ in range(cfg.repair_tries):
-        u = torch.rand((C, K), generator=gen, device=brood.device)
-        out, gid, M_g = cm.evaluate_grid_stats(wls, s, batches, budgets, hw)
-        invalid = ~out.valid
-        worst = torch.argmax(M_g, dim=-1)
-        members = (gid == worst[..., None]) & mask[:, None, :]
-        mi = members.to(torch.int32)
-        start = torch.argmax(mi, dim=-1)
-        end = P - 1 - torch.argmax(mi.flip(-1), dim=-1)
-        mid = (start + end) // 2
-        multi = end > start
-        seg_mb = torch.where(members & (s > 1), s, 0)
-        jmax = torch.argmax(seg_mb, dim=-1)
-        has_mb = torch.amax(seg_mb, dim=-1) > 1
-        onehot_mid = pos == mid[..., None]
-        onehot_j = pos == jmax[..., None]
-        split_s = torch.where(onehot_mid, cm.SYNC, s)
-        shrink_s = torch.where(onehot_j, torch.clamp_min(s // 2, 1), s)
-        alt_s = torch.where(multi[..., None] & onehot_mid, cm.SYNC, s)
-        shr = torch.where(has_mb[..., None], shrink_s, alt_s)
-        do_split = multi & (u < 0.5)
-        new = torch.where(do_split[..., None], split_s, shr)
-        apply = invalid & members.any(-1)
-        s = torch.where(apply[..., None], new, s).to(torch.int32)
+        with obs.span("ga.repair_round"):
+            u = torch.rand((C, K), generator=gen, device=brood.device)
+            out, gid, M_g = cm.evaluate_grid_stats(wls, s, batches, budgets,
+                                                   hw)
+            invalid = ~out.valid
+            worst = torch.argmax(M_g, dim=-1)
+            members = (gid == worst[..., None]) & mask[:, None, :]
+            mi = members.to(torch.int32)
+            start = torch.argmax(mi, dim=-1)
+            end = P - 1 - torch.argmax(mi.flip(-1), dim=-1)
+            mid = (start + end) // 2
+            multi = end > start
+            seg_mb = torch.where(members & (s > 1), s, 0)
+            jmax = torch.argmax(seg_mb, dim=-1)
+            has_mb = torch.amax(seg_mb, dim=-1) > 1
+            onehot_mid = pos == mid[..., None]
+            onehot_j = pos == jmax[..., None]
+            split_s = torch.where(onehot_mid, cm.SYNC, s)
+            shrink_s = torch.where(onehot_j, torch.clamp_min(s // 2, 1),
+                                   s)
+            alt_s = torch.where(multi[..., None] & onehot_mid, cm.SYNC, s)
+            shr = torch.where(has_mb[..., None], shrink_s, alt_s)
+            do_split = multi & (u < 0.5)
+            new = torch.where(do_split[..., None], split_s, shr)
+            apply = invalid & members.any(-1)
+            s = torch.where(apply[..., None], new, s).to(torch.int32)
     return s
 
 
@@ -332,48 +340,59 @@ def _ga_grid(gen, wls, batches, budgets, hw, cfg: GSamplerConfig,
     pos = torch.arange(P, device=dev)
     valid_pos = pos[None, :] <= n[:, None]
     B = batches
-    base = cm.baseline_grid(wls, batches, hw).latency
-
-    vals = _randint_1_to_B(gen, (C, POP, P), B[:, None, None])
-    syncs = torch.rand((C, POP, P), generator=gen, device=dev) < 0.4
-    syncs[:, :, 0] = False
-    pop = torch.where(syncs, cm.SYNC, vals)
-    pop = torch.where(valid_pos[:, None, :], pop, cm.SYNC).to(torch.int32)
-    pop[:, 0, :] = torch.where(pos == 0, B[:, None].to(torch.int32), cm.SYNC)
-    pop[:, 1, :] = _naive_uniform_grid(wls, batches, budgets, hw)
+    with obs.span("ga.init"):
+        base = cm.baseline_grid(wls, batches, hw).latency
+        vals = _randint_1_to_B(gen, (C, POP, P), B[:, None, None])
+        syncs = torch.rand((C, POP, P), generator=gen, device=dev) < 0.4
+        syncs[:, :, 0] = False
+        pop = torch.where(syncs, cm.SYNC, vals)
+        pop = torch.where(valid_pos[:, None, :], pop, cm.SYNC).to(torch.int32)
+        pop[:, 0, :] = torch.where(pos == 0, B[:, None].to(torch.int32),
+                                   cm.SYNC)
+        pop[:, 1, :] = _naive_uniform_grid(wls, batches, budgets, hw)
 
     num = POP - E
     history = []
     for _ in range(cfg.generations):
+        with obs.span("ga.generation"):
+            with obs.span("ga.evaluate"):
+                out = cm.evaluate_grid(wls, pop, batches, budgets, hw)
+            with obs.span("ga.select"):
+                fit = _fitness_grid(out.latency, out.peak_mem,
+                                    budgets[:, None])
+                order = torch.argsort(-fit, dim=1, stable=True)
+                elites = torch.take_along_dim(pop, order[:, :E, None], dim=1)
+                ranks = torch.argsort(order, dim=1, stable=True)
+                p_sel = (POP - ranks).to(torch.float32) / (POP * (POP + 1) / 2)
+                parents = torch.multinomial(p_sel, 2 * num, replacement=True,
+                                            generator=gen).view(C, num, 2)
+                pa = torch.take_along_dim(pop, parents[..., 0:1], dim=1)
+                pb = torch.take_along_dim(pop, parents[..., 1:2], dim=1)
+                cut = 1 + torch.floor(
+                    torch.rand((C, num), generator=gen, device=dev)
+                    * n[:, None]).to(torch.int32)
+                child = torch.where(pos < cut[..., None], pa, pb)
+            with obs.span("ga.mutate"):
+                child = _mutate_grid(gen, child, valid_pos, n, B, cfg)
+            with obs.span("ga.repair"):
+                brood = _repair_grid(gen, wls, child, batches, budgets, hw,
+                                     cfg)
+            pop = torch.cat([elites, brood], dim=1).contiguous()
+            sp = base[:, None] / torch.clamp_min(out.latency, 1e-12)
+            history.append(torch.amax(torch.where(out.valid, sp, 0.0), dim=1))
+
+    with obs.span("ga.final"):
         out = cm.evaluate_grid(wls, pop, batches, budgets, hw)
         fit = _fitness_grid(out.latency, out.peak_mem, budgets[:, None])
-        order = torch.argsort(-fit, dim=1, stable=True)
-        elites = torch.take_along_dim(pop, order[:, :E, None], dim=1)
-        ranks = torch.argsort(order, dim=1, stable=True)
-        p_sel = (POP - ranks).to(torch.float32) / (POP * (POP + 1) / 2)
-        parents = torch.multinomial(p_sel, 2 * num, replacement=True,
-                                    generator=gen).view(C, num, 2)
-        pa = torch.take_along_dim(pop, parents[..., 0:1], dim=1)
-        pb = torch.take_along_dim(pop, parents[..., 1:2], dim=1)
-        cut = 1 + torch.floor(torch.rand((C, num), generator=gen, device=dev)
-                              * n[:, None]).to(torch.int32)
-        child = torch.where(pos < cut[..., None], pa, pb)
-        child = _mutate_grid(gen, child, valid_pos, n, B, cfg)
-        brood = _repair_grid(gen, wls, child, batches, budgets, hw, cfg)
-        pop = torch.cat([elites, brood], dim=1).contiguous()
-        sp = base[:, None] / torch.clamp_min(out.latency, 1e-12)
-        history.append(torch.amax(torch.where(out.valid, sp, 0.0), dim=1))
-
-    out = cm.evaluate_grid(wls, pop, batches, budgets, hw)
-    fit = _fitness_grid(out.latency, out.peak_mem, budgets[:, None])
-    order = torch.argsort(-fit, dim=1, stable=True)[:, :top_k]
-    take = lambda x: torch.take_along_dim(x, order, dim=1)
-    lat = take(out.latency)
-    return dict(strategies=torch.take_along_dim(pop, order[..., None], dim=1),
-                latency=lat, peak_mem=take(out.peak_mem),
-                valid=take(out.valid) & (take(fit) > -1e3),
-                speedup=base[:, None] / torch.clamp_min(lat, 1e-12),
-                history=torch.stack(history), baseline_latency=base)
+        order = torch.argsort(-fit, dim=1, stable=True)[:, :top_k]
+        take = lambda x: torch.take_along_dim(x, order, dim=1)
+        lat = take(out.latency)
+        return dict(
+            strategies=torch.take_along_dim(pop, order[..., None], dim=1),
+            latency=lat, peak_mem=take(out.peak_mem),
+            valid=take(out.valid) & (take(fit) > -1e3),
+            speedup=base[:, None] / torch.clamp_min(lat, 1e-12),
+            history=torch.stack(history), baseline_latency=base)
 
 
 def gsampler_search_grid(workloads: list, hw, batches, budgets_bytes, *,
@@ -393,17 +412,23 @@ def gsampler_search_grid(workloads: list, hw, batches, budgets_bytes, *,
     dev = resolve_device(device)
     t0 = time.perf_counter()
     C = len(workloads)
-    hws = [hw] * C if isinstance(hw, AccelConfig) else list(hw)
-    if packed is None:
-        packed = cm.stack_workloads([cm.pack_workload(w, h, nmax, device=dev)
-                                     for w, h in zip(workloads, hws)])
-    hwv = stack_hw(hws, C, dev)
-    B = torch.as_tensor(np.asarray(batches, np.float32), device=dev)
-    budgets = torch.as_tensor(np.asarray(budgets_bytes, np.float32),
-                              device=dev)
-    gen = torch.Generator(device=dev).manual_seed(cfg.seed)
-    out = _ga_grid(gen, packed, B, budgets, hwv, cfg, top_k)
-    out = {k: v.cpu().numpy() for k, v in out.items()}
+    obs.count("gsampler.conditions", C)
+    with obs.span("gsampler.round", C=C, population=cfg.population,
+                  generations=cfg.generations):
+        with obs.span("gsampler.prepare"):
+            hws = [hw] * C if isinstance(hw, AccelConfig) else list(hw)
+            if packed is None:
+                packed = cm.stack_workloads([
+                    cm.pack_workload(w, h, nmax, device=dev)
+                    for w, h in zip(workloads, hws)])
+            hwv = stack_hw(hws, C, dev)
+            B = torch.as_tensor(np.asarray(batches, np.float32), device=dev)
+            budgets = torch.as_tensor(np.asarray(budgets_bytes, np.float32),
+                                      device=dev)
+            gen = torch.Generator(device=dev).manual_seed(cfg.seed)
+        out = _ga_grid(gen, packed, B, budgets, hwv, cfg, top_k)
+        with obs.span("gsampler.to_host"):
+            out = {k: v.cpu().numpy() for k, v in out.items()}
     n_evals = C * cfg.population * (cfg.generations
                                     * (1 + cfg.repair_tries) + 1)
     return GridTeacherResult(

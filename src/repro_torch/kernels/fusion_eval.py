@@ -46,7 +46,7 @@ from ..core.cost_model import CostOut, finalize_groups
 __all__ = ["Form", "fusion_eval", "fusion_eval_plain", "fusion_eval_grid",
            "fusion_eval_grid_stats", "fusion_eval_raw", "kernel_args",
            "tile_for", "smem_bytes", "compiled_backend_supported",
-           "backend_stats", "reset_launches", "MAX_TILE", "SMEM_LIMIT"]
+           "reset_launches", "MAX_TILE", "SMEM_LIMIT"]
 
 MAX_TILE = 32                     # candidates a block at most
 SMEM_LIMIT = 227 * 1024           # shared memory a block may take (H100)
@@ -64,11 +64,10 @@ class Form(enum.IntEnum):
 
 
 class _Stats:
-    """Launch count of the kernel and the library's build/probe state."""
+    """Launch count of the kernel."""
 
     def __init__(self):
         self.launches = 0
-        self.probe_ok: bool | None = None
 
 
 STATS = _Stats()
@@ -76,14 +75,6 @@ STATS = _Stats()
 
 def reset_launches() -> None:
     STATS.launches = 0
-
-
-def backend_stats() -> dict:
-    """Launches so far, the probe verdict and the library's build time."""
-    info = _build.build_info(SOURCE)
-    return {"launches": STATS.launches, "probe_ok": STATS.probe_ok,
-            "build_s": None if info is None else info["build_s"],
-            "build_cached": None if info is None else info["cached"]}
 
 
 def _lib() -> ctypes.CDLL:
@@ -114,7 +105,6 @@ def compiled_backend_supported() -> bool:
     torch.cuda.synchronize()
     if not torch.equal(x, torch.full_like(x, 2.0)):
         raise RuntimeError("fusion_eval probe kernel computed a wrong result")
-    STATS.probe_ok = True
     return True
 
 

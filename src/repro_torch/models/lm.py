@@ -21,7 +21,8 @@ the reference ``forward``'s two outputs), :func:`loss_fn` (next-token CE
 through the chunked ``fused_linear_ce``, plus ``aux_weight * aux /
 n_layers``; differentiable), :func:`init_decode_state`, :func:`prefill`
 (fill the KV caches from a prompt) and :func:`decode_step` (one token, or
-one embedding).  ``impl="kernel"`` (the default of every entry point
+one embedding), each one root span of ``runtime.obs`` (``lm.prefill``,
+``lm.decode_step``, with B and S).  ``impl="kernel"`` (the default of every entry point
 but :func:`loss_fn`) sends each layer's uncached attention to
 ``flash_attention`` and each single-token decode to ``flash_decode``;
 ``impl="dense"`` is the reference's ``impl="xla"`` (see ``nn.attention``)
@@ -53,6 +54,7 @@ from ..distributed import tp
 from ..nn import (MHA, Block, Dense, Embedding, MoE, fused_linear_ce,
                   make_norm, moe_apply, mrope_freqs, rope_freqs)
 from ..nn.transformer import remat_call
+from ..runtime import obs
 
 __all__ = ["LM", "MoEBlock", "MODEL", "init", "forward", "forward_aux",
            "loss_fn", "init_decode_state", "prefill", "decode_step"]
@@ -235,14 +237,15 @@ def prefill(model: LM, batch: dict, max_len: int, *, impl: str = "kernel",
     """Process the prompt (``batch["tokens"]`` [B, S] or ``"embeds"``):
     ``(logits of the last position [B, 1, vocab_padded], filled decode
     state)``."""
-    x = _inputs(model, batch)
-    B, S = x.shape[:2]
-    state = init_decode_state(model.cfg, B, max_len, dtype=cache_dtype,
-                              device=x.device)
-    cos, sin = _rope_tables(model.cfg, batch,
-                            torch.arange(S, device=x.device))
-    x, _ = _run(model, x, cos, sin, caches=state, impl=impl)
-    return _logits(model, x[:, -1:]), state
+    B, S = _batch_shape(model, batch)
+    with obs.span("lm.prefill", B=B, S=S):
+        x = _inputs(model, batch)
+        state = init_decode_state(model.cfg, B, max_len, dtype=cache_dtype,
+                                  device=x.device)
+        cos, sin = _rope_tables(model.cfg, batch,
+                                torch.arange(S, device=x.device))
+        x, _ = _run(model, x, cos, sin, caches=state, impl=impl)
+        return _logits(model, x[:, -1:]), state
 
 
 @torch.no_grad()
@@ -251,8 +254,17 @@ def decode_step(model: LM, state: dict, batch: dict, *,
     """One decode step for ``batch["tokens"]`` [B, 1] (or ``"embeds"`` [B,
     1, d]) at position ``state["idx"]``: ``(logits [B, 1, vocab_padded],
     state)``; the state is updated in place."""
-    x = _inputs(model, batch)
-    pos = torch.arange(x.shape[1], device=x.device) + state["idx"]
-    cos, sin = _rope_tables(model.cfg, batch, pos)
-    x, _ = _run(model, x, cos, sin, caches=state, impl=impl)
-    return _logits(model, x), state
+    B, S = _batch_shape(model, batch)
+    with obs.span("lm.decode_step", B=B, S=S):
+        x = _inputs(model, batch)
+        pos = torch.arange(x.shape[1], device=x.device) + state["idx"]
+        cos, sin = _rope_tables(model.cfg, batch, pos)
+        x, _ = _run(model, x, cos, sin, caches=state, impl=impl)
+        return _logits(model, x), state
+
+
+def _batch_shape(model: LM, batch: dict) -> tuple[int, int]:
+    """(B, S) of the batch's tokens [B, S] (embeddings [B, S, d] for an
+    ``embed_inputs`` config)."""
+    x = batch["embeds"] if model.cfg.embed_inputs else batch["tokens"]
+    return int(x.shape[0]), int(x.shape[1])

@@ -31,6 +31,11 @@ Port of ``repro.nn.attention``:
   sequence, so it goes to ``flash_attention`` with ``causal=False``, a
   decode step's single query included.
 
+Each call counts its route (``runtime.obs``): ``attend.flash_attention``,
+``attend.flash_decode``, ``attend.chunked`` or ``attend.dense``, and a
+``"kernel"`` call that takes a dense route also ``attend.kernel_fallback``.
+``MHA.forward`` runs in an ``nn/attention`` span.
+
 Under tensor parallelism (an ambient ``distributed.tp.Parallel`` with a
 'model' axis above 1) a rank holds the plan's shard of q, k, v and o:
 
@@ -65,6 +70,7 @@ import torch
 from torch import nn
 
 from ..distributed import tp
+from ..runtime import obs
 from ..kernels import flash_attention as _fa, flash_decode as _fd
 from ..kernels.dense_attention import (attend_chunked, attend_dense,
                                        attend_stats)
@@ -101,13 +107,18 @@ def attend(q, k, v, *, causal: bool = True, window: int = -1,
         raise ValueError(f"attend: impl must be one of {IMPLS}, got {impl!r}")
     if impl == "kernel":
         if kv_len is None and q_offset == 0:
+            obs.count("attend.flash_attention")
             return _fa.flash_attention(q, k, v, causal=causal, window=window)
         if (q.shape[1] == 1 and causal and kv_len is not None
                 and window == -1):
+            obs.count("attend.flash_decode")
             return _fd.flash_decode(q, k, v, min(kv_len, q_offset + 1))
+        obs.count("attend.kernel_fallback")
     kw = dict(causal=causal, window=window, q_offset=q_offset, kv_len=kv_len)
     if q.shape[1] > q_chunk:
+        obs.count("attend.chunked")
         return attend_chunked(q, k, v, q_chunk=q_chunk, **kw)
+    obs.count("attend.dense")
     return attend_dense(q, k, v, **kw)
 
 
@@ -145,53 +156,54 @@ class MHA(nn.Module):
         tokens, which are written at ``cache["idx"]``.  With ``xkv`` [B,
         T, d] the layer cross-attends to it (no rope, no cache, not
         causal).  Sharded as the module docstring says."""
-        B, S, _ = x.shape
-        hd = self.head_dim
-        ax = tp.tp_axis()
-        Hq, Hkv = self.q.w.shape[1] // hd, self.k.w.shape[1] // hd
-        q_sh = ax is not None and Hq != self.n_heads
-        kv_sh = ax is not None and Hkv != self.kv_heads
-        src = x if xkv is None else xkv
-        T = src.shape[1]
-        xi = tp.copy_to_tp(x, ax) if q_sh else x
-        q = self.q(xi).reshape(B, S, Hq, hd)
-        si = (xi if xkv is None else tp.copy_to_tp(src, ax)) if kv_sh \
-            else src
-        k = self.k(si).reshape(B, T, Hkv, hd)
-        v = self.v(si).reshape(B, T, Hkv, hd)
-        if self.qn is not None:
-            q = self.qn(q, tp.copy_to_tp(self.qn.g, ax) if q_sh else None)
-            k = self.kn(k, tp.copy_to_tp(self.kn.g, ax) if kv_sh else None)
-        if cos is not None and xkv is None:
-            q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
-        sel = self._kv_select(ax) if q_sh and not kv_sh else None
-        pick = (lambda t: t) if sel is None else \
-            (lambda t: tp.tp_select(t, ax, 2, sel))
-        seq = getattr(tp.current(), "seq", None)
-        if xkv is not None:
-            out = attend(q, pick(k), pick(v), causal=False, window=window,
-                         impl=impl)
-        elif cache is not None and (ax is not None or seq is not None):
-            out = self._sharded_cache(q, k, v, pick, cache, ax, seq, q_sh,
-                                      kv_sh, causal=causal, window=window,
-                                      impl=impl)
-        else:
-            q_offset, kv_len = 0, None
-            if cache is not None:
-                idx = cache["idx"]
-                if idx + S > cache["k"].shape[1]:
-                    raise ValueError(f"KV cache of length "
-                                     f"{cache['k'].shape[1]} cannot take "
-                                     f"{S} tokens at {idx}")
-                cache["k"][:, idx:idx + S] = k.to(cache["k"].dtype)
-                cache["v"][:, idx:idx + S] = v.to(cache["v"].dtype)
-                cache["idx"] = idx + S
-                k, v = cache["k"], cache["v"]
-                q_offset, kv_len = idx, idx + S
-            out = attend(q, pick(k), pick(v), causal=causal, window=window,
-                         q_offset=q_offset, kv_len=kv_len, impl=impl)
-        out = self.o(out)
-        return (tp.reduce_from_tp(out, ax) if q_sh else out), cache
+        with obs.span("nn/attention"):
+            B, S, _ = x.shape
+            hd = self.head_dim
+            ax = tp.tp_axis()
+            Hq, Hkv = self.q.w.shape[1] // hd, self.k.w.shape[1] // hd
+            q_sh = ax is not None and Hq != self.n_heads
+            kv_sh = ax is not None and Hkv != self.kv_heads
+            src = x if xkv is None else xkv
+            T = src.shape[1]
+            xi = tp.copy_to_tp(x, ax) if q_sh else x
+            q = self.q(xi).reshape(B, S, Hq, hd)
+            si = (xi if xkv is None else tp.copy_to_tp(src, ax)) if kv_sh \
+                else src
+            k = self.k(si).reshape(B, T, Hkv, hd)
+            v = self.v(si).reshape(B, T, Hkv, hd)
+            if self.qn is not None:
+                q = self.qn(q, tp.copy_to_tp(self.qn.g, ax) if q_sh else None)
+                k = self.kn(k, tp.copy_to_tp(self.kn.g, ax) if kv_sh else None)
+            if cos is not None and xkv is None:
+                q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+            sel = self._kv_select(ax) if q_sh and not kv_sh else None
+            pick = (lambda t: t) if sel is None else \
+                (lambda t: tp.tp_select(t, ax, 2, sel))
+            seq = getattr(tp.current(), "seq", None)
+            if xkv is not None:
+                out = attend(q, pick(k), pick(v), causal=False, window=window,
+                             impl=impl)
+            elif cache is not None and (ax is not None or seq is not None):
+                out = self._sharded_cache(q, k, v, pick, cache, ax, seq, q_sh,
+                                          kv_sh, causal=causal, window=window,
+                                          impl=impl)
+            else:
+                q_offset, kv_len = 0, None
+                if cache is not None:
+                    idx = cache["idx"]
+                    if idx + S > cache["k"].shape[1]:
+                        raise ValueError(f"KV cache of length "
+                                         f"{cache['k'].shape[1]} cannot take "
+                                         f"{S} tokens at {idx}")
+                    cache["k"][:, idx:idx + S] = k.to(cache["k"].dtype)
+                    cache["v"][:, idx:idx + S] = v.to(cache["v"].dtype)
+                    cache["idx"] = idx + S
+                    k, v = cache["k"], cache["v"]
+                    q_offset, kv_len = idx, idx + S
+                out = attend(q, pick(k), pick(v), causal=causal, window=window,
+                             q_offset=q_offset, kv_len=kv_len, impl=impl)
+            out = self.o(out)
+            return (tp.reduce_from_tp(out, ax) if q_sh else out), cache
 
     def _kv_select(self, ax) -> list:
         """The kv-heads this rank's q-heads read when K/V are whole, each
@@ -237,9 +249,13 @@ class MHA(nn.Module):
         seen = min(max(idx + S - off, 0), Tl)
         ck, cv = cache["k"], cache["v"]
         if impl == "kernel" and S == 1 and causal and window == -1:
+            obs.count("attend.flash_decode")
             o, lse = _fd.flash_decode(qall, ck, cv, seen, stats=True)
             o, lse = o.reshape(B, 1, -1, hd), lse[:, None]
         else:
+            if impl == "kernel":
+                obs.count("attend.kernel_fallback")
+            obs.count("attend.dense")
             o, lse = attend_stats(qall, ck, cv, causal=causal, window=window,
                                   q_offset=idx - off, kv_len=seen)
         merged = tp.sp_merge(o, lse, seq)

@@ -23,6 +23,7 @@ import torch
 from torch import nn
 
 from ..distributed import tp
+from ..runtime import obs
 
 __all__ = ["Dense", "Embedding", "take_rows", "segment_sum"]
 
@@ -98,10 +99,11 @@ class Dense(nn.Module):
                   if bias else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = x @ self.w
-        if self.b is not None:
-            y = y + self.b
-        return y
+        with obs.span("nn/linear"):
+            y = x @ self.w
+            if self.b is not None:
+                y = y + self.b
+            return y
 
 
 class Embedding(nn.Module):

@@ -5,6 +5,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ..runtime import obs
+
 __all__ = ["LayerNorm", "RMSNorm"]
 
 
@@ -23,11 +25,13 @@ class LayerNorm(nn.Module):
         passes them through ``distributed.tp.copy_to_tp``)."""
         g = self.g if g is None else g
         b = self.b if b is None else b
-        xf = x.to(torch.float32)
-        mu = xf.mean(-1, keepdim=True)
-        var = torch.square(xf - mu).mean(-1, keepdim=True)
-        y = (xf - mu) * torch.rsqrt(var + self.eps)
-        return (y * g.to(torch.float32) + b.to(torch.float32)).to(x.dtype)
+        with obs.span("nn/norms"):
+            xf = x.to(torch.float32)
+            mu = xf.mean(-1, keepdim=True)
+            var = torch.square(xf - mu).mean(-1, keepdim=True)
+            y = (xf - mu) * torch.rsqrt(var + self.eps)
+            return (y * g.to(torch.float32)
+                    + b.to(torch.float32)).to(x.dtype)
 
 
 class RMSNorm(nn.Module):
@@ -42,7 +46,8 @@ class RMSNorm(nn.Module):
     def forward(self, x: torch.Tensor, g=None) -> torch.Tensor:
         """``g`` stands in for the gain, as in :class:`LayerNorm`."""
         g = self.g if g is None else g
-        xf = x.to(torch.float32)
-        y = xf * torch.rsqrt(torch.square(xf).mean(-1, keepdim=True)
-                             + self.eps)
-        return (y * g.to(torch.float32)).to(x.dtype)
+        with obs.span("nn/norms"):
+            xf = x.to(torch.float32)
+            y = xf * torch.rsqrt(torch.square(xf).mean(-1, keepdim=True)
+                                 + self.eps)
+            return (y * g.to(torch.float32)).to(x.dtype)

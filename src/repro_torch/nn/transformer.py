@@ -23,6 +23,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..distributed import tp
+from ..runtime import obs
 from .attention import MHA
 from .linear import Dense
 from .norms import LayerNorm, RMSNorm
@@ -95,18 +96,19 @@ class MLP(nn.Module):
             raise ValueError(f"unknown mlp kind {kind!r}")
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        ax = tp.tp_axis()
-        if ax is None or self.up.w.shape[1] == self.d_ff:
+        with obs.span("nn/mlp"):
+            ax = tp.tp_axis()
+            if ax is None or self.up.w.shape[1] == self.d_ff:
+                if self.kind == "swiglu":
+                    return self.down(F.silu(self.gate(x)) * self.up(x))
+                return self.down(F.gelu(self.up(x), approximate="tanh"))
+            x = tp.copy_to_tp(x, ax)
             if self.kind == "swiglu":
-                return self.down(F.silu(self.gate(x)) * self.up(x))
-            return self.down(F.gelu(self.up(x), approximate="tanh"))
-        x = tp.copy_to_tp(x, ax)
-        if self.kind == "swiglu":
-            h = F.silu(self.gate(x)) * self.up(x)
-        else:
-            h = F.gelu(self.up(x), approximate="tanh")
-        y = tp.reduce_from_tp(h @ self.down.w, ax)
-        return y if self.down.b is None else y + self.down.b
+                h = F.silu(self.gate(x)) * self.up(x)
+            else:
+                h = F.gelu(self.up(x), approximate="tanh")
+            y = tp.reduce_from_tp(h @ self.down.w, ax)
+            return y if self.down.b is None else y + self.down.b
 
 
 class Block(nn.Module):

@@ -52,14 +52,12 @@ from .configs import get_config
 from .core import accel, cost_model as cm, dataset, gsampler as gs, infer
 from .core import model as dtm, train
 from .serving import MapRequest
-from .kernels import flash_attention as fa, flash_decode as fd
-from .kernels import fusion_eval as fe, rwkv6_scan as rk
 from .models import hymba, lm, rwkv_lm
+from .runtime import obs
 from .workloads import CNN_ZOO
 from .workloads.grid import paper_grid, serving_stream
 
-PORT_KERNELS = {"fusion_eval": fe, "flash_attention": fa,
-                "flash_decode": fd, "wkv6": rk}
+PORT_KERNELS = ("fusion_eval", "flash_attention", "flash_decode", "wkv6")
 
 __all__ = ["profile_phase", "main"]
 
@@ -95,18 +93,20 @@ def profile_phase(name: str, fn, out_dir: pathlib.Path, top: int = 8) -> dict:
     unprofiled = time.perf_counter() - t0
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    for mod in PORT_KERNELS.values():
-        mod.reset_launches()
+    before = obs.counters()
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    port = {k: mod.STATS.launches for k, mod in PORT_KERNELS.items()}
+    after = obs.counters()
+    port = {k: after[f"{k}.launches"] - before[f"{k}.launches"]
+            for k in PORT_KERNELS}
     out_dir.mkdir(parents=True, exist_ok=True)
     prof.export_chrome_trace(str(out_dir / f"{name}.json.gz"))
     kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.is_user_annotation]     # the program's own spans
     per_name: dict[str, list] = {}
     for e in kernels:
         us = e.time_range.elapsed_us()

@@ -107,7 +107,8 @@ def test_evaluate_grid_is_one_kernel_launch(dev, stats):
             fn(wl, s, batches, budgets, hw)
         torch.cuda.synchronize()
     kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.is_user_annotation]     # the program's own spans
     assert fe.STATS.launches == before + 3
     assert len(kernels) == 3, [e.name for e in kernels]
     assert all("fusion_eval" in e.name for e in kernels)

@@ -68,7 +68,7 @@ def test_port_imports_no_jax_and_no_reference(path):
                                     "distributed", "distributed.pipeline",
                                     "launch.mesh", "launch.steps",
                                     "launch.dryrun", "launch.cost_analysis",
-                                    "serving.replicas"])
+                                    "serving.replicas", "runtime.obs"])
 def test_each_layer_imports_first(module):
     """``nn`` imports the attention kernels, and ``kernels.fusion_eval``
     imports ``core``, whose DT imports ``nn``: each must import first in a
