@@ -16,6 +16,8 @@ from dataclasses import dataclass, replace
 import numpy as np
 import torch
 
+from ..runtime import obs
+
 __all__ = ["AccelConfig", "PAPER_ACCEL", "ACCEL_ZOO", "HW_FIELDS",
            "HW_FEATURE_DIM", "hw_array", "stack_hw", "accel_features",
            "accel_from_features", "NPE", "LANES", "FREQ", "BW_OFF", "BW_ON",
@@ -86,20 +88,46 @@ def hw_array(hw, device=None) -> torch.Tensor:
     """Raw ``[..., HW_FEATURE_DIM]`` f32 vector of an ``AccelConfig`` (or
     an array-like already in ``HW_FIELDS`` order)."""
     if isinstance(hw, AccelConfig):
-        vals = np.array([float(getattr(hw, f)) for f in HW_FIELDS],
-                        np.float32)
-        return torch.as_tensor(vals, device=device)
+        return torch.as_tensor(_rows([hw])[0], device=device)
     return torch.as_tensor(hw, dtype=torch.float32, device=device)
+
+
+def _rows(hws) -> np.ndarray:
+    """The f32 ``[len(hws), HW_FEATURE_DIM]`` rows of ``AccelConfig``s."""
+    return np.array([[float(getattr(h, f)) for f in HW_FIELDS]
+                     for h in hws], np.float32)
+
+
+def distinct(items) -> tuple[list, list[int]]:
+    """The distinct objects of ``items`` by identity, in order of first
+    appearance, and each item's index among them."""
+    slot: dict[int, int] = {}
+    uniq, idx = [], []
+    for x in items:
+        i = slot.get(id(x))
+        if i is None:
+            i = slot[id(x)] = len(uniq)
+            uniq.append(x)
+        idx.append(i)
+    return uniq, idx
 
 
 def stack_hw(hw, C: int, device=None) -> torch.Tensor:
     """Per-condition hardware rows ``[C, HW_FEATURE_DIM]``.
 
     ``hw`` may be one descriptor (broadcast), a sequence of C
-    descriptors, or a ``[C, HW_FEATURE_DIM]`` array/tensor."""
+    descriptors, or a ``[C, HW_FEATURE_DIM]`` array/tensor.  A sequence of
+    ``AccelConfig`` objects converts each distinct object once, gathers
+    the rows on the host and copies the table to ``device`` in one copy;
+    the counter ``stack_hw.distinct`` adds the rows a sequence converts."""
     if isinstance(hw, (list, tuple)):
         if len(hw) != C:
             raise ValueError(f"got {len(hw)} accelerators for {C} conditions")
+        if hw and all(isinstance(h, AccelConfig) for h in hw):
+            uniq, idx = distinct(hw)
+            obs.count("stack_hw.distinct", len(uniq))
+            return torch.as_tensor(_rows(uniq)[idx], device=device)
+        obs.count("stack_hw.distinct", C)
         return torch.stack([hw_array(h, device) for h in hw]).contiguous()
     v = hw_array(hw, device)
     if v.dim() == 1:

@@ -32,7 +32,7 @@ import torch
 from .. import resolve_device
 from ..runtime import obs
 from .accel import (BPE, BW_OFF, BW_ON, FREQ, LANES, NPE, STREAM, T_PASS,
-                    T_SYNC, AccelConfig, stack_hw)
+                    T_SYNC, AccelConfig, distinct, stack_hw)
 
 __all__ = ["SYNC", "CostOut", "pack_workload", "stack_workloads",
            "finalize_groups", "evaluate", "evaluate_population",
@@ -83,13 +83,23 @@ def pack_workload(workload, hw: AccelConfig, nmax: int = 64,
 
 def stack_workloads(wls: list[dict]) -> dict[str, torch.Tensor]:
     """Stack packed workloads (same ``nmax``) along a leading condition
-    axis; rows ride their own ``n``, padding stays masked."""
+    axis; rows ride their own ``n``, padding stays masked.
+
+    A list that repeats dicts (by identity) stacks each key over its
+    distinct dicts and gathers the rows by one index tensor; the counter
+    ``stack_workloads.distinct`` adds the dicts stacked."""
     with obs.span("cost_model.stack_workloads"):
-        sizes = sorted({int(w["A"].shape[-1]) for w in wls})
+        uniq, idx = distinct(wls)
+        sizes = sorted({int(w["A"].shape[-1]) for w in uniq})
         if len(sizes) > 1:
             raise ValueError(f"cannot stack workloads packed to different "
                              f"nmax {sizes}; repack to a shared bucket")
-        out = {k: torch.stack([w[k] for w in wls]) for k in wls[0]}
+        obs.count("stack_workloads.distinct", len(uniq))
+        out = {k: torch.stack([w[k] for w in uniq]) for k in wls[0]}
+        if len(uniq) < len(wls):
+            at = torch.as_tensor(np.asarray(idx, np.int64),
+                                 device=out["A"].device)
+            out = {k: v.index_select(0, at) for k, v in out.items()}
         if obs.tracing():
             live = [live_positions(w) for w in wls]
             if None not in live:

@@ -8,6 +8,8 @@ the ``fusion_eval`` kernel on the CPU.  Tolerances: integer outputs
 traffic and ``M_g`` within rtol 1e-5 of XLA; latency, peak and traffic
 within 1e-5 (relative, floor 1) of the f64 model, as tests/test_kernels.py.
 """
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -22,6 +24,7 @@ from repro.core.accel import ACCEL_ZOO as JZOO, accel_features as j_feats
 from repro.kernels import ref as jref
 from repro.workloads import CNN_ZOO as JCNN, resnet18, tiny_cnn, vgg16
 from repro_torch.core import accel as taccel, cost_model as tcm
+from repro_torch.runtime import obs
 from repro_torch.workloads import CNN_ZOO as TCNN
 
 
@@ -218,3 +221,92 @@ def test_fixed_sum_sums_each_row_in_one_order():
         assert torch.equal(tcm.fixed_sum(x[i:i + 1])[0], full[i])
     assert torch.equal(tcm.fixed_sum(x.T.contiguous(), dim=0), full)
     assert torch.equal(tcm.fixed_sum(x[:, :1]), x[:, 0])
+
+
+# -- the front door's stacks: a round's rows built from its distinct rows --
+def _parts_of(C, seed=0):
+    rng = np.random.default_rng(seed)
+    parts = [taccel.ACCEL_ZOO[p] for p in sorted(taccel.ACCEL_ZOO)]
+    return [parts[i] for i in rng.integers(0, len(parts), C)]
+
+
+def _traced_count(name, fn):
+    """``fn()`` with tracing on, and what it added to counter ``name``."""
+    before = obs.counters(traced=True).get(name, 0)
+    obs.enable()
+    try:
+        out = fn()
+    finally:
+        obs.disable()
+    return out, obs.counters(traced=True).get(name, 0) - before
+
+
+def test_stack_hw_of_repeated_parts_equals_the_rows_stacked():
+    """3840 conditions over the 5 parts: the same tensor as a row a
+    condition, each distinct part converted once."""
+    hws = _parts_of(3840)
+    got, n = _traced_count("stack_hw.distinct",
+                           lambda: taccel.stack_hw(hws, 3840))
+    want = torch.stack([taccel.hw_array(h) for h in hws]).contiguous()
+    assert torch.equal(got, want)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert got.is_contiguous()
+    assert n == 5
+    # distinct by identity: an equal copy is converted on its own
+    twin = dataclasses.replace(hws[0])
+    got, n = _traced_count("stack_hw.distinct",
+                           lambda: taccel.stack_hw(hws[:3] + [twin], 4))
+    assert torch.equal(got, want[[0, 1, 2, 0]]) and n == len(
+        {id(h) for h in hws[:3]}) + 1
+
+
+def test_stack_hw_of_mixed_rows_and_wrong_length():
+    hws = _parts_of(6, seed=1)
+    mixed = [h if i % 2 else taccel.hw_array(h).numpy()
+             for i, h in enumerate(hws)]
+    want = torch.stack([taccel.hw_array(h) for h in hws]).contiguous()
+    got = taccel.stack_hw(mixed, 6)
+    assert torch.equal(got, want) and got.is_contiguous()
+    for hw in (hws, mixed):
+        with pytest.raises(ValueError, match="accelerators for"):
+            taccel.stack_hw(hw, 5)
+
+
+def _packs(parts, nmax=64):
+    return [tcm.pack_workload(TCNN[n](), taccel.ACCEL_ZOO[p], nmax,
+                              device=CPU)
+            for n in sorted(TCNN) for p in parts]
+
+
+@pytest.mark.parametrize("distinct,C", [(30, 3840), (1, 64), (30, 30)],
+                         ids=["30_of_3840", "1_of_64", "all_distinct"])
+def test_stack_workloads_gathers_repeated_dicts(distinct, C):
+    """Key by key the plain per-key stack, bit for bit, in dtype, shape,
+    contiguity and device; the dicts stacked are counted once each; the
+    live positions still sum over every row."""
+    packs = _packs(sorted(taccel.ACCEL_ZOO))[:distinct]
+    assert len(packs) == distinct
+    rng = np.random.default_rng(C)
+    pick = rng.permutation(C) % distinct if C > distinct else range(C)
+    wls = [packs[i] for i in pick]
+    got, n = _traced_count("stack_workloads.distinct",
+                           lambda: tcm.stack_workloads(wls))
+    assert n == distinct
+    want = {k: torch.stack([w[k] for w in wls]) for k in wls[0]}
+    assert list(got) == list(want)
+    for k in want:
+        g, w = got[k], want[k]
+        assert torch.equal(g, w), k
+        assert (g.dtype, g.shape, g.device) == (w.dtype, w.shape, w.device)
+        assert g.is_contiguous(), k
+    assert tcm.live_positions(got) == sum(tcm.live_positions(w)
+                                          for w in wls)
+
+
+@pytest.mark.parametrize("repeat", [False, True])
+def test_stack_workloads_refuses_mixed_nmax(repeat):
+    a, b = (tcm.pack_workload(TCNN["tiny_cnn"](), taccel.PAPER_ACCEL, nmax,
+                              device=CPU) for nmax in (64, 32))
+    wls = [a, b, a, b] if repeat else [a, b]
+    with pytest.raises(ValueError, match="different nmax"):
+        tcm.stack_workloads(wls)

@@ -130,6 +130,60 @@ def test_gsampler_on_card_is_deterministic_and_uses_kernel(dev):
     assert a.valid[:, 0].all()
 
 
+def test_search_round_front_door_builds_from_distinct_rows(dev):
+    """A round of 3840 conditions over 6 nets x 5 parts packed once, as a
+    sweep over fixed networks and parts draws them: the answers of the
+    distinct-row front door (a list of parts, repeated packs) bit for bit
+    those of a ``[C, 10]`` hw tensor and a plain per-key stack, and its
+    stack and prepare spans copy at most 4 times to the card."""
+    from repro_torch.runtime import obs
+    from repro_torch.workloads import CNN_ZOO
+    C, rng = 3840, np.random.default_rng(31)
+    parts = [accel.ACCEL_ZOO[p] for p in sorted(accel.ACCEL_ZOO)]
+    nets = [CNN_ZOO[n]() for n in sorted(CNN_ZOO)]
+    packs = [[cm.pack_workload(w, h, 64, device=dev) for h in parts]
+             for w in nets]
+    net = rng.integers(0, len(nets), C)
+    part = rng.integers(0, len(parts), C)
+    budgets = np.exp(rng.uniform(np.log(8), np.log(64), C)) * MB
+    batches = rng.choice([16, 64], C)
+    works = [nets[a] for a in net]
+    hws = [parts[b] for b in part]
+    wls = [packs[a][b] for a, b in zip(net, part)]
+    cfg = gs.GSamplerConfig(seed=5)
+
+    def front_door():
+        packed = cm.stack_workloads(wls)
+        return gs.gsampler_search_grid(works, hws, batches, budgets, cfg=cfg,
+                                       packed=packed, device=dev)
+
+    got = front_door()
+    plain = {k: torch.stack([w[k] for w in wls]) for k in wls[0]}
+    hw_rows = torch.stack([accel.hw_array(h, dev) for h in hws])
+    want = gs.gsampler_search_grid(works, hw_rows, batches, budgets, cfg=cfg,
+                                   packed=plain, device=dev)
+    for k in ("strategies", "latency", "peak_mem", "valid"):
+        np.testing.assert_array_equal(getattr(got, k), getattr(want, k), k)
+    torch.cuda.synchronize()
+    names = ("stack_hw.distinct", "stack_workloads.distinct")
+    before = [obs.counters(traced=True).get(n, 0) for n in names]
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        front_door()
+    after = [obs.counters(traced=True)[n] for n in names]
+    assert [b - a for a, b in zip(before, after)] == [5, 30]
+    cpu = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CPU]
+    spans = [e.time_range for e in cpu if e.name in (
+        "gsampler.prepare", "cost_model.stack_workloads")]
+    assert len(spans) == 2, [e.name for e in cpu][:50]
+    copies = [e.name for e in cpu if e.name.startswith("cudaMemcpy")
+              and any(r.start <= e.time_range.start <= r.end
+                      for r in spans)]
+    assert 1 <= len(copies) <= 4, copies
+
+
 # -- attention kernels: f32 at the JAX sweep's 2e-5 (tests/test_kernels.py);
 # bf16 flash_decode at one bf16 rounding of the output (2^-7 relative at
 # most), since both sides compute in f32 from the same bf16 inputs; bf16
