@@ -33,6 +33,18 @@ defaults, bf16 and bf16, agree).  The decode state is ``{"k", "v": [L, B,
 T, Hkv, hd], "idx": int}``, written in place; its write index is a Python
 int, so a decode step makes no host sync.
 
+The port-only DeepSeek-V3 stack (``moonlight_16b_a3b``, a config with
+``kv_lora_rank``) runs the same entry points: every block's attention is
+latent (``nn.mla.MLA``), the first ``first_dense`` blocks carry a dense
+SwiGLU of ``dense_d_ff`` and the rest the dropless MoE with the sigmoid
+router and shared experts (``nn.moe.moe_dropless``), every norm takes
+``cfg.norm_eps``, and the decode state is the latent cache ``{"ckv": [L,
+B, T, kv_lora_rank], "kpe": [L, B, T, qk_rope_head_dim], "idx": int}``.
+Latent attention runs ``attend``'s dense math under either ``impl``: no
+kernel of the port takes its unequal q/k and v head dims.  Neither latent attention nor the sigmoid router has a tensor-parallel
+plan: :func:`init` refuses a shard, and their layers raise under a
+'model' axis.
+
 Tensor parallelism (``distributed.tp``): a model built with a
 ``tp.Keep`` (``init(shard=...)``) holds one rank's 'model' shard of each
 leaf, cut block by block as it is built from the one-device draw; under
@@ -51,8 +63,9 @@ from torch import nn
 from .. import resolve_device
 from ..configs import ArchConfig
 from ..distributed import tp
-from ..nn import (MHA, Block, Dense, Embedding, MoE, fused_linear_ce,
-                  make_norm, moe_apply, mrope_freqs, rope_freqs)
+from ..nn import (MHA, MLA, MLP, Block, Dense, Embedding, MoE,
+                  fused_linear_ce, make_norm, moe_apply, mrope_freqs,
+                  rope_freqs)
 from ..nn.transformer import remat_call
 from ..runtime import obs
 
@@ -62,29 +75,50 @@ __all__ = ["LM", "MoEBlock", "MODEL", "init", "forward", "forward_aux",
 
 class MoEBlock(nn.Module):
     """``x + attn(norm1(x))``, then ``+ moe(norm2(x))``; returns the
-    layer's aux loss beside ``(x, cache)``."""
+    layer's aux loss beside ``(x, cache)``.  The attention is latent
+    (``MLA``) for a config with ``kv_lora_rank``; a ``dense`` block (one of
+    the stack's first ``first_dense``) has ``mlp``, a SwiGLU of
+    ``dense_d_ff``, in the MoE's place and an aux loss of 0."""
 
-    def __init__(self, cfg: ArchConfig, *, generator=None, device=None,
-                 dtype=torch.float32):
+    def __init__(self, cfg: ArchConfig, *, dense: bool = False,
+                 generator=None, device=None, dtype=torch.float32):
         super().__init__()
         kw = dict(generator=generator, device=device, dtype=dtype)
+        nk = dict(eps=cfg.norm_eps, device=device, dtype=dtype)
         self.top_k, self.capacity_factor = cfg.moe_top_k, cfg.capacity_factor
-        self.ln1 = make_norm(cfg.norm, cfg.d_model, device=device,
-                             dtype=dtype)
-        self.attn = MHA(cfg.d_model, n_heads=cfg.n_heads, head_dim=cfg.hd,
-                        kv_heads=cfg.kv_heads, qkv_bias=cfg.qkv_bias,
-                        qk_norm=cfg.qk_norm, **kw)
-        self.ln2 = make_norm(cfg.norm, cfg.d_model, device=device,
-                             dtype=dtype)
-        self.moe = MoE(cfg.d_model, cfg.d_ff, cfg.n_experts, **kw)
+        self.routed_scale = cfg.routed_scale
+        self.ln1 = make_norm(cfg.norm, cfg.d_model, **nk)
+        if cfg.mla:
+            self.attn = MLA(cfg.d_model, n_heads=cfg.n_heads,
+                            kv_lora_rank=cfg.kv_lora_rank,
+                            qk_nope_head_dim=cfg.qk_nope_head_dim,
+                            qk_rope_head_dim=cfg.qk_rope_head_dim,
+                            v_head_dim=cfg.v_head_dim, **kw)
+        else:
+            self.attn = MHA(cfg.d_model, n_heads=cfg.n_heads,
+                            head_dim=cfg.hd, kv_heads=cfg.kv_heads,
+                            qkv_bias=cfg.qkv_bias, qk_norm=cfg.qk_norm,
+                            norm_eps=cfg.norm_eps, **kw)
+        self.ln2 = make_norm(cfg.norm, cfg.d_model, **nk)
+        self.mlp = self.moe = None
+        if dense:
+            self.mlp = MLP(cfg.d_model, cfg.dense_d_ff, **kw)
+        else:
+            self.moe = MoE(cfg.d_model, cfg.d_ff, cfg.n_experts,
+                           router=cfg.router, n_shared=cfg.n_shared_experts,
+                           **kw)
 
     def forward(self, x, *, cos=None, sin=None, window: int = -1,
                 cache=None, impl: str = "dense"):
         h, cache = self.attn(self.ln1(x), cos=cos, sin=sin, window=window,
                              cache=cache, impl=impl)
         x = x + h
+        if self.mlp is not None:
+            return (x + self.mlp(self.ln2(x)), cache,
+                    torch.zeros((), dtype=torch.float32, device=x.device))
         h, aux = moe_apply(self.moe, self.ln2(x), top_k=self.top_k,
-                           capacity_factor=self.capacity_factor)
+                           capacity_factor=self.capacity_factor,
+                           routed_scale=self.routed_scale)
         return x + h, cache, aux
 
 
@@ -99,17 +133,18 @@ class LM(nn.Module):
         self.embed = keep("embed", Embedding(cfg.vocab_padded, cfg.d_model,
                                              **kw))
 
-        def block():
+        def block(i):
             if cfg.n_experts:
-                return MoEBlock(cfg, **kw)
+                return MoEBlock(cfg, dense=i < cfg.first_dense, **kw)
             return Block(cfg.d_model, n_heads=cfg.n_heads, head_dim=cfg.hd,
                          d_ff=cfg.d_ff, kv_heads=cfg.kv_heads,
                          mlp_kind=cfg.mlp_kind, norm=cfg.norm,
-                         qkv_bias=cfg.qkv_bias, qk_norm=cfg.qk_norm, **kw)
-        self.blocks = nn.ModuleList(keep(f"blocks/{i}", block())
+                         qkv_bias=cfg.qkv_bias, qk_norm=cfg.qk_norm,
+                         norm_eps=cfg.norm_eps, **kw)
+        self.blocks = nn.ModuleList(keep(f"blocks/{i}", block(i))
                                     for i in range(cfg.n_layers))
-        self.ln_f = make_norm(cfg.norm, cfg.d_model, device=device,
-                              dtype=dtype)
+        self.ln_f = make_norm(cfg.norm, cfg.d_model, eps=cfg.norm_eps,
+                              device=device, dtype=dtype)
         self.head = (None if cfg.tie_embeddings else keep("head", Dense(
             cfg.d_model, cfg.vocab_padded, bias=False, **kw)))
 
@@ -127,6 +162,10 @@ def init(cfg: ArchConfig, *, seed: int = 0, dtype=torch.bfloat16,
     """A model with weights drawn from a ``torch.Generator`` seeded with
     ``seed`` on ``device`` (``cuda`` unless given); with ``shard``, one
     rank's 'model' shard of the same draw."""
+    if shard is not None and (cfg.mla or cfg.router != "softmax"):
+        raise NotImplementedError(f"{cfg.name}: latent attention and the "
+                                  "sigmoid router have no tensor-parallel "
+                                  "plan")
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     with torch.no_grad():
@@ -150,7 +189,7 @@ def _rope_tables(cfg: ArchConfig, batch: dict, positions: torch.Tensor):
     """cos/sin [S, hd/2] (or [B, S, hd/2] from a ``pos_thw`` grid) for the
     global ``positions`` [S]; M-RoPE when the config has sections."""
     if cfg.mrope_sections is None:
-        return rope_freqs(positions, cfg.hd, cfg.rope_theta)
+        return rope_freqs(positions, cfg.rope_dim, cfg.rope_theta)
     pos_thw = batch.get("pos_thw")
     if pos_thw is None:                   # text only: the three ids agree
         pos_thw = positions.expand(3, positions.shape[0])
@@ -166,8 +205,8 @@ def _run(model: LM, x, cos, sin, *, caches=None, impl: str,
     for i, (blk, window) in enumerate(zip(model.blocks, cfg.windows())):
         cache = None
         if caches is not None:
-            cache = {"k": caches["k"][i], "v": caches["v"][i],
-                     "idx": caches["idx"]}
+            cache = {k: (v if k == "idx" else v[i])
+                     for k, v in caches.items()}
         if cfg.n_experts:
             x, _, aux_l = remat_call(blk, x, cos=cos, sin=sin,
                                      window=window, cache=cache, impl=impl,
@@ -222,8 +261,17 @@ def loss_fn(model: LM, batch: dict, *, impl: str = "dense",
 def init_decode_state(cfg: ArchConfig, batch: int, max_len: int, *,
                       dtype=torch.bfloat16, device=None) -> dict:
     """Per-layer KV caches ``{"k", "v": [L, B, T, Hkv, hd] zeros, "idx":
-    0}``, T this rank's share of ``max_len`` (``tp.cache_len``)."""
+    0}``, T this rank's share of ``max_len`` (``tp.cache_len``); for a
+    latent-attention config the latent caches ``{"ckv": [L, B, T,
+    kv_lora_rank], "kpe": [L, B, T, qk_rope_head_dim], "idx": 0}``."""
     dev = resolve_device(device)
+    if cfg.mla:
+        lead = (cfg.n_layers, batch, max_len)
+        return {"ckv": torch.zeros(lead + (cfg.kv_lora_rank,), dtype=dtype,
+                                   device=dev),
+                "kpe": torch.zeros(lead + (cfg.qk_rope_head_dim,),
+                                   dtype=dtype, device=dev),
+                "idx": 0}
     shape = (cfg.n_layers, batch, tp.cache_len(max_len), cfg.kv_heads,
              cfg.hd)
     return {"k": torch.zeros(shape, dtype=dtype, device=dev),

@@ -29,7 +29,9 @@ Port of ``repro.nn.attention``:
   cache append, such as a prefill, or a windowed single-token decode)
   takes the dense or chunked math.  Uncached cross-attention is a full
   sequence, so it goes to ``flash_attention`` with ``causal=False``, a
-  decode step's single query included.
+  decode step's single query included.  The kernels take q, k and v of
+  one head dim, so a ``"kernel"`` call whose head dims differ (latent
+  attention's 192 and 128) raises instead of taking the dense math.
 
 Each call counts its route (``runtime.obs``): ``attend.flash_attention``,
 ``attend.flash_decode``, ``attend.chunked`` or ``attend.dense``, and a
@@ -97,7 +99,8 @@ def init_kv_cache(batch: int, max_len: int, kv_heads: int, head_dim: int, *,
 def attend(q, k, v, *, causal: bool = True, window: int = -1,
            q_offset: int = 0, kv_len: int | None = None,
            impl: str = "dense", q_chunk: int = Q_CHUNK) -> torch.Tensor:
-    """Attention of q [B,S,Hq,hd] over k/v [B,T,Hkv,hd] -> [B,S,Hq*hd].
+    """Attention of q [B,S,Hq,hd] over k [B,T,Hkv,hd] and v [B,T,Hkv,hv]
+    -> [B,S,Hq*hv], scaled by 1/sqrt(hd).
 
     Query ``i`` (global ``i + q_offset``) sees key ``j`` iff ``j <= i +
     q_offset`` (causal), ``i + q_offset - j < window`` (window > 0) and
@@ -106,6 +109,10 @@ def attend(q, k, v, *, causal: bool = True, window: int = -1,
     if impl not in IMPLS:
         raise ValueError(f"attend: impl must be one of {IMPLS}, got {impl!r}")
     if impl == "kernel":
+        if not q.shape[-1] == k.shape[-1] == v.shape[-1]:
+            raise ValueError(f"attend: the kernels take q, k and v of one "
+                             f"head dim, got {q.shape[-1]}, {k.shape[-1]} "
+                             f"and {v.shape[-1]}; ask for impl='dense'")
         if kv_len is None and q_offset == 0:
             obs.count("attend.flash_attention")
             return _fa.flash_attention(q, k, v, causal=causal, window=window)
@@ -128,8 +135,8 @@ class MHA(nn.Module):
 
     def __init__(self, d_model: int, *, n_heads: int, head_dim: int,
                  kv_heads: int | None = None, qkv_bias: bool = False,
-                 qk_norm: bool = False, generator=None, device=None,
-                 dtype=torch.float32):
+                 qk_norm: bool = False, norm_eps: float | None = None,
+                 generator=None, device=None, dtype=torch.float32):
         super().__init__()
         kv_heads = kv_heads or n_heads
         if n_heads % kv_heads:
@@ -143,8 +150,11 @@ class MHA(nn.Module):
         self.v = Dense(d_model, kv_heads * head_dim, bias=qkv_bias, **kw)
         self.o = Dense(n_heads * head_dim, d_model, bias=False, **kw)
         if qk_norm:
-            self.qn = RMSNorm(head_dim, device=device, dtype=dtype)
-            self.kn = RMSNorm(head_dim, device=device, dtype=dtype)
+            nk = dict(device=device, dtype=dtype)
+            if norm_eps is not None:
+                nk["eps"] = norm_eps
+            self.qn = RMSNorm(head_dim, **nk)
+            self.kn = RMSNorm(head_dim, **nk)
         else:
             self.qn = self.kn = None
 

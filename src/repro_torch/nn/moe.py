@@ -1,5 +1,6 @@
 """Top-k token-choice mixture of experts with capacity (port of
-``repro.nn.moe``; GShard/Switch semantics).
+``repro.nn.moe``; GShard/Switch semantics), and a dropless one with a
+sigmoid router and shared experts (DeepSeek-V3, a port-only path).
 
 The router runs in f32: softmax over the experts, the top k, their weights
 renormalised to sum to one, and the Switch load-balancing loss ``E *
@@ -44,9 +45,42 @@ needed).  Then:
 - expert-TP (``moe_tp``, when ``E % tp != 0``, grok1 at tp 16): a rank
   holds each expert's ``d_ff / tp`` columns of gate and up and rows of
   down, column- and row-parallel as the dense MLP.
+
+**The dropless path** (a ``router="sigmoid"`` MoE, :func:`moe_dropless`;
+DeepSeek-V3's ``noaux_tc`` router with ``n_group = topk_group = 1``):
+
+- router in f32: ``s = sigmoid(x W_r)`` over the experts; the top k of
+  ``s + b`` (``b`` the selection bias ``MoE.bias``, which picks but does
+  not weigh); weights ``s_i / sum_topk s_j * routed_scale`` from the
+  unbiased ``s``;
+- the ``B * S * k`` (token, choice) pairs are stably sorted by expert, so
+  each expert's pairs form one contiguous segment; the routed SwiGLUs run
+  as three grouped products over those segments (``torch._grouped_mm``
+  with the segments' ends as ``offs``; no capacity, no padding, no loop
+  over experts), and no pair is dropped;
+- combine: the outputs are put back in (token, choice) order through the
+  sort's permutation, and each token sums its ``k`` weighted, in f32 (one
+  batched product); the shared
+  expert (one SwiGLU of ``n_shared * d_ff`` over every token) is added in
+  the activation type, as DeepSeek-V3's reference adds it.
+
+It has no aux loss (0) and no tensor-parallel plan: under a 'model' axis
+above 1 it raises.  Spans: ``nn/moe`` around either path (routing, sort,
+dispatch, combine), ``nn/moe.experts`` around the expert products (the
+shared expert's included); counters ``moe.pairs`` (pairs computed) and
+``moe.dropped`` (0 on the dropless path; the capacity path counts its
+dropped pairs while tracing is on, which reads them on the host).
+
+:func:`recording` is the dropless path's routing record: inside its
+block each :func:`moe_dropless` call appends ``(x, idx)`` to the list it
+yields, in call order: its input x [B, S, d] and its chosen expert ids idx
+[B, S, k] (the top k of ``s + b``), both on the device, so that a check
+can hold the choices a forward made, and the router that made them, to a
+reference without reaching into the router.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import NamedTuple
 
@@ -55,18 +89,48 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..distributed import tp
+from ..runtime import obs
 from .linear import Dense, take_rows
 
-__all__ = ["MoE", "Route", "moe_route", "moe_apply", "capacity"]
+__all__ = ["MoE", "Route", "moe_route", "moe_apply", "moe_dropless",
+           "capacity", "recording"]
+
+ROUTERS = ("softmax", "sigmoid")
+_RECORD: list | None = None        # the open :func:`recording`'s list
+
+
+@contextlib.contextmanager
+def recording():
+    """Yields a list to which each :func:`moe_dropless` call inside the
+    block appends its input and its expert ids ``(x [B, S, d], idx [B, S,
+    k])`` (module docstring).  Blocks do not nest."""
+    global _RECORD
+    if _RECORD is not None:
+        raise RuntimeError("moe.recording: a recording is already open")
+    _RECORD = seen = []
+    try:
+        yield seen
+    finally:
+        _RECORD = None
 
 
 class MoE(nn.Module):
     """Router ``router.w`` [d, E] (always f32) and stacked expert weights
-    ``gate``, ``up`` [E, d, d_ff] and ``down`` [E, d_ff, d]."""
+    ``gate``, ``up`` [E, d, d_ff] and ``down`` [E, d_ff, d].  ``scoring``
+    is the router: ``"softmax"`` routes through the capacity path,
+    ``"sigmoid"`` through the dropless one with the selection bias ``bias``
+    [E] (f32, zeros); and
+    with ``n_shared`` one shared SwiGLU ``shared_gate``, ``shared_up`` [d,
+    n_shared * d_ff] and ``shared_down`` [n_shared * d_ff, d], drawn after
+    the routed experts."""
 
-    def __init__(self, d: int, d_ff: int, n_experts: int, *, generator=None,
+    def __init__(self, d: int, d_ff: int, n_experts: int, *,
+                 router: str = "softmax", n_shared: int = 0, generator=None,
                  device=None, dtype=torch.float32):
         super().__init__()
+        if router not in ROUTERS:
+            raise ValueError(f"router {router!r}: one of {ROUTERS}")
+        self.scoring = router
         self.router = Dense(d, n_experts, bias=False, generator=generator,
                             device=device, dtype=torch.float32)
 
@@ -79,6 +143,15 @@ class MoE(nn.Module):
         self.up = draw(n_experts, d, d_ff, fan_in=d)
         self.down = draw(n_experts, d_ff, d, fan_in=d_ff)
         self.d_ff = d_ff
+        self.bias = (nn.Parameter(torch.zeros(n_experts, device=device,
+                                              dtype=torch.float32))
+                     if router == "sigmoid" else None)
+        self.shared_gate = self.shared_up = self.shared_down = None
+        if n_shared:
+            fs = n_shared * d_ff
+            self.shared_gate = draw(d, fs, fan_in=d)
+            self.shared_up = draw(d, fs, fan_in=d)
+            self.shared_down = draw(fs, d, fan_in=fs)
 
     @property
     def n_experts(self) -> int:
@@ -132,6 +205,8 @@ def _data_parallel_sum(counts: torch.Tensor):
 def moe_route(p: MoE, x: torch.Tensor, *, top_k: int,
               capacity_factor: float = 1.25) -> Route:
     """Route x [B, S, d] to ``top_k`` of ``p``'s experts."""
+    if p.scoring != "softmax":
+        raise ValueError("the capacity path takes the softmax router")
     B, S, _ = x.shape
     E = p.n_experts
     probs = torch.softmax(x.float() @ p.router.w.float(), dim=-1)
@@ -157,14 +232,29 @@ def moe_route(p: MoE, x: torch.Tensor, *, top_k: int,
 
 
 def moe_apply(p: MoE, x: torch.Tensor, *, top_k: int,
-              capacity_factor: float = 1.25):
+              capacity_factor: float = 1.25, routed_scale: float = 1.0):
     """x [B, S, d] -> (out [B, S, d] in x's type, aux loss f32 scalar);
-    sharded over 'model' as the module docstring says."""
+    sharded over 'model' as the module docstring says.  A sigmoid router
+    runs :func:`moe_dropless` (``routed_scale`` is its, an aux loss of 0);
+    a softmax router the capacity path (``capacity_factor`` is its)."""
+    if p.scoring == "sigmoid":
+        return (moe_dropless(p, x, top_k=top_k, routed_scale=routed_scale),
+                torch.zeros((), dtype=torch.float32, device=x.device))
+    with obs.span("nn/moe"):
+        return _apply_capacity(p, x, top_k=top_k,
+                               capacity_factor=capacity_factor)
+
+
+def _apply_capacity(p: MoE, x: torch.Tensor, *, top_k: int,
+                    capacity_factor: float):
     B, S, d = x.shape
     E, SK = p.n_experts, S * top_k
     ax = tp.tp_axis()
     ep = ax is not None and p.gate.shape[0] != E
     r = moe_route(p, x, top_k=top_k, capacity_factor=capacity_factor)
+    obs.count("moe.pairs", B * SK)
+    if obs.tracing():
+        obs.count("moe.dropped", int((~r.keep).sum()))
     C = r.C
     # dispatch: slot c of expert e <- sorted pair start_e + c, if any
     c = torch.arange(C, device=x.device)
@@ -195,11 +285,71 @@ def moe_apply(p: MoE, x: torch.Tensor, *, top_k: int,
 def _experts(p: MoE, xe: torch.Tensor, ax) -> torch.Tensor:
     """SwiGLU of each expert's slots xe [..., E, C, d]; with ``ax`` (the
     expert-TP layout) column- then row-parallel over 'model'."""
-    xe = tp.copy_to_tp(xe, ax)
-    h = F.silu(torch.einsum("...ecd,edf->...ecf", xe, p.gate)) \
-        * torch.einsum("...ecd,edf->...ecf", xe, p.up)
-    return tp.reduce_from_tp(torch.einsum("...ecf,efd->...ecd", h, p.down),
-                             ax)
+    with obs.span("nn/moe.experts"):
+        xe = tp.copy_to_tp(xe, ax)
+        h = F.silu(torch.einsum("...ecd,edf->...ecf", xe, p.gate)) \
+            * torch.einsum("...ecd,edf->...ecf", xe, p.up)
+        return tp.reduce_from_tp(torch.einsum("...ecf,efd->...ecd", h,
+                                              p.down), ax)
+
+
+def _choose(p: MoE, x: torch.Tensor, top_k: int, routed_scale: float):
+    """The sigmoid router over x [N, d]: (weights [N, k] f32, expert ids
+    [N, k]), as the module docstring says."""
+    s = torch.sigmoid(x.float() @ p.router.w.float())
+    idx = torch.topk(s + p.bias.float(), top_k, dim=-1).indices
+    w = s.gather(-1, idx)
+    return w / (w.sum(-1, keepdim=True) + 1e-20) * routed_scale, idx
+
+
+def moe_dropless(p: MoE, x: torch.Tensor, *, top_k: int,
+                 routed_scale: float = 1.0) -> torch.Tensor:
+    """x [B, S, d] -> [B, S, d] in x's type: every (token, choice) pair
+    through its expert, plus the shared expert (module docstring)."""
+    if p.scoring != "sigmoid":
+        raise ValueError("the dropless path takes the sigmoid router")
+    if tp.tp_axis() is not None:
+        raise NotImplementedError("the dropless MoE (sigmoid router, "
+                                  "shared experts) has no tensor-parallel "
+                                  "plan")
+    with obs.span("nn/moe"):
+        B, S, d = x.shape
+        N, E = B * S, p.n_experts
+        xf = x.reshape(N, d)
+        w, idx = _choose(p, xf, top_k, routed_scale)
+        if _RECORD is not None:
+            _RECORD.append((x, idx.reshape(B, S, top_k)))
+        ids, order = torch.sort(idx.reshape(-1), stable=True)
+        # each expert's segment ends where the sorted ids pass it: no count
+        # read back to the host
+        offs = torch.searchsorted(ids, torch.arange(E, device=x.device),
+                                  right=True).to(torch.int32)
+        xs = take_rows(xf, torch.div(order, top_k, rounding_mode="floor"))
+        ys, shared = _grouped_experts(p, xs, offs, xf)
+        back = torch.empty_like(ys)
+        back[order] = ys                   # sorted pair j back to its place
+        out = torch.bmm(w[:, None, :], back.reshape(N, top_k, d).float())[
+            :, 0].to(x.dtype)
+        if shared is not None:
+            out = out + shared
+        obs.count("moe.pairs", N * top_k)
+        obs.count("moe.dropped", 0)
+        return out.reshape(B, S, d)
+
+
+def _grouped_experts(p: MoE, xs: torch.Tensor, offs: torch.Tensor,
+                     x: torch.Tensor):
+    """The routed SwiGLUs over the sorted pairs xs [N*k, d], expert ``e``
+    on rows ``offs[e-1]:offs[e]``, as grouped products; and the shared
+    expert over the tokens x [N, d] (None without one)."""
+    with obs.span("nn/moe.experts"):
+        h = F.silu(torch._grouped_mm(xs, p.gate, offs=offs)) \
+            * torch._grouped_mm(xs, p.up, offs=offs)
+        ys = torch._grouped_mm(h, p.down, offs=offs)
+        if p.shared_gate is None:
+            return ys, None
+        hs = F.silu(x @ p.shared_gate) * (x @ p.shared_up)
+        return ys, hs @ p.shared_down
 
 
 def _combine(ye, rows, slot, wt, EC: int, S: int, top_k: int):

@@ -70,12 +70,17 @@ def remat_call(blk, *args, remat: str = "none", **kw):
                       preserve_rng_state=False, **kw)
 
 
-def make_norm(kind: str, d: int, *, device=None, dtype=torch.float32):
-    """``RMSNorm`` for ``"rms"``, ``LayerNorm`` for ``"layer"``."""
+def make_norm(kind: str, d: int, *, eps: float | None = None, device=None,
+              dtype=torch.float32):
+    """``RMSNorm`` for ``"rms"``, ``LayerNorm`` for ``"layer"``; ``eps``
+    None keeps the norm's own default."""
+    kw = dict(device=device, dtype=dtype)
+    if eps is not None:
+        kw["eps"] = eps
     if kind == "rms":
-        return RMSNorm(d, device=device, dtype=dtype)
+        return RMSNorm(d, **kw)
     if kind == "layer":
-        return LayerNorm(d, device=device, dtype=dtype)
+        return LayerNorm(d, **kw)
     raise ValueError(f"unknown norm {kind!r}")
 
 
@@ -113,24 +118,26 @@ class MLP(nn.Module):
 
 class Block(nn.Module):
     """``x + attn(norm1(x))``, with ``cross_attn`` then ``+
-    xattn(normx(x), memory)``, then ``+ mlp(norm2(x))``."""
+    xattn(normx(x), memory)``, then ``+ mlp(norm2(x))``; ``norm_eps`` (None:
+    the norms' defaults) reaches every norm of the block, qk-norm's too."""
 
     def __init__(self, d_model: int, *, n_heads: int, head_dim: int,
                  d_ff: int, kv_heads: int | None = None,
                  mlp_kind: str = "swiglu", norm: str = "rms",
                  qkv_bias: bool = False, qk_norm: bool = False,
-                 cross_attn: bool = False, generator=None, device=None,
-                 dtype=torch.float32):
+                 cross_attn: bool = False, norm_eps: float | None = None,
+                 generator=None, device=None, dtype=torch.float32):
         super().__init__()
         kw = dict(generator=generator, device=device, dtype=dtype)
-        self.ln1 = make_norm(norm, d_model, device=device, dtype=dtype)
+        nk = dict(eps=norm_eps, device=device, dtype=dtype)
+        self.ln1 = make_norm(norm, d_model, **nk)
         self.attn = MHA(d_model, n_heads=n_heads, head_dim=head_dim,
                         kv_heads=kv_heads, qkv_bias=qkv_bias,
-                        qk_norm=qk_norm, **kw)
-        self.ln2 = make_norm(norm, d_model, device=device, dtype=dtype)
+                        qk_norm=qk_norm, norm_eps=norm_eps, **kw)
+        self.ln2 = make_norm(norm, d_model, **nk)
         self.mlp = MLP(d_model, d_ff, kind=mlp_kind, **kw)
         if cross_attn:
-            self.lnx = make_norm(norm, d_model, device=device, dtype=dtype)
+            self.lnx = make_norm(norm, d_model, **nk)
             self.xattn = MHA(d_model, n_heads=n_heads, head_dim=head_dim,
                              kv_heads=kv_heads, **kw)
 
