@@ -4,8 +4,8 @@
     python3 chip_smoke.py [--parent-fa TREE]
 
 With ``--parent-fa``, ``TREE``'s ``flash_attention.cu`` (a checkout of an
-earlier commit) is built beside this one's and its f32 kernel is timed in
-turns with this one in phases 8 and 11.
+earlier commit) is built beside this one's and its kernels are timed in
+turns with this one's: f32 and bf16 in phase 8, f32 in phase 11.
 
 Phases, each of which raises on failure (the script then exits non-zero):
 
@@ -89,7 +89,14 @@ Phases, each of which raises on failure (the script then exits non-zero):
    shapes are among the cases: ``flash_attention`` non-causal at S 1 and
    187 over T 1500 (whisper's cross-attention) and at 25/5 heads with a
    1024 window (hymba), ``flash_decode`` at G 16, 5 and 6, kv_len 1 to T,
-   and at G 16's largest split (bk 2048);
+   and at G 16's largest split (bk 2048); bf16 ``flash_attention`` at
+   latent attention's q/k 192 and v 128 (Moonlight's prompt), causal, at
+   [4, 320], [4, 1168], [4, 6592] and [1, 200] with 16/16 heads and at
+   [2, 1168] with V the [..., 128:] half of a 256-wide row, within
+   ``fa.bf16_limit``, one launch of the <192,128> instance a call, then
+   timed at [4, 6592] and [4, 1168] beside its bound, its plain twin and
+   ``scaled_dot_product_attention`` by backend; bf16 at hd 64 and 128 at
+   the scoring shape timed in turns with ``--parent-fa``'s kernel;
 9. scoring: qwen3_8b at full width and depth (bf16, seeded random
    weights) scores 2 x 4096 tokens through ``lm.forward``: exactly 36
    ``flash_attention`` launches, all on the tensor-core path, finite
@@ -408,16 +415,18 @@ def peak_ops(dtype) -> float:
         H100_F32_OPS_PER_S
 
 
-def fa_bound_ms(B, S, T, Hq, Hkv, hd, causal, window, dtype):
-    """Least time for one flash_attention call: 4 * hd operations per
-    visible (query, key) pair and head over the peak of the input type
-    (for f32 the CUDA cores' 67 TFLOP/s, kept as a reference line beside
-    the f32 route's own bound, ``fa_tf32x3_bound_ms``); q, k, v read once
-    and the output written once over HBM."""
+def fa_bound_ms(B, S, T, Hq, Hkv, hd, causal, window, dtype, hv=None):
+    """Least time for one flash_attention call: 2 * (hd + hv) operations
+    per visible (query, key) pair and head (hv, v's head dim, defaults to
+    hd) over the peak of the input type (for f32 the CUDA cores' 67
+    TFLOP/s, kept as a reference line beside the f32 route's own bound,
+    ``fa_tf32x3_bound_ms``); q, k, v read once and the output written once
+    over HBM."""
     import torch
     size = torch.finfo(dtype).bits // 8
-    ops = 4 * hd * visible_pairs(S, T, causal, window) * B * Hq
-    nbytes = size * (2 * B * S * Hq * hd + 2 * B * T * Hkv * hd)
+    hv = hd if hv is None else hv
+    ops = 2 * (hd + hv) * visible_pairs(S, T, causal, window) * B * Hq
+    nbytes = size * (B * S * Hq * (hd + hv) + B * T * Hkv * (hd + hv))
     return roofline_ms(nbytes, ops, peak_ops(dtype))
 
 
@@ -447,6 +456,31 @@ def sdpa_ms(q, k, v, causal: bool, reps: int) -> float:
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     return time_ms(lambda: F.scaled_dot_product_attention(
         qt, kt, vt, is_causal=causal, enable_gqa=True), reps)
+
+
+def sdpa_backends_ms(q, k, v, reps: int) -> dict:
+    """Causal ``scaled_dot_product_attention`` on the same inputs (as many
+    q-heads as kv-heads; v's head dim may differ from q's) by backend: the
+    one PyTorch picks, and the memory-efficient and cuDNN ones, each in ms
+    a call or the first line of its refusal (the yardstick; the port never
+    calls it)."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    run = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    out = {}
+    for name, backend in (("default", None),
+                          ("efficient", SDPBackend.EFFICIENT_ATTENTION),
+                          ("cudnn", SDPBackend.CUDNN_ATTENTION)):
+        try:
+            if backend is None:
+                out[name] = time_ms(run, reps)
+            else:
+                with sdpa_kernel(backend):
+                    out[name] = time_ms(run, reps)
+        except RuntimeError as e:
+            out[name] = "refused: " + (str(e).splitlines() or [""])[0][:160]
+    return out
 
 
 def family_attention_shapes():
@@ -561,10 +595,10 @@ def attention_kernels(dev, parent=None) -> dict:
     fa_strict = fa_gated = 0.0           # bf16 flash_attention, old / new
     rng = np.random.default_rng(0)
 
-    def qkv(dtype, B, S, T, Hq, Hkv, hd):
+    def qkv(dtype, B, S, T, Hq, Hkv, hd, hv=None):
         mk = lambda *sh: torch.as_tensor(rng.normal(size=sh), dtype=dtype,
                                          device=dev)
-        return mk(B, S, Hq, hd), mk(B, T, Hkv, hd), mk(B, T, Hkv, hd)
+        return mk(B, S, Hq, hd), mk(B, T, Hkv, hd), mk(B, T, Hkv, hv or hd)
 
     def held(label, got, want, dtype, limit=None):
         """Check got against want within atol + rtol |want|, or within the
@@ -639,6 +673,31 @@ def attention_kernels(dev, parent=None) -> dict:
             fa_strict, fa_gated = max(fa_strict, strict), max(fa_gated, ratio)
         fa_err[dt] = max(fa_err.get(dt, 0.0), err)
         del q, k, v, want, limit, got
+    # latent attention's prompt (Moonlight's MLA, nn.mla): bf16 q/k 192 and
+    # v 128, causal, on the <192,128> instance, one launch a call, at
+    # prefill_code's shortest, middle and longest lengths and a ragged
+    # 200; the last case reads V as MLA hands it, the [..., 128:] half of
+    # the up-projection's [B, S, H, 256] output
+    mla_cases = [(4, S, 16, 128) for S in (320, 1168, 6592)]
+    mla_cases += [(1, 200, 16, 128), (2, 1168, 16, 256)]
+    mla_gated = 0.0
+    for B, S, H, hv in mla_cases:
+        q, k, v = qkv(torch.bfloat16, B, S, S, H, H, 192, hv)
+        v = v[..., hv - 128:]
+        label = (f"flash_attention B{B} S{S} H{H}/{H} hd 192/128 bf16 causal"
+                 + (" (V as [..., 128:] of 256)" if hv == 256 else ""))
+        want = fa.flash_attention_plain(q, k, v)
+        limit = fa.bf16_limit(q, k, v, want=want)
+        before = (fa.STATS.launches, fa.STATS.tensor_core_192_128)
+        got = fa.flash_attention(q, k, v)
+        check((fa.STATS.launches, fa.STATS.tensor_core_192_128)
+              == (before[0] + 1, before[1] + 1), f"{label}: a call is not "
+              f"one launch of the <192,128> instance")
+        mla_gated = max(mla_gated, held(label, got, want, torch.bfloat16,
+                                        limit)[2])
+        HELD.add(fa_shape(q, k, True, -1))
+        del q, k, v, want, limit, got
+    torch.cuda.empty_cache()
     # large scores (q, k x 4 and x 8): no f32 kernel holds the gate against
     # the twin there, so both are held to an f64 attention, the kernel's
     # error at most twice the twin's
@@ -669,6 +728,11 @@ def attention_kernels(dev, parent=None) -> dict:
           f"|plain| + 2^-8 plain(q, k, |v|), {fa_strict:.3g} against the "
           f"old 1e-3 + 8e-3 |plain|; f32 (3xTF32 path) two calls "
           f"bit-identical on all {fa_same}, one launch a call")
+    print(f"      flash_attention bf16 at q/k 192, v 128 == plain on "
+          f"{len(mla_cases)} causal shapes (" + ", ".join(
+              f"[{B}, {S}, {H}/{H}]" + (" V half a row" if hv == 256 else "")
+              for B, S, H, hv in mla_cases) + f"), one launch of "
+          f"<192,128> a call: worst |got - want| / limit {mla_gated:.3g}")
     print("      flash_attention f32 at large scores, max abs err against "
           "f64, kernel / twin: " + "; ".join(
               f"{key} {g:.3g} / {t:.3g} ({g / t:.3f})"
@@ -807,6 +871,40 @@ def attention_kernels(dev, parent=None) -> dict:
     fa_bound, fa_by = fa_bound_ms(SCORE_B, SCORE_S, SCORE_S, 32, 8, 128,
                                   True, -1, torch.bfloat16)
     del q, k, v, want
+    # bf16 at hd 64 and 128 at the scoring shape, in turns with the
+    # parent's kernel where given (parent, change, change, parent, twice)
+    order = (("parent", "change", "change", "parent") * 2 if parent
+             else ("change",) * 4)
+    bf16_ab = {}
+    for hd in (64, 128):
+        q, k, v = qkv(torch.bfloat16, SCORE_B, SCORE_S, SCORE_S, 32, 8, hd)
+        run = lambda: fa.flash_attention(q, k, v)
+        ms, par = [], []
+        for who in order:
+            with ab.swap(parent if who == "parent" else None):
+                (par if who == "parent" else ms).append(time_ms(run, 20))
+        bf16_ab[hd] = dict(
+            shape=[SCORE_B, SCORE_S, 32, 8, hd], ms_runs=ms,
+            parent_runs=par or None,
+            bound_ms=fa_bound_ms(SCORE_B, SCORE_S, SCORE_S, 32, 8, hd, True,
+                                 -1, torch.bfloat16)[0])
+        del q, k, v, run
+    # bf16 at q/k 192, v 128 at prefill_code's longest and middle batches,
+    # V as MLA hands it, beside the plain twin and the library
+    latent = {}
+    for B, S in ((4, 6592), (4, 1168)):
+        q, k, kv = qkv(torch.bfloat16, B, S, S, 16, 16, 192, 256)
+        v = kv[..., 128:]
+        run = lambda: fa.flash_attention(q, k, v)
+        latent[f"{B}x{S}"] = dict(
+            shape=[B, S, 16, 16, 192, 128],
+            ms_runs=[time_ms(run, 20) for _ in range(3)],
+            plain_ms=time_ms(lambda: fa.flash_attention_plain(q, k, v), 3),
+            library_ms=sdpa_backends_ms(q, k, v, 10),
+            bound_ms=fa_bound_ms(B, S, S, 16, 16, 192, True, -1,
+                                 torch.bfloat16, hv=128)[0])
+        del q, k, kv, v, run
+        torch.cuda.empty_cache()
     # f32 (the 3xTF32 path) at the self-check's shape and at the scoring
     # shape, in turns with the parent's kernel where given (parent,
     # change, change, parent)
@@ -899,6 +997,23 @@ def attention_kernels(dev, parent=None) -> dict:
           f"S{SCORE_S} Hq32/8 hd128 causal]: kernel {fa_ms:.4f} ms "
           f"({tflops:.1f} TFLOP/s), plain {fa_plain:.4f} ms, sdpa "
           f"{fa_lib:.4f} ms, bound {fa_bound:.4f} ms ({fa_by})")
+    for hd, r in bf16_ab.items():
+        par = ("parent " + " / ".join(f"{x:.4f}" for x in r["parent_runs"])
+               + " ms, " if r["parent_runs"] else "parent not given, ")
+        print(f"      flash_attention bf16 [B{SCORE_B} S{SCORE_S} Hq32/8 "
+              f"hd{hd} causal]: kernel " + " / ".join(
+                  f"{x:.4f}" for x in r["ms_runs"]) + f" ms, {par}bound "
+              f"{r['bound_ms']:.4f} ms")
+    for key, r in latent.items():
+        lib = "; ".join(f"{n} " + (f"{x:.4f} ms" if isinstance(x, float)
+                                   else x)
+                        for n, x in r["library_ms"].items())
+        print(f"      flash_attention bf16 at q/k 192, v 128 [{key}, 16/16, "
+              f"causal, V half a row]: kernel " + " / ".join(
+                  f"{x:.4f}" for x in r["ms_runs"]) + f" ms ("
+              f"{r['bound_ms'] / min(r['ms_runs']):.3f} of the bound at "
+              f"best), plain {r['plain_ms']:.4f} ms, sdpa {lib}, bound "
+              f"{r['bound_ms']:.4f} ms")
     for key, r in f32.items():
         B, S = r["shape"][:2]
         par = ("parent " + " / ".join(
@@ -947,7 +1062,8 @@ def attention_kernels(dev, parent=None) -> dict:
                 max_abs_err=fa_main_err, ms=fa_ms, plain_ms=fa_plain,
                 bound_ms=fa_bound, bound_by=fa_by, library_ms=fa_lib,
                 path="tensor_core", worst_err_ratio_strict=fa_strict,
-                worst_err_ratio=fa_gated),
+                worst_err_ratio=fa_gated, by_head_dim=bf16_ab,
+                latent=dict(worst_err_ratio=mla_gated, **latent)),
             "flash_attention_f32": dict(
                 max_abs_err=sc["max_abs_err"], ms=sc["ms"],
                 plain_ms=sc["plain_ms"], bound_ms=sc["bound_ms"],
@@ -981,6 +1097,7 @@ def counts() -> dict:
             "flash_attention": fa.STATS.launches,
             "fa_tensor_core": fa.STATS.tensor_core,
             "fa_tensor_core_tf32x3": fa.STATS.tensor_core_tf32x3,
+            "fa_tensor_core_192_128": fa.STATS.tensor_core_192_128,
             "flash_decode": fd.STATS.launches,
             "wkv6": rk.STATS.launches}
 
@@ -3797,8 +3914,9 @@ def main(argv=None) -> int:
                                  "on one CUDA card.")
     ap.add_argument("--parent-fa", type=pathlib.Path, default=None,
                     help="a tree whose src/repro_torch/kernels/csrc/"
-                    "flash_attention.cu is built beside this one's, its f32 "
-                    "kernel timed in turns with this one (phases 8 and 11)")
+                    "flash_attention.cu is built beside this one's, its "
+                    "kernels timed in turns with this one's (phase 8 bf16 "
+                    "and f32, phase 11 f32)")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -3844,13 +3962,14 @@ def main(argv=None) -> int:
             if any(w in line for w in ("registers", "spill", "setmaxnreg",
                                        "warning")):
                 print(f"      ptxas {src}: {line.strip()}")
-    for hd in fa.HEAD_DIMS:
-        info = fa.tc_info(hd)
-        print(f"      flash_attention tensor-core kernel at hd {hd}: "
+    for hd, hv in fa.HEAD_DIMS[torch.bfloat16]:
+        info = fa.tc_info(hd, hv)
+        print(f"      flash_attention tensor-core kernel at hd {hd}/{hv}: "
               f"{info['threads']} threads, setmaxnreg producer "
               f"{info['producer_regs']} / consumers {info['consumer_regs']} "
               f"registers, {info['stages']} K/V stages, "
               f"{info['smem_bytes']} bytes of shared memory")
+    for hd, _ in fa.HEAD_DIMS[torch.float32]:
         info = fa.tf32_info(hd)
         print(f"      flash_attention 3xTF32 kernel at hd {hd}: "
               f"{info['threads']} threads, {info['stages']} K/V stages of "

@@ -71,13 +71,25 @@ def finish_build(job) -> _Lib:
     shim = _Lib()
     shim.log = log
     vp, ci, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    # builds whose launches take one head dim lack flash_attention_tc_pairs
+    pairs = hasattr(lib, "flash_attention_tc_pairs")
     for name, fn in (("flash_attention_tf32_launch", f32),
                      ("flash_attention_tc_launch",
                       lib.flash_attention_tc_launch)):
-        fn.argtypes = [vp] * 4 + [ci] * 6 + [ll] * 9 + [ci] * 2 + [vp]
+        fn.argtypes = [vp] * 4 + [ci] * (7 if pairs else 6) + [ll] * 9 \
+            + [ci] * 2 + [vp]
         fn.restype = ci
-        setattr(shim, name, fn)
+        setattr(shim, name, fn if pairs else _one_head_dim(fn))
     return shim
+
+
+def _one_head_dim(fn):
+    """A launch that takes one head dim, called as this tree's, which
+    take the (q/k, v) pair: an unequal pair is refused as the launch
+    refuses a head dim it lacks (cudaErrorInvalidValue)."""
+    def launch(*a):
+        return fn(*a[:10], *a[11:]) if a[9] == a[10] else 1
+    return launch
 
 
 @contextlib.contextmanager

@@ -3,23 +3,26 @@
 // Replaces the TPU Pallas kernel `_fa_kernel` in
 // src/repro/kernels/flash_attention.py (launched by `flash_attention`).
 //
-// What it computes.  q [B, S, Hq, hd], k/v [B, T, Hkv, hd] -> out
-// [B, S, Hq*hd]: query row i sees key j iff j <= i (causal), i - j < window
-// (window > 0) and j < T; q-head h reads kv-head h / G with G = Hq / Hkv
-// (GQA).  Inputs are read through their strides in the JAX layout (no
-// transposes; the head dim must be contiguous); the output has the input's
-// type.  A query row that sees no key at all (only possible with a window
-// and S > T) is left at zero, where the dense reference averages V; the LM
-// never asks for one.
+// What it computes.  q [B, S, Hq, hd], k [B, T, Hkv, hd], v [B, T, Hkv, hv]
+// -> out [B, S, Hq*hv], scores scaled by 1/sqrt(hd): query row i sees key j
+// iff j <= i (causal), i - j < window (window > 0) and j < T; q-head h reads
+// kv-head h / G with G = Hq / Hkv (GQA).  (hd, hv) is (64, 64) or
+// (128, 128) on both paths and, on the bf16 path, also latent attention's
+// (192, 128): DeepSeek-V3's prompt, whose keys are 128 up-projected and 64
+// roped columns and whose values are 128 wide.  Inputs are read through
+// their strides in the JAX layout (no transposes; the head dim must be
+// contiguous); the output has the input's type.  A query row that sees no
+// key at all (only possible with a window and S > T) is left at zero, where
+// the dense reference averages V; the LM never asks for one.
 //
-// What bounds it on this card.  Operations: 4 * hd per visible (query, key)
-// pair (2 * hd multiply-adds, in Q K^T and in P V) against 2 * hd * (S + T)
-// elements of input, far above the ~295 bf16 tensor-core operations the
-// H100 does per byte of HBM.  Its bound is the pair count times 4 * hd over
-// the peak of the route: 989 TFLOP/s for bf16 on the tensor cores; for
-// f32, three TF32 products per f32 one (below) over the 495 TFLOP/s TF32
-// peak, i.e. 165 TFLOP/s of f32 work (the 67 TFLOP/s of f32 outside the
-// tensor cores is the old route's).
+// What bounds it on this card.  Operations: 2 * (hd + hv) per visible
+// (query, key) pair (hd multiply-adds in Q K^T, hv in P V) against about
+// (hd + hv) * (S + T) elements of input, far above the ~295 bf16
+// tensor-core operations the H100 does per byte of HBM.  Its bound is the
+// pair count times 2 * (hd + hv) over the peak of the route: 989 TFLOP/s
+// for bf16 on the tensor cores; for f32, three TF32 products per f32 one
+// (below) over the 495 TFLOP/s TF32 peak, i.e. 165 TFLOP/s of f32 work
+// (the 67 TFLOP/s of f32 outside the tensor cores is the old route's).
 //
 // Two kernels, chosen by the input type, both on the tensor cores and both
 // reading q, k and v through 4-D TMA maps over the JAX layout (hd, H, S, B),
@@ -29,27 +32,60 @@
 // rows; rows past S or T are filled with zeros by TMA, and a key >= T is
 // masked to -inf; only the diagonal, window-edge and ragged tiles are
 // masked, and KV tiles that the causal and window rules rule out are not
-// loaded at all.  The longest causal q-tiles are issued first.
+// loaded at all.  The longest causal q-tiles are launched first: of all heads
+// at once, except in the bf16 kernel's <192,128>, which takes a group of
+// heads at a time (below).
 //
 // * bf16: `tc::fa_tc_kernel`.  One CTA of three warpgroups per (128 query
-//   rows, q-head, batch).  Warpgroup 0 is the producer: its registers are
-//   lowered with `setmaxnreg`, and one of its threads issues TMA loads, the
-//   Q tile once, then the K and V tiles of the kv-head through a ring of
-//   three stages (224 KB at hd 128), each with a full barrier for K, one
-//   for V and an empty barrier.  Warpgroups 1 and 2 each own 64 query rows:
-//   S = Q K^T by `wgmma` (m64n128k16, both operands K-major in shared
-//   memory, 128-byte swizzle), the online softmax on the f32 accumulator in
-//   registers (the 1/sqrt(hd) scale applied in f32 after the product,
-//   folded with log2 e into exp2, so q is never rounded by a pre-scale),
-//   then O += P V by `wgmma` with P converted to bf16 in registers as the A
-//   operand and V read from shared memory in its row-major [keys, hd]
-//   layout with the transpose bit set.  A consumer issues the next tile's
-//   Q K^T before the last tile's P V, and runs the next softmax while P V
-//   is on the tensor cores.  O is rescaled by alpha between the two
-//   products and divided by l in f32 at the end.  A box is 64 columns by
-//   128 rows, so an hd-128 row is two boxes.  P is rounded to bf16 before
-//   P V: one rounding more than the f32 path, which the card's gate allows
-//   for.
+//   rows, q-head, batch), templated on (hd, hv) as <DQK, DV>.  The grid is
+//   (pairs of a group, q-tiles, groups): a group of (batch, q-head) pairs
+//   at a time, the pairs fastest and the q-tiles longest first.  At
+//   <64,64> and <128,128> one group holds every pair, the grid the f32
+//   kernel's.  At <192,128> a group holds as many kv-heads as keep their
+//   K/V within half the L2 (`head_group`, the L2's size read once a
+//   device), so the ~132 blocks in flight read K/V tiles that L2 holds;
+//   where all K/V fit, one group is every pair.  A long prompt's K/V
+//   outgrow the 50 MB L2 (270 MB at
+//   [4, 6592, 16 heads, 192/128]): in one group the blocks in flight
+//   spanned every head and each q-tile read its K/V prefix from HBM,
+//   7.1 GB or 2.1 ms at 3.35 TB/s, what that shape took (2.01-2.30 ms);
+//   in groups of 6 heads it takes 1.34-1.45 ms, against a 0.90 ms bound
+//   (H100 80GB HBM3 at 700 W).  The same order numbered in one dimension
+//   ran 12-16% slower than the 2-D grid at [2, 4096, 32/8, 64], whose K/V
+//   fit.  Warpgroup 0 is the producer: its registers are lowered with
+//   `setmaxnreg`, and one of its threads starts TMA loads, the Q tile once,
+//   then the K and V tiles of the kv-head through a ring of stages, each
+//   with a full barrier for K, one for V and an empty barrier.  The ring
+//   takes as many 128-key stages as fit beside the Q tile in the 232,448
+//   bytes a block may use, at most three: three at <64,64> (113 KB) and
+//   <128,128> (225 KB); two at <192,128> (209 KB: a 48 KB Q tile, 48 KB of
+//   K and 32 KB of V a stage; three would take 289 KB).  With two stages a
+//   stage's K and V are freed apart, K by a barrier of its own once its
+//   Q K^T is done, so the producer loads the next K tile but one while
+//   this tile's softmax and P V run, as a third stage would let it; with
+//   one shared barrier it could load only after the last P V, and every
+//   tile waited a load: 15-25% slower from 1168 tokens up (1.67-1.78 ms
+//   against 1.37-1.41 ms at [4, 6592]).  A 64-key stage would give
+//   <192,128> three stages, but would halve S's accumulator and the keys
+//   a P V step; it was not tried.
+//   Warpgroups 1 and 2 each own 64 query rows: S = Q K^T by `wgmma`
+//   (m64n128k16, both operands K-major in shared memory, 128-byte swizzle;
+//   hd / 16 k-steps, 12 at hd 192, into the same 64 f32 accumulators a
+//   thread), the online softmax on the f32 accumulator in registers (the
+//   1/sqrt(hd) scale applied in f32 after the product, folded with log2 e
+//   into exp2, so q is never rounded by a pre-scale), then O += P V by
+//   `wgmma` with P converted to bf16 in registers as the A operand and V
+//   read from shared memory in its row-major [keys, hv] layout with the
+//   transpose bit set.  A consumer starts the next tile's Q K^T before the
+//   last tile's P V, and runs the next softmax while P V is on the tensor
+//   cores.  O is rescaled by alpha between the two products and divided by
+//   l in f32 at the end.  A box is 64 columns by 128 rows, so an hd-128 row
+//   is two boxes and an hd-192 row three.  O is hv / 2 f32 registers a
+//   thread, so <192,128>'s consumer holds what <128,128>'s does (o[64],
+//   s[64], P in 8 x 4 registers) and keeps its register split.  P is
+//   rounded to bf16 before P V, as DeepSeek-V3's published modeling code
+//   casts the softmax to the query's type before the value product: one
+//   rounding more than the f32 path, which the card's gate allows for.
 // * f32: `tf::fa_tf32_kernel`, 3xTF32 on the tensor cores.  It replaces a
 //   CUDA-core kernel that reached 21% of the 67 TFLOP/s f32 bound: its
 //   inner products were held by shared-memory loads (8 loads a 16 FMAs),
@@ -101,6 +137,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace tc {
 
 constexpr int kBQ = 128;             // query rows per CTA (64 per consumer)
@@ -110,17 +148,34 @@ constexpr int kProducerRegs = 40;    // setmaxnreg: 128 x 40 + 256 x 232
 constexpr int kConsumerRegs = 232;   //   = 64512 of the SM's 65536
 constexpr int kBoxCols = 64;         // bf16 columns of one 128-byte box
 constexpr int kBoxBytes = 128 * kBoxCols * 2;   // 128 rows x 128 bytes
+constexpr int kSmemMax = 232448;     // dynamic shared memory a block may use
 constexpr float kLog2e = 1.4426950408889634f;
 
-template <int HD>
+// The kernel at a Q K^T depth DQK and a V width DV (64 columns a box).  The
+// K/V ring takes as many stages as fit beside the Q tile, at most three:
+// three at <64,64> and <128,128>, two at <192,128>.  With two stages a
+// stage's K and V are released apart (kSplit): K once its Q K^T is done,
+// so the next K tile but one lands while this tile's softmax and P V run.
+// <192,128> runs its blocks in L2-sized head groups (kGroups, head_group);
+// the equal-dims instances launch every pair in one group, as before it.
+template <int DQK, int DV>
 struct Cfg {
-  static constexpr int kStages = 3;
-  static constexpr int kBoxes = HD / kBoxCols;        // boxes per tile row
-  static constexpr int kTileBytes = kBoxes * kBoxBytes;
-  static constexpr int kBars = 1 + 3 * kStages;       // q, k/v full, empty
+  static constexpr bool kGroups = DQK != DV;
+  static constexpr int kQBoxes = DQK / kBoxCols;      // boxes per Q or K row
+  static constexpr int kVBoxes = DV / kBoxCols;       // boxes per V row
+  static constexpr int kQKBytes = kQBoxes * kBoxBytes;   // a Q or K tile
+  static constexpr int kVBytes = kVBoxes * kBoxBytes;    // a V tile
+  // stages that fit beside the Q tile, the slack and 13 barriers
+  static constexpr int kFit =
+      (kSmemMax - 1024 - kQKBytes - 8 * 13) / (kQKBytes + kVBytes);
+  static constexpr int kStages = kFit < 3 ? kFit : 3;
+  static constexpr bool kSplit = kStages < 3;
+  // q; k/v full, empty (V's alone where kSplit); K's empty where kSplit
+  static constexpr int kBars = 1 + (kSplit ? 4 : 3) * kStages;
   // 1024 bytes of slack to align the tiles to the swizzle's 1024-byte atom
-  static constexpr int kSmem = 1024 + kTileBytes * (1 + 2 * kStages) +
-                               8 * kBars;
+  static constexpr int kSmem =
+      1024 + kQKBytes + kStages * (kQKBytes + kVBytes) + 8 * kBars;
+  static_assert(kStages >= 2 && kSmem <= kSmemMax, "tiles do not fit");
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -257,28 +312,35 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-template <int HD>
+template <int DQK, int DV>
 __global__ void __launch_bounds__(kThreads, 1)
 fa_tc_kernel(const __grid_constant__ CUtensorMap qmap,
              const __grid_constant__ CUtensorMap kmap,
              const __grid_constant__ CUtensorMap vmap,
              __nv_bfloat16* __restrict__ out, int S, int Tk, int Hq, int G,
-             int causal, int window, float scale_log2) {
-  using C = Cfg<HD>;
+             int BH, int causal, int window, float scale_log2) {
+  using C = Cfg<DQK, DV>;
   constexpr int ST = C::kStages;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   const uint32_t q_s = smem_u32(base);
-  const uint32_t k_s = q_s + C::kTileBytes;                 // ST tiles
-  const uint32_t v_s = k_s + ST * C::kTileBytes;            // ST tiles
-  const uint32_t bar = v_s + ST * C::kTileBytes;            // 8 bytes each
+  const uint32_t k_s = q_s + C::kQKBytes;                   // ST tiles
+  const uint32_t v_s = k_s + ST * C::kQKBytes;              // ST tiles
+  const uint32_t bar = v_s + ST * C::kVBytes;               // 8 bytes each
   const uint32_t q_full = bar;
   auto k_full = [&](int s) { return bar + 8 * (1 + s); };
   auto v_full = [&](int s) { return bar + 8 * (1 + ST + s); };
+  // the stage free (V's half alone where C::kSplit), and K's half
   auto empty = [&](int s) { return bar + 8 * (1 + 2 * ST + s); };
+  auto k_empty = [&](int s) { return bar + 8 * (1 + 3 * ST + s); };
 
-  const int h = blockIdx.x % Hq, b = blockIdx.x / Hq, hk = h / G;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;        // longest first
+  // Block (x, y, z): (batch, q-head) pair bh = z gridDim.x + x of the BH,
+  // q-tile y from the last, so a group of gridDim.x pairs runs at a time,
+  // its longest tiles first.
+  const int bh = blockIdx.z * gridDim.x + blockIdx.x;
+  if (bh >= BH) return;                     // the last group's spare blocks
+  const int h = bh % Hq, b = bh / Hq, hk = h / G;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;
   const int nkv = (Tk + kBK - 1) / kBK;
   int hi = nkv;
   if (causal) hi = min(nkv, (q0 + kBQ - 1) / kBK + 1);
@@ -292,6 +354,7 @@ fa_tc_kernel(const __grid_constant__ CUtensorMap qmap,
       mbar_init(k_full(s), 1);
       mbar_init(v_full(s), 1);
       mbar_init(empty(s), 2 * 128);   // every consumer thread arrives
+      if constexpr (C::kSplit) mbar_init(k_empty(s), 2 * 128);
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
     asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
@@ -303,22 +366,24 @@ fa_tc_kernel(const __grid_constant__ CUtensorMap qmap,
     // ---- producer: one thread keeps the TMA ring full ----
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(kProducerRegs));
     if (t == 0) {
-      mbar_expect_tx(q_full, C::kTileBytes);
+      mbar_expect_tx(q_full, C::kQKBytes);
 #pragma unroll
-      for (int c = 0; c < C::kBoxes; ++c)
+      for (int c = 0; c < C::kQBoxes; ++c)
         tma_load(q_s + c * kBoxBytes, &qmap, q_full, c * kBoxCols, h, q0, b);
       for (int it = 0; it < n; ++it) {
         const int s = it % ST, k0 = (lo + it) * kBK;
-        mbar_wait(empty(s), ((it / ST) & 1) ^ 1);
-        mbar_expect_tx(k_full(s), C::kTileBytes);
+        const uint32_t free_par = ((it / ST) & 1) ^ 1;
+        mbar_wait(C::kSplit ? k_empty(s) : empty(s), free_par);
+        mbar_expect_tx(k_full(s), C::kQKBytes);
 #pragma unroll
-        for (int c = 0; c < C::kBoxes; ++c)
-          tma_load(k_s + s * C::kTileBytes + c * kBoxBytes, &kmap, k_full(s),
+        for (int c = 0; c < C::kQBoxes; ++c)
+          tma_load(k_s + s * C::kQKBytes + c * kBoxBytes, &kmap, k_full(s),
                    c * kBoxCols, hk, k0, b);
-        mbar_expect_tx(v_full(s), C::kTileBytes);
+        if constexpr (C::kSplit) mbar_wait(empty(s), free_par);
+        mbar_expect_tx(v_full(s), C::kVBytes);
 #pragma unroll
-        for (int c = 0; c < C::kBoxes; ++c)
-          tma_load(v_s + s * C::kTileBytes + c * kBoxBytes, &vmap, v_full(s),
+        for (int c = 0; c < C::kVBoxes; ++c)
+          tma_load(v_s + s * C::kVBytes + c * kBoxBytes, &vmap, v_full(s),
                    c * kBoxCols, hk, k0, b);
       }
     }
@@ -329,10 +394,10 @@ fa_tc_kernel(const __grid_constant__ CUtensorMap qmap,
     const int row_lo = q0 + 64 * cw;
     const int r0 = row_lo + 16 * warp + lane / 4;   // d[4j], d[4j+1]; +8 for
     const int c0 = 2 * (lane % 4);                  // d[4j+2], d[4j+3]
-    float o[HD / 2], s[64];
+    float o[DV / 2], s[64];
     uint32_t pa[8][4];
 #pragma unroll
-    for (int i = 0; i < HD / 2; ++i) o[i] = 0.0f;
+    for (int i = 0; i < DV / 2; ++i) o[i] = 0.0f;
 #pragma unroll
     for (int i = 0; i < 8; ++i) pa[i][0] = pa[i][1] = pa[i][2] = pa[i][3] = 0;
 #pragma unroll
@@ -341,10 +406,10 @@ fa_tc_kernel(const __grid_constant__ CUtensorMap qmap,
     // This consumer's 64 rows start 64 x 128 bytes into each Q box.
     const uint32_t qa = q_s + 64 * 128 * cw;
 
-    // O += P V for the tile in stage `sp`: V [keys, hd] read transposed;
-    // 16 keys = 2048 bytes a step, the next 64 columns of hd one box on
+    // O += P V for the tile in stage `sp`: V [keys, DV] read transposed;
+    // 16 keys = 2048 bytes a step, the next 64 columns of DV one box on
     auto issue_pv = [&](int sp) {
-      const uint32_t va = v_s + sp * C::kTileBytes;
+      const uint32_t va = v_s + sp * C::kVBytes;
 #pragma unroll
       for (int kk = 0; kk < 8; ++kk)
         mma_rs(o, pa[kk], desc(va + kk * 2048, kBoxBytes, 1024));
@@ -356,13 +421,13 @@ fa_tc_kernel(const __grid_constant__ CUtensorMap qmap,
     for (int it = 0; it < n; ++it) {
       const int st = it % ST, k0 = (lo + it) * kBK;
       const int sp = (it + ST - 1) % ST;            // stage of tile it - 1
-      const uint32_t ka = k_s + st * C::kTileBytes;
+      const uint32_t ka = k_s + st * C::kQKBytes;
 
-      // S = Q K^T: hd / 16 steps of 32 bytes along each 128-byte row
+      // S = Q K^T: DQK / 16 steps of 32 bytes along each 128-byte row
       mbar_wait(k_full(st), (it / ST) & 1);
       wg_fence();
 #pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk) {
+      for (int kk = 0; kk < DQK / 16; ++kk) {
         const uint32_t off = (kk / 4) * kBoxBytes + (kk % 4) * 32;
         mma_ss_n128(s, desc(qa + off, 16, 1024), desc(ka + off, 16, 1024),
                     kk > 0);
@@ -375,6 +440,7 @@ fa_tc_kernel(const __grid_constant__ CUtensorMap qmap,
       }
       if (it > 0) wg_wait1(); else wg_wait0();
       reg_fence(s);
+      if constexpr (C::kSplit) mbar_arrive(k_empty(st));   // K_j read
 
       // mask the diagonal, window-edge and ragged tiles only
       const bool need = k0 + kBK > Tk || (causal && k0 + kBK - 1 > row_lo) ||
@@ -390,7 +456,7 @@ fa_tc_kernel(const __grid_constant__ CUtensorMap qmap,
         }
       }
 
-      // online softmax in f32: scores scaled by log2(e) / sqrt(hd) here
+      // online softmax in f32: scores scaled by log2(e) / sqrt(DQK) here
       float x0 = m0, x1 = m1;
 #pragma unroll
       for (int j = 0; j < 16; ++j) {
@@ -429,7 +495,7 @@ fa_tc_kernel(const __grid_constant__ CUtensorMap qmap,
       reg_fence(s);
       if (it > 0) mbar_arrive(empty(sp));
 #pragma unroll
-      for (int j = 0; j < HD / 8; ++j) {
+      for (int j = 0; j < DV / 8; ++j) {
         o[4 * j] *= a0;
         o[4 * j + 1] *= a0;
         o[4 * j + 2] *= a1;
@@ -464,10 +530,10 @@ fa_tc_kernel(const __grid_constant__ CUtensorMap qmap,
     }
     const float i0 = l0 > 0.0f ? 1.0f / l0 : 0.0f;
     const float i1 = l1 > 0.0f ? 1.0f / l1 : 0.0f;
-    __nv_bfloat16* o0 = out + (((long long)b * S + r0) * Hq + h) * HD + c0;
-    __nv_bfloat16* o1 = o0 + (long long)8 * Hq * HD;
+    __nv_bfloat16* o0 = out + (((long long)b * S + r0) * Hq + h) * DV + c0;
+    __nv_bfloat16* o1 = o0 + (long long)8 * Hq * DV;
 #pragma unroll
-    for (int j = 0; j < HD / 8; ++j) {
+    for (int j = 0; j < DV / 8; ++j) {
       if (r0 < S)
         *reinterpret_cast<__nv_bfloat162*>(o0 + 8 * j) =
             __floats2bfloat162_rn(o[4 * j] * i0, o[4 * j + 1] * i0);
@@ -524,12 +590,37 @@ int make_map(CUtensorMap* map, EncodeTiled fn, CUtensorMapDataType type,
                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
+// The current device's L2 bytes, read once a device.
+constexpr int kMaxDevices = 64;
+int l2_bytes() {
+  static std::atomic<int> seen[kMaxDevices];
+  int dev = 0, l2 = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
+  if (dev < kMaxDevices) l2 = seen[dev].load(std::memory_order_relaxed);
+  if (l2 == 0 &&
+      cudaDeviceGetAttribute(&l2, cudaDevAttrL2CacheSize, dev) ==
+          cudaSuccess &&
+      dev < kMaxDevices)
+    seen[dev].store(l2, std::memory_order_relaxed);
+  return l2;
+}
+
+// The (batch, q-head) pairs a group of <192,128>'s blocks takes: as many
+// whole kv-heads as keep the K/V they read (kv_bytes a kv-head) within half
+// the L2, all BH pairs where everything fits.
+int head_group(int BH, int G, long long kv_bytes) {
+  const long long l2 = l2_bytes();
+  const long long kv_heads = kv_bytes > 0 ? l2 / 2 / kv_bytes : BH;
+  const long long pairs = (kv_heads > 1 ? kv_heads : 1) * G;
+  return (int)(pairs < BH ? pairs : BH);
+}
+
 // Error codes past CUDA's: the driver entry point is missing, or a map was
 // refused (kMapError + the CUresult).
 constexpr int kNoEntryPoint = 10000;
 constexpr int kMapError = 20000;
 
-template <int HD>
+template <int DQK, int DV>
 int launch(const void* q, const void* k, const void* v, void* out, int B,
            int S, int Tk, int Hq, int Hkv, const long long* st, int causal,
            int window, cudaStream_t stream) {
@@ -537,20 +628,28 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
   if (fn == nullptr) return kNoEntryPoint;
   CUtensorMap qm, km, vm;
   const CUtensorMapDataType bf = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
-  int r = make_map(&qm, fn, bf, 2, kBQ, q, HD, Hq, S, B, st[0], st[1], st[2]);
+  int r = make_map(&qm, fn, bf, 2, kBQ, q, DQK, Hq, S, B, st[0], st[1],
+                   st[2]);
   if (r == 0)
-    r = make_map(&km, fn, bf, 2, kBK, k, HD, Hkv, Tk, B, st[3], st[4], st[5]);
+    r = make_map(&km, fn, bf, 2, kBK, k, DQK, Hkv, Tk, B, st[3], st[4],
+                 st[5]);
   if (r == 0)
-    r = make_map(&vm, fn, bf, 2, kBK, v, HD, Hkv, Tk, B, st[6], st[7], st[8]);
+    r = make_map(&vm, fn, bf, 2, kBK, v, DV, Hkv, Tk, B, st[6], st[7], st[8]);
   if (r != 0) return kMapError + r;
-  const int shmem = Cfg<HD>::kSmem;
+  const int shmem = Cfg<DQK, DV>::kSmem;
   cudaError_t err = cudaFuncSetAttribute(
-      fa_tc_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, shmem);
+      fa_tc_kernel<DQK, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      shmem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid(Hq * B, (S + kBQ - 1) / kBQ);
-  fa_tc_kernel<HD><<<grid, kThreads, shmem, stream>>>(
-      qm, km, vm, (__nv_bfloat16*)out, S, Tk, Hq, Hq / Hkv, causal, window,
-      kLog2e / sqrtf((float)HD));
+  const int BH = B * Hq;
+  const int group =
+      Cfg<DQK, DV>::kGroups
+          ? head_group(BH, Hq / Hkv, (long long)Tk * (DQK + DV) * 2)
+          : BH;
+  const dim3 grid(group, (S + kBQ - 1) / kBQ, (BH + group - 1) / group);
+  fa_tc_kernel<DQK, DV><<<grid, kThreads, shmem, stream>>>(
+      qm, km, vm, (__nv_bfloat16*)out, S, Tk, Hq, Hq / Hkv, BH, causal,
+      window, kLog2e / sqrtf((float)DQK));
   return (int)cudaGetLastError();
 }
 
@@ -1006,21 +1105,23 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
 
 extern "C" {
 
-// strides: q (b, s, h), k (b, t, h), v (b, t, h) in elements.  Launch on
-// `stream`; return cudaGetLastError() (0 on success), cudaErrorInvalidValue
-// for a head dim they do not take, or (bf16) one of tc's codes above.
+// hd, hv: the q/k and the v head dims.  strides: q (b, s, h), k (b, t, h),
+// v (b, t, h) in elements.  Launch on `stream`; return cudaGetLastError()
+// (0 on success), cudaErrorInvalidValue for a pair of head dims they do not
+// take, or one of tc's codes above.
 
-// f32 inputs, the 3xTF32 tensor-core kernel.  Base addresses and strides
-// must be 16-byte aligned (the wrapper checks).
+// f32 inputs, the 3xTF32 tensor-core kernel, at hd == hv, 64 or 128.  Base
+// addresses and strides must be 16-byte aligned (the wrapper checks).
 int flash_attention_tf32_launch(const void* q, const void* k, const void* v,
                                 void* out, int B, int S, int Tk, int Hq,
-                                int Hkv, int hd, long long qsb, long long qss,
-                                long long qsh, long long ksb, long long kst,
-                                long long ksh, long long vsb, long long vst,
-                                long long vsh, int causal, int window,
-                                void* stream) {
+                                int Hkv, int hd, int hv, long long qsb,
+                                long long qss, long long qsh, long long ksb,
+                                long long kst, long long ksh, long long vsb,
+                                long long vst, long long vsh, int causal,
+                                int window, void* stream) {
   const long long st[9] = {qsb, qss, qsh, ksb, kst, ksh, vsb, vst, vsh};
   cudaStream_t s = (cudaStream_t)stream;
+  if (hd != hv) return (int)cudaErrorInvalidValue;
   if (B == 0 || S == 0) return 0;
   if (hd == 64)
     return tf::launch<64>(q, k, v, out, B, S, Tk, Hq, Hkv, st, causal,
@@ -1031,37 +1132,66 @@ int flash_attention_tf32_launch(const void* q, const void* k, const void* v,
   return (int)cudaErrorInvalidValue;
 }
 
-// bf16 inputs, the tensor-core kernel.  Base addresses and strides must be
+// bf16 inputs, the tensor-core kernel, at the (hd, hv) pairs that
+// flash_attention_tc_pairs lists.  Base addresses and strides must be
 // 16-byte aligned (the wrapper checks).
 int flash_attention_tc_launch(const void* q, const void* k, const void* v,
                               void* out, int B, int S, int Tk, int Hq,
-                              int Hkv, int hd, long long qsb, long long qss,
-                              long long qsh, long long ksb, long long kst,
-                              long long ksh, long long vsb, long long vst,
-                              long long vsh, int causal, int window,
-                              void* stream) {
+                              int Hkv, int hd, int hv, long long qsb,
+                              long long qss, long long qsh, long long ksb,
+                              long long kst, long long ksh, long long vsb,
+                              long long vst, long long vsh, int causal,
+                              int window, void* stream) {
   const long long st[9] = {qsb, qss, qsh, ksb, kst, ksh, vsb, vst, vsh};
   cudaStream_t s = (cudaStream_t)stream;
   if (B == 0 || S == 0) return 0;
-  if (hd == 64)
-    return tc::launch<64>(q, k, v, out, B, S, Tk, Hq, Hkv, st, causal,
-                          window, s);
-  if (hd == 128)
-    return tc::launch<128>(q, k, v, out, B, S, Tk, Hq, Hkv, st, causal,
-                           window, s);
+  if (hd == 64 && hv == 64)
+    return tc::launch<64, 64>(q, k, v, out, B, S, Tk, Hq, Hkv, st, causal,
+                              window, s);
+  if (hd == 128 && hv == 128)
+    return tc::launch<128, 128>(q, k, v, out, B, S, Tk, Hq, Hkv, st, causal,
+                                window, s);
+  if (hd == 192 && hv == 128)
+    return tc::launch<192, 128>(q, k, v, out, B, S, Tk, Hq, Hkv, st, causal,
+                                window, s);
   return (int)cudaErrorInvalidValue;
 }
 
-// The tensor-core kernel's shape at head dim `hd`: threads, producer and
-// consumer registers (setmaxnreg), K/V stages, dynamic shared memory bytes.
-int flash_attention_tc_info(int hd, int* info) {
-  if (hd != 64 && hd != 128) return (int)cudaErrorInvalidValue;
+// The tensor-core kernel's shape at head dims (hd, hv): threads, producer
+// and consumer registers (setmaxnreg), K/V stages, dynamic shared memory
+// bytes.
+int flash_attention_tc_info(int hd, int hv, int* info) {
+  int stages, smem;
+  if (hd == 64 && hv == 64) {
+    stages = tc::Cfg<64, 64>::kStages;
+    smem = tc::Cfg<64, 64>::kSmem;
+  } else if (hd == 128 && hv == 128) {
+    stages = tc::Cfg<128, 128>::kStages;
+    smem = tc::Cfg<128, 128>::kSmem;
+  } else if (hd == 192 && hv == 128) {
+    stages = tc::Cfg<192, 128>::kStages;
+    smem = tc::Cfg<192, 128>::kSmem;
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
   info[0] = tc::kThreads;
   info[1] = tc::kProducerRegs;
   info[2] = tc::kConsumerRegs;
-  info[3] = hd == 64 ? tc::Cfg<64>::kStages : tc::Cfg<128>::kStages;
-  info[4] = hd == 64 ? tc::Cfg<64>::kSmem : tc::Cfg<128>::kSmem;
+  info[3] = stages;
+  info[4] = smem;
   return 0;
+}
+
+// The (hd, hv) pairs the tensor-core kernel is built at, as 2 x n ints
+// (at most `n` pairs) in `pairs`; returns their number.  Builds whose
+// launches take a single head dim lack this function.
+int flash_attention_tc_pairs(int* pairs, int n) {
+  const int all[3][2] = {{64, 64}, {128, 128}, {192, 128}};
+  for (int i = 0; i < 3 && i < n; ++i) {
+    pairs[2 * i] = all[i][0];
+    pairs[2 * i + 1] = all[i][1];
+  }
+  return 3;
 }
 
 // The 3xTF32 kernel's shape at head dim `hd`: threads, keys a K/V tile,

@@ -1,5 +1,6 @@
 """Flash attention: blocked online-softmax attention, causal + sliding
-window + GQA, for uncached full sequences (scoring, training).
+window + GQA, for uncached full sequences (scoring, training, a prompt of
+latent attention).
 
 Port of ``repro.kernels.flash_attention`` (the Pallas ``_fa_kernel``).
 The kernels are in ``csrc/flash_attention.cu`` (see the source's note), one
@@ -8,19 +9,22 @@ per input type:
 - bf16 takes the **tensor-core** path: one CTA per (128 query rows,
   q-head, batch), a producer warpgroup feeding a TMA ring of K/V tiles and
   two consumer warpgroups running both products on ``wgmma``, P in bf16
-  registers.
+  registers.  Besides q/k and v of one head dim it takes latent
+  attention's q/k 192 and v 128 (DeepSeek-V3's prompt, ``nn.mla``).
 - f32 takes the **3xTF32 tensor-core** path: one CTA of two warpgroups
   per (128 query rows, q-head, batch), a two-stage TMA ring of 32-key K/V
   tiles, a split pass that turns each tile into TF32 ``hi + lo`` halves
   (V transposed), and both products on ``wgmma`` TF32 summed as ``hi lo +
   lo hi + hi hi``, which holds the f32 gate that one TF32 product misses.
 
-Both read the JAX layout ``[B, S, H, hd]`` through TMA, so both need
+``HEAD_DIMS`` holds each path's (q/k, v) head-dim pairs.  Both read the
+JAX layout ``[B, S, H, hd]`` through TMA, so both need
 16-byte-aligned base addresses and strides, which :func:`check_tma`
 checks (an input that fails raises), and both mask a ragged S or T edge,
 so unlike the reference they need no padding and write every row.
 ``STATS.launches`` counts every launch, ``STATS.tensor_core`` and
-``STATS.tensor_core_tf32x3`` each path's.
+``STATS.tensor_core_tf32x3`` each path's, ``STATS.tensor_core_192_128``
+the bf16 path's at (192, 128).
 
 :func:`flash_attention_plain` is the same function in plain PyTorch
 (masked dense softmax in f32): the kernels' oracle on the card and their
@@ -42,7 +46,9 @@ __all__ = ["flash_attention", "flash_attention_plain", "check_qkv",
            "PATHS"]
 
 SOURCE = "flash_attention"        # csrc/flash_attention.cu
-HEAD_DIMS = (64, 128)
+# (q/k, v) head-dim pairs each path's kernel is built at
+HEAD_DIMS = {torch.bfloat16: ((64, 64), (128, 128), (192, 128)),
+             torch.float32: ((64, 64), (128, 128))}
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 PATHS = {torch.bfloat16: "tensor_core", torch.float32: "tensor_core_tf32x3"}
 TMA_ALIGN = 16                    # bytes: TMA's base address and strides
@@ -57,6 +63,7 @@ class _Stats:
         self.launches = 0
         self.tensor_core = 0
         self.tensor_core_tf32x3 = 0
+        self.tensor_core_192_128 = 0       # of tensor_core: latent attention
 
 
 STATS = _Stats()
@@ -64,6 +71,7 @@ STATS = _Stats()
 
 def reset_launches() -> None:
     STATS.launches = STATS.tensor_core = STATS.tensor_core_tf32x3 = 0
+    STATS.tensor_core_192_128 = 0
 
 
 def _lib() -> ctypes.CDLL:
@@ -72,22 +80,25 @@ def _lib() -> ctypes.CDLL:
         vp, ci, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         for fn in (lib.flash_attention_tf32_launch,
                    lib.flash_attention_tc_launch):
-            fn.argtypes = [vp] * 4 + [ci] * 6 + [ll] * 9 + [ci] * 2 + [vp]
+            fn.argtypes = [vp] * 4 + [ci] * 7 + [ll] * 9 + [ci] * 2 + [vp]
             fn.restype = ci
+        lib.flash_attention_tc_info.argtypes = [ci, ci, ctypes.POINTER(ci)]
+        lib.flash_attention_tf32_info.argtypes = [ci, ctypes.POINTER(ci)]
         for fn in (lib.flash_attention_tc_info, lib.flash_attention_tf32_info):
-            fn.argtypes = [ci, ctypes.POINTER(ci)]
             fn.restype = ci
         lib._argtypes_set = True
     return lib
 
 
-def tc_info(hd: int) -> dict:
-    """The tensor-core kernel's launch shape at head dim ``hd``, as the
-    built library reports it."""
+def tc_info(hd: int, hv: int | None = None) -> dict:
+    """The tensor-core kernel's launch shape at head dims (``hd``, ``hv``)
+    (``hv`` defaults to ``hd``), as the built library reports it."""
+    hv = hd if hv is None else hv
     buf = (ctypes.c_int * 5)()
-    rc = _lib().flash_attention_tc_info(hd, buf)
+    rc = _lib().flash_attention_tc_info(hd, hv, buf)
     if rc != 0:
-        raise ValueError(f"flash_attention: head dim {hd} not in {HEAD_DIMS}")
+        raise ValueError(f"flash_attention: head dims {(hd, hv)} not in "
+                         f"{HEAD_DIMS[torch.bfloat16]}")
     return dict(zip(("threads", "producer_regs", "consumer_regs", "stages",
                      "smem_bytes"), buf))
 
@@ -98,7 +109,8 @@ def tf32_info(hd: int) -> dict:
     buf = (ctypes.c_int * 4)()
     rc = _lib().flash_attention_tf32_info(hd, buf)
     if rc != 0:
-        raise ValueError(f"flash_attention: head dim {hd} not in {HEAD_DIMS}")
+        raise ValueError(f"flash_attention: head dim {hd} not in "
+                         f"{HEAD_DIMS[torch.float32]}")
     return dict(zip(("threads", "keys", "stages", "smem_bytes"), buf))
 
 
@@ -137,9 +149,10 @@ def check_tma(name: str, q, k, v) -> None:
 
 
 def check_qkv(name: str, q, k, v, *, q_len: int | None = None) -> None:
-    """Raise on inputs the attention kernels do not take: q [B,S,Hq,hd] and
-    k/v [B,T,Hkv,hd] on one device, one type (f32 or bf16), hd 64 or 128,
-    Hq a multiple of Hkv, the head dim contiguous."""
+    """Raise on inputs the attention kernels do not take: q [B,S,Hq,hd],
+    k [B,T,Hkv,hd] and v [B,T,Hkv,hv] on one device, one type (f32 or
+    bf16), (hd, hv) one of the type's ``HEAD_DIMS``, Hq a multiple of Hkv,
+    the head dim contiguous."""
     for nm, t in (("q", q), ("k", k), ("v", v)):
         if not isinstance(t, torch.Tensor) or t.dim() != 4:
             raise ValueError(f"{name}: {nm} must be a 4-d tensor "
@@ -153,13 +166,15 @@ def check_qkv(name: str, q, k, v, *, q_len: int | None = None) -> None:
         if t.stride(-1) != 1:
             raise ValueError(f"{name}: {nm}'s head dim must be contiguous")
     B, S, Hq, hd = q.shape
-    if k.shape != v.shape or k.shape[0] != B or k.shape[3] != hd:
+    if k.shape[:3] != v.shape[:3] or k.shape[0] != B or k.shape[3] != hd:
         raise ValueError(f"{name}: k {tuple(k.shape)} / v {tuple(v.shape)} "
                          f"do not match q {tuple(q.shape)}")
     if q_len is not None and S != q_len:
         raise ValueError(f"{name}: q must hold {q_len} token(s), has {S}")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"{name}: head dim {hd} not in {HEAD_DIMS}")
+    dims = HEAD_DIMS[q.dtype]
+    if (hd, v.shape[3]) not in dims:
+        raise ValueError(f"{name}: head dims (q/k, v) {(hd, v.shape[3])} "
+                         f"not in {dims} for {q.dtype}")
     if Hq % k.shape[2]:
         raise ValueError(f"{name}: {Hq} q-heads are not a multiple of "
                          f"{k.shape[2]} kv-heads")
@@ -168,8 +183,8 @@ def check_qkv(name: str, q, k, v, *, q_len: int | None = None) -> None:
 def flash_attention_plain(q, k, v, *, causal: bool = True,
                           window: int = -1) -> torch.Tensor:
     """Masked dense softmax attention in f32 (``dense_attention.attend_dense``
-    over the whole sequence): q [B,S,Hq,hd], k/v [B,T,Hkv,hd] ->
-    [B,S,Hq*hd] in q's type."""
+    over the whole sequence): q [B,S,Hq,hd], k [B,T,Hkv,hd], v [B,T,Hkv,hv]
+    -> [B,S,Hq*hv] in q's type."""
     return attend_dense(q, k, v, causal=causal, window=window)
 
 
@@ -192,8 +207,8 @@ def _launch(q, k, v, causal: bool, window: int) -> torch.Tensor:
     path = route(q)
     check_tma("flash_attention", q, k, v)
     B, S, Hq, hd = q.shape
-    T, Hkv = k.shape[1], k.shape[2]
-    out = torch.empty((B, S, Hq * hd), dtype=q.dtype, device=q.device)
+    T, Hkv, hv = k.shape[1], k.shape[2], v.shape[3]
+    out = torch.empty((B, S, Hq * hv), dtype=q.dtype, device=q.device)
     if B == 0 or S == 0:
         return out
     if T == 0:
@@ -204,8 +219,9 @@ def _launch(q, k, v, causal: bool, window: int) -> torch.Tensor:
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                B, S, T, Hq, Hkv, hd, *_tma_strides(q), *_tma_strides(k),
-                *_tma_strides(v), int(causal), int(window), stream)
+                B, S, T, Hq, Hkv, hd, hv, *_tma_strides(q),
+                *_tma_strides(k), *_tma_strides(v), int(causal), int(window),
+                stream)
     if rc != 0:
         if rc == _NO_ENTRY_POINT:
             why = "cudaGetDriverEntryPoint found no cuTensorMapEncodeTiled"
@@ -217,15 +233,17 @@ def _launch(q, k, v, causal: bool, window: int) -> torch.Tensor:
                            f"{why}")
     STATS.launches += 1
     setattr(STATS, path, getattr(STATS, path) + 1)
+    if (hd, hv) == (192, 128):
+        STATS.tensor_core_192_128 += 1
     return out
 
 
 def flash_attention(q, k, v, *, causal: bool = True,
                     window: int = -1) -> torch.Tensor:
-    """q [B,S,Hq,hd], k/v [B,T,Hkv,hd] -> [B,S,Hq*hd]: the kernel for CUDA
-    tensors, the plain twin for CPU tensors.  ``window <= 0`` is full
-    attention; any S and T are taken (no padding).  Refuses inputs that
-    require grad under grad mode (:func:`_build.refuse_grad`)."""
+    """q [B,S,Hq,hd], k [B,T,Hkv,hd], v [B,T,Hkv,hv] -> [B,S,Hq*hv]: the
+    kernel for CUDA tensors, the plain twin for CPU tensors.  ``window <=
+    0`` is full attention; any S and T are taken (no padding).  Refuses
+    inputs that require grad under grad mode (:func:`_build.refuse_grad`)."""
     _build.refuse_grad("flash_attention", q, k, v)
     if q.is_cuda:
         return _launch(q, k, v, causal, int(window))

@@ -200,8 +200,8 @@ def flash_decode_plain(q, k, v, kv_len: int, *, bk: int | None = None,
 
 def check_decode(q, k, v) -> tuple:
     """Raise on what the kernel does not take: ``check_qkv``'s conditions
-    with one query token (tested in one pass; ``check_qkv`` names the
-    fault), at most MAX_GROUP q-heads per kv-head, and the K/V base
+    with one query token and v as wide as q and k (tested in one pass;
+    ``check_qkv`` names the fault), at most MAX_GROUP q-heads per kv-head, and the K/V base
     addresses and the strides of their batch, step and head dims (those
     of size above 1) on 16-byte boundaries.  Returns the shapes of q and k
     and the strides of q, k and v."""
@@ -212,10 +212,14 @@ def check_decode(q, k, v) -> tuple:
     if not (dt in DTYPES and k.dtype is dt and v.dtype is dt
             and len(qs) == 4 and len(ks) == 4 and v.shape == ks
             and qs[1] == 1 and ks[0] == qs[0] and ks[3] == qs[3]
-            and qs[3] in HEAD_DIMS and k.device == dev and v.device == dev
-            and qst[3] == 1 and kst[3] == 1 and vst[3] == 1) \
-            or qs[2] % ks[2]:
+            and (qs[3], qs[3]) in HEAD_DIMS[dt] and k.device == dev
+            and v.device == dev and qst[3] == 1 and kst[3] == 1
+            and vst[3] == 1) or qs[2] % ks[2]:
         check_qkv("flash_decode", q, k, v, q_len=1)
+        if v.shape[3] != qs[3]:
+            raise ValueError(f"flash_decode: head dims (q/k, v) "
+                             f"{(qs[3], v.shape[3])}; the kernel takes v "
+                             f"as wide as q and k")
     if qs[2] // ks[2] > MAX_GROUP:
         raise ValueError(f"flash_decode: {qs[2] // ks[2]} q-heads per "
                          f"kv-head, the kernel serves at most {MAX_GROUP}")

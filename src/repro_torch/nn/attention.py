@@ -29,9 +29,11 @@ Port of ``repro.nn.attention``:
   cache append, such as a prefill, or a windowed single-token decode)
   takes the dense or chunked math.  Uncached cross-attention is a full
   sequence, so it goes to ``flash_attention`` with ``causal=False``, a
-  decode step's single query included.  The kernels take q, k and v of
-  one head dim, so a ``"kernel"`` call whose head dims differ (latent
-  attention's 192 and 128) raises instead of taking the dense math.
+  decode step's single query included.  A call whose q/k and v head dims
+  differ goes to ``flash_attention`` where it is uncached and the kernel
+  for q's type takes the pair (latent attention's prompt: q/k 192, v 128
+  in bf16, ``kernels.flash_attention.HEAD_DIMS``); any other such
+  ``"kernel"`` call raises instead of taking the dense math.
 
 Each call counts its route (``runtime.obs``): ``attend.flash_attention``,
 ``attend.flash_decode``, ``attend.chunked`` or ``attend.dense``, and a
@@ -109,10 +111,15 @@ def attend(q, k, v, *, causal: bool = True, window: int = -1,
     if impl not in IMPLS:
         raise ValueError(f"attend: impl must be one of {IMPLS}, got {impl!r}")
     if impl == "kernel":
-        if not q.shape[-1] == k.shape[-1] == v.shape[-1]:
-            raise ValueError(f"attend: the kernels take q, k and v of one "
-                             f"head dim, got {q.shape[-1]}, {k.shape[-1]} "
-                             f"and {v.shape[-1]}; ask for impl='dense'")
+        hd, hk, hv = q.shape[-1], k.shape[-1], v.shape[-1]
+        pair = (hd == hk and (hd, hv) in _fa.HEAD_DIMS.get(q.dtype, ())
+                and kv_len is None and q_offset == 0)
+        if not (hd == hk == hv or pair):
+            raise ValueError(f"attend: no kernel takes q/k/v head dims "
+                             f"{hd}/{hk}/{hv} in {q.dtype} on this call "
+                             f"(unequal ones only uncached, at "
+                             f"flash_attention.HEAD_DIMS); ask for "
+                             f"impl='dense'")
         if kv_len is None and q_offset == 0:
             obs.count("attend.flash_attention")
             return _fa.flash_attention(q, k, v, causal=causal, window=window)

@@ -32,12 +32,21 @@ write adds its bytes to the counter ``mla.latent_bytes``.
   ``1/sqrt(nope + rope)``), and the value half of ``W_kvb`` maps each
   head's latent output to its ``v`` dims.  The cache is never expanded.
 
-Both forms ask ``attend`` for its dense math (``impl="dense"``: masked
-softmax in f32, chunked over query blocks) whatever ``impl`` the caller
-gives: neither ``kernels.flash_attention`` nor ``kernels.flash_decode``
-takes a q/k head dim other than v's, as the prompt's 192 and 128 and the
-absorbed form's 576 and 512 are, and ``attend(impl="kernel")`` refuses
-such a call.
+The route is chosen here, by the input's shape and type, never by a
+fallback inside ``attend``:
+
+- the prompt passes the caller's ``impl`` on where the attention kernel
+  for q's type takes its (q/k, v) head dims
+  (``kernels.flash_attention.HEAD_DIMS``): at Moonlight's widths in bf16,
+  ``impl="kernel"`` runs ``flash_attention``'s (192, 128) instance, q, k
+  and v in bf16, both products summed in f32, the softmax in f32 and P
+  rounded once to bf16 before P V, as the published modeling code casts
+  the softmax weights to the query's type; where no kernel takes them
+  (the tests' small widths, or f32 at Moonlight's) it asks for the dense
+  math (``impl="dense"``: masked softmax in f32, chunked over query
+  blocks);
+- the absorbed form always asks for the dense math: no kernel takes its
+  576 and 512 (``attend(impl="kernel")`` refuses such a call).
 
 ``MLA.forward`` runs in an ``nn/mla`` span.  There is no tensor-parallel
 plan: under a 'model' or sequence axis above 1 the layer raises.
@@ -50,6 +59,7 @@ import torch
 from torch import nn
 
 from ..distributed import tp
+from ..kernels import flash_attention as _fa
 from ..runtime import obs
 from .attention import IMPLS, attend
 from .linear import Dense
@@ -86,8 +96,8 @@ class MLA(nn.Module):
                 cache: dict | None = None, impl: str = "dense"):
         """Returns ``(out [B, S, d], cache)``; with ``cache``, ``x`` holds
         the new tokens, whose latent is written at ``cache["idx"]``.
-        ``impl`` is checked and otherwise unused: the attention is the
-        dense math under either (module docstring)."""
+        ``impl`` reaches the prompt's attention where a kernel takes it
+        (module docstring)."""
         if impl not in IMPLS:
             raise ValueError(f"MLA: impl must be one of {IMPLS}, got "
                              f"{impl!r}")
@@ -124,19 +134,24 @@ class MLA(nn.Module):
                     r * cache["ckv"].element_size()
                     + self.rope * cache["kpe"].element_size()))
             if idx == 0:
-                out = self._prompt(q_nope, q_pe, c_kv, k_pe)
+                out = self._prompt(q_nope, q_pe, c_kv, k_pe, impl)
             else:
                 out = self._absorbed(q_nope, q_pe, cache, idx + S)
             return self.o(out.to(x.dtype)), cache
 
-    def _prompt(self, q_nope, q_pe, c_kv, k_pe):
-        """The prompt's own keys and values, up-projected -> [B, S, H v]."""
+    def _prompt(self, q_nope, q_pe, c_kv, k_pe, impl):
+        """The prompt's own keys and values, up-projected -> [B, S, H v];
+        ``impl`` kept where the kernel for q's type takes the head dims,
+        else the dense math."""
         B, S, H, _ = q_nope.shape
         kv = self.kvb(c_kv).reshape(B, S, H, self.nope + self.vd)
-        k_nope, v = kv.split([self.nope, self.vd], dim=-1)
+        k_nope, v = kv.split([self.nope, self.vd], dim=-1)   # v: a view
         k = torch.cat([k_nope, k_pe.expand(B, S, H, self.rope)], dim=-1)
-        return attend(torch.cat([q_nope, q_pe], dim=-1), k, v, causal=True,
-                      impl="dense")
+        q = torch.cat([q_nope, q_pe], dim=-1)
+        if (self.nope + self.rope, self.vd) not in _fa.HEAD_DIMS.get(
+                q.dtype, ()):
+            impl = "dense"
+        return attend(q, k, v, causal=True, impl=impl)
 
     def _absorbed(self, q_nope, q_pe, cache, T):
         """The absorbed form over the first ``T`` cached positions (the new

@@ -20,7 +20,8 @@ Tracing is on while a ``torch.profiler`` session is active, or between
   the kernel modules' launch counts (each module's ``STATS`` stays their
   store) as ``fusion_eval.launches``, ``flash_attention.launches``,
   ``flash_attention.tensor_core``, ``flash_attention.tensor_core_tf32x3``,
-  ``flash_decode.launches`` and ``wkv6.launches``; ``counters(traced=
+  ``flash_attention.tensor_core_192_128``, ``flash_decode.launches`` and
+  ``wkv6.launches``; ``counters(traced=
   True)`` reports what the registry counted while tracing was on.
 
 :func:`spans` gives host times on the Chrome trace's clock: microseconds
@@ -59,7 +60,8 @@ MAX_SPANS = 1 << 16
 _KERNEL_STATS = {"fusion_eval": ("fusion_eval", ("launches",)),
                  "flash_attention": ("flash_attention",
                                      ("launches", "tensor_core",
-                                      "tensor_core_tf32x3")),
+                                      "tensor_core_tf32x3",
+                                      "tensor_core_192_128")),
                  "flash_decode": ("flash_decode", ("launches",)),
                  "wkv6": ("rwkv6_scan", ("launches",))}
 _KERNELS = __name__.split(".")[0] + ".kernels."

@@ -105,6 +105,55 @@ def test_check_qkv_rejects_what_the_kernels_do_not_take():
         fa.check_qkv("t", tq, tk[:, :4], tv)
 
 
+def test_check_qkv_takes_the_latent_pair_in_bf16_only():
+    """(q/k 192, v 128) is a pair of the bf16 kernel's, not of the f32
+    one's; q and k share a depth, and v k's batch, keys and heads."""
+    def mk(*sh):
+        return torch.zeros(sh, dtype=torch.bfloat16)
+    q, k, v = mk(2, 8, 4, 192), mk(2, 8, 4, 192), mk(2, 8, 4, 128)
+    fa.check_qkv("t", q, k, v)                            # accepted
+    assert (192, 128) in fa.HEAD_DIMS[torch.bfloat16]
+    assert (192, 128) not in fa.HEAD_DIMS[torch.float32]
+    with pytest.raises(ValueError, match="head dims"):
+        fa.check_qkv("t", q.float(), k.float(), v.float())
+    with pytest.raises(ValueError, match="head dims"):
+        fa.check_qkv("t", q, k, mk(2, 8, 4, 64))          # (192, 64)
+    with pytest.raises(ValueError, match="head dims"):
+        fa.check_qkv("t", mk(2, 8, 4, 96), mk(2, 8, 4, 96), mk(2, 8, 4, 64))
+    with pytest.raises(ValueError, match="head dims"):
+        fd.check_decode(q[:, :1], k, v)                   # not flash_decode's
+    with pytest.raises(ValueError, match="do not match"):
+        fa.check_qkv("t", q, mk(2, 8, 4, 128), v)         # k's depth
+    with pytest.raises(ValueError, match="do not match"):
+        fa.check_qkv("t", q, k, mk(2, 9, 4, 128))         # v's keys
+
+
+def test_attend_kernel_takes_the_latent_pair_uncached_only():
+    """``attend(impl="kernel")`` sends uncached bf16 q/k 192 and v 128 to
+    ``flash_attention`` (its plain twin on the CPU, so the dense result
+    bit for bit), and refuses the pair over a cache, in f32 and at a pair
+    no kernel takes, counting no route."""
+    from repro_torch.runtime import obs
+    g = torch.Generator().manual_seed(0)
+
+    def mk(hd, dtype=torch.bfloat16):
+        return torch.randn(1, 9, 2, hd, generator=g).to(dtype)
+    q, k, v = mk(192), mk(192), mk(128)
+    obs.reset()
+    got = tatt.attend(q, k, v, impl="kernel")
+    assert obs.counters().get("attend.flash_attention") == 1
+    assert got.shape == (1, 9, 256)
+    assert torch.equal(got, tatt.attend(q, k, v, impl="dense"))
+    obs.reset()
+    for args, kw in (((q, k, v), dict(kv_len=9)),
+                     ((q, k, v), dict(q_offset=2, kv_len=9)),
+                     ((q.float(), k.float(), v.float()), {}),
+                     ((q, k, mk(64)), {}), ((q, mk(128), v), {})):
+        with pytest.raises(ValueError, match="no kernel takes"):
+            tatt.attend(*args, impl="kernel", **kw)
+    assert not [c for c in obs.counters() if c.startswith("attend.")]
+
+
 # -- flash_decode_plain --------------------------------------------------------
 
 @pytest.mark.parametrize("B,T,Hq,Hkv,hd,kv_len", [

@@ -193,11 +193,11 @@ TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5),
        torch.bfloat16: dict(rtol=8e-3, atol=1e-3)}
 
 
-def _qkv(dev, dtype, B, S, T, Hq, Hkv, hd, seed=0):
+def _qkv(dev, dtype, B, S, T, Hq, Hkv, hd, seed=0, hv=None):
     rng = np.random.default_rng(seed)
     mk = lambda *sh: torch.as_tensor(rng.normal(size=sh), dtype=dtype,
                                      device=dev)
-    return mk(B, S, Hq, hd), mk(B, T, Hkv, hd), mk(B, T, Hkv, hd)
+    return mk(B, S, Hq, hd), mk(B, T, Hkv, hd), mk(B, T, Hkv, hv or hd)
 
 
 def _close(got, want, dtype):
@@ -212,11 +212,15 @@ def _paths():
 def _fa_held(q, k, v, causal=True, window=-1):
     """flash_attention on the card against its plain twin: 2e-5 + 2e-5
     |plain| in f32 (the 3xTF32 path), fa.bf16_limit in bf16; one launch,
-    on q's path."""
+    on q's path, and on the (192, 128) instance where v is 128 wide and
+    q 192."""
     before = _paths()
+    latent = fa.STATS.tensor_core_192_128
     got = fa.flash_attention(q, k, v, causal=causal, window=window)
     tc = q.dtype == torch.bfloat16
     assert _paths() == (before[0] + 1, before[1] + tc, before[2] + (not tc))
+    assert fa.STATS.tensor_core_192_128 == latent + (
+        (q.shape[-1], v.shape[-1]) == (192, 128))
     want = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
     assert got.shape == want.shape and got.dtype == want.dtype
     if not tc:
@@ -323,10 +327,118 @@ def test_flash_attention_counts_each_path(dev):
         <= 65536
     smem = torch.cuda.get_device_properties(dev) \
         .shared_memory_per_block_optin
-    for hd in fa.HEAD_DIMS:
+    for hd, _ in fa.HEAD_DIMS[torch.float32]:
         info = fa.tf32_info(hd)
         assert info["threads"] == 256 and info["stages"] >= 2
         assert info["keys"] % 8 == 0 and info["smem_bytes"] <= smem
+
+
+def test_flash_attention_tc_instances_and_their_shapes(dev):
+    """The built tensor-core kernel takes HEAD_DIMS' bf16 pairs; <64,64>
+    and <128,128> keep three 128-key stages (113 and 225 KB), <192,128>
+    takes two (209 KB), each within a block's shared memory."""
+    smem = torch.cuda.get_device_properties(dev) \
+        .shared_memory_per_block_optin
+    want = {(64, 64): (3, 115792), (128, 128): (3, 230480),
+            (192, 128): (2, 214088)}
+    assert tuple(want) == fa.HEAD_DIMS[torch.bfloat16]
+    for (hd, hv), (stages, size) in want.items():
+        info = fa.tc_info(hd, hv)
+        assert (info["stages"], info["smem_bytes"]) == (stages, size)
+        assert info["threads"] == 384 and size <= smem
+        assert 128 * info["producer_regs"] + 256 * info["consumer_regs"] \
+            <= 65536
+    assert fa.tc_info(128) == fa.tc_info(128, 128)
+    with pytest.raises(ValueError, match="head dims"):
+        fa.tc_info(96, 64)
+
+
+@pytest.mark.parametrize("B,S,Hq,Hkv", [
+    (1, 64, 1, 1), (1, 200, 4, 4),                       # one tile, ragged
+    (4, 320, 16, 16), (4, 1168, 16, 16),                 # the code cell's
+    (1, 6592, 16, 16)])                                  # lengths
+def test_flash_attention_latent_pair_matches_plain(dev, B, S, Hq, Hkv):
+    """bf16 q/k 192 and v 128 (latent attention's prompt) on the
+    <192,128> instance, causal, at fa.bf16_limit."""
+    _fa_held(*_qkv(dev, torch.bfloat16, B, S, S, Hq, Hkv, 192, hv=128))
+
+
+def test_flash_attention_latent_pair_reads_v_as_half_a_row(dev):
+    """V as MLA hands it: the [..., 128:] half of the up-projection's [B,
+    S, H, 256] output, read through its strides."""
+    q, k, kv = _qkv(dev, torch.bfloat16, 2, 300, 300, 16, 16, 192, hv=256)
+    v = kv[..., 128:]
+    assert not v.is_contiguous()
+    fa.check_tma("test", q, k, v)
+    _fa_held(q, k, v)
+
+
+def test_flash_attention_refuses_pairs_it_lacks(dev):
+    """No f32 instance at (192, 128), no instance at (96, 64): both raise
+    before any launch."""
+    q, k, v = _qkv(dev, torch.float32, 1, 64, 64, 2, 2, 192, hv=128)
+    q2, k2, v2 = _qkv(dev, torch.bfloat16, 1, 64, 64, 2, 2, 96, hv=64)
+    before = _paths() + (fa.STATS.tensor_core_192_128,)
+    with pytest.raises(ValueError, match="head dims"):
+        fa.flash_attention(q, k, v)
+    with pytest.raises(ValueError, match="head dims"):
+        fa.flash_attention(q2, k2, v2)
+    assert _paths() + (fa.STATS.tensor_core_192_128,) == before
+
+
+def test_moonlight_mla_layer_on_the_latent_kernel_matches_dense(
+        dev, monkeypatch):
+    """One bf16 latent-attention layer at Moonlight-16B-A3B's published
+    widths (d 2048, 16 heads, latent 512, q/k 128 + 64, v 128), B 2, S
+    1168: ``impl="kernel"`` launches flash_attention's (192, 128) instance
+    once, and its output matches ``impl="dense"`` (the chunked f32 math)
+    within this bound.  The two attention outputs A differ by at most
+    fa.bf16_limit elementwise (each side's bf16 output rounding, and P
+    rounded to bf16 before P V: the kernel's own gate).  Everything else
+    in the layer is the same bf16 code on the same inputs, so through
+    ``o`` the difference is at most |A_k - A_d| @ |W_o|, plus each side's
+    rounding of the product to bf16 (2^-8 |y|) and 2^-8 (|A| @ |W_o|) for
+    partial sums the bf16 product may round."""
+    from repro_torch import configs
+    from repro_torch.nn import mla as mla_mod
+    cfg = configs.get_config("moonlight_16b_a3b")
+    gen = torch.Generator(dev).manual_seed(0)
+    att = mla_mod.MLA(cfg.d_model, n_heads=cfg.n_heads,
+                      kv_lora_rank=cfg.kv_lora_rank,
+                      qk_nope_head_dim=cfg.qk_nope_head_dim,
+                      qk_rope_head_dim=cfg.qk_rope_head_dim,
+                      v_head_dim=cfg.v_head_dim, generator=gen, device=dev,
+                      dtype=torch.bfloat16)
+    B, S = 2, 1168
+    x = torch.randn(B, S, cfg.d_model, generator=gen, device=dev,
+                    dtype=torch.float32).to(torch.bfloat16)
+    cos, sin = lm._rope_tables(cfg, {}, torch.arange(S, device=dev))
+    seen = []
+
+    def attend(q, k, v, **kw):
+        out = real(q, k, v, **kw)
+        seen.append((q, k, v, out))
+        return out
+    real = mla_mod.attend
+    monkeypatch.setattr(mla_mod, "attend", attend)
+    with torch.no_grad():
+        before = (fa.STATS.launches, fa.STATS.tensor_core_192_128)
+        y_d, _ = att(x, cos=cos, sin=sin, impl="dense")
+        assert (fa.STATS.launches, fa.STATS.tensor_core_192_128) == before
+        y_k, _ = att(x, cos=cos, sin=sin, impl="kernel")
+        assert (fa.STATS.launches, fa.STATS.tensor_core_192_128) == (
+            before[0] + 1, before[1] + 1)
+    (q, k, v, a_d), (_, _, _, a_k) = seen
+    assert (q.shape[-1], k.shape[-1], v.shape[-1]) == (192, 192, 128)
+    lim_a = fa.bf16_limit(q, k, v, want=a_d)
+    assert float(((a_k.float() - a_d.float()).abs() / lim_a).max()) <= 1
+    w = att.o.w.detach().float().abs()
+    u = 2.0 ** -8
+    lim = (lim_a @ w + u * (a_d.float().abs() @ w + y_k.float().abs()
+                            + y_d.float().abs()))
+    diff = (y_k.float() - y_d.float()).abs()
+    assert torch.isfinite(y_k).all()
+    assert float((diff / lim).max()) <= 1, float((diff / lim).max())
 
 
 @pytest.mark.parametrize("B,S,T,Hq,Hkv,hd,causal,window", [

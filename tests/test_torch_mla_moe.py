@@ -28,6 +28,7 @@ from repro_torch.distributed import tp
 from repro_torch.models import get_model, lm
 from repro_torch.nn import moe as tmoe
 from repro_torch.nn.mla import MLA
+from repro_torch.nn.rope import rope_freqs
 from repro_torch.runtime import obs
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -108,15 +109,18 @@ def test_mla_layer_matches_reference(impl):
 
 
 def test_mla_asks_for_the_dense_math_and_kernel_attend_refuses_it():
-    """No kernel takes q/k and v of other head dims: ``attend(impl=
-    "kernel")`` refuses them, and MLA asks for the dense math itself, so
-    a ``"kernel"`` prefill and decode count no kernel fallback."""
+    """No kernel takes q/k 24 and v 16: ``attend(impl="kernel")`` refuses
+    them, and an MLA at those widths asks for the dense math itself, so a
+    ``"kernel"`` prefill and decode count no kernel call and no kernel
+    fallback."""
     from repro_torch.nn.attention import attend
     gen = torch.Generator().manual_seed(0)
     q = torch.randn(1, 5, 4, 24, generator=gen)
     v = torch.randn(1, 5, 4, 16, generator=gen)
-    with pytest.raises(ValueError, match="one head dim"):
+    with pytest.raises(ValueError, match="no kernel takes"):
         attend(q, q, v, impl="kernel")
+    with pytest.raises(ValueError, match="no kernel takes"):
+        attend(q.bfloat16(), q.bfloat16(), v.bfloat16(), impl="kernel")
     att = MLA(64, n_heads=4, kv_lora_rank=32, qk_nope_head_dim=16,
               qk_rope_head_dim=8, v_head_dim=16, generator=gen)
     cache = {"ckv": torch.zeros(2, 8, 32), "kpe": torch.zeros(2, 8, 8),
@@ -130,9 +134,54 @@ def test_mla_asks_for_the_dense_math_and_kernel_attend_refuses_it():
             cache=cache, impl="kernel")
     counts = obs.counters()
     assert counts.get("attend.dense") == 2
-    assert "attend.kernel_fallback" not in counts
+    for route in ("attend.kernel_fallback", "attend.flash_attention",
+                  "attend.flash_decode"):
+        assert route not in counts
     with pytest.raises(ValueError, match="impl"):
         att(torch.randn(2, 1, 64), cos=cos[:1], sin=sin[:1], impl="flash")
+
+
+def _mla_192_128(dtype):
+    """An MLA at Moonlight's head dims (q/k 128 + 64, v 128) on a small
+    model width, in ``dtype``."""
+    gen = torch.Generator().manual_seed(3)
+    att = MLA(64, n_heads=2, kv_lora_rank=32, qk_nope_head_dim=128,
+              qk_rope_head_dim=64, v_head_dim=128, generator=gen)
+    return att.to(dtype), torch.randn(2, 38, 64, generator=gen).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_mla_prompt_takes_flash_attention_where_the_kernel_takes_its_dims(
+        dtype):
+    """At q/k 192 and v 128 in bf16 a ``"kernel"`` prompt goes to
+    ``flash_attention`` (one ``attend.flash_attention`` a prompt; on the
+    CPU its plain twin, so it equals the ``"dense"`` prompt bit for bit);
+    in f32 no kernel takes the pair and the layer asks for the dense math.
+    The absorbed decode step after it counts no kernel call either way."""
+    att, x = _mla_192_128(dtype)
+    cos, sin = rope_freqs(torch.arange(38), 64, 50000.0)
+    bf16 = dtype == torch.bfloat16
+    outs = {}
+    for impl in ("dense", "kernel"):
+        cache = {"ckv": torch.zeros(2, 40, 32, dtype=dtype),
+                 "kpe": torch.zeros(2, 40, 64, dtype=dtype), "idx": 0}
+        obs.reset()
+        with torch.no_grad():
+            outs[impl], _ = att(x[:, :37], cos=cos[:37], sin=sin[:37],
+                                cache=cache, impl=impl)
+            prompt = obs.counters()
+            att(x[:, 37:], cos=cos[37:], sin=sin[37:], cache=cache,
+                impl=impl)
+        counts = obs.counters()
+        taken = bf16 and impl == "kernel"
+        assert prompt.get("attend.flash_attention", 0) == int(taken)
+        assert prompt.get("attend.dense", 0) == int(not taken)
+        assert counts.get("attend.flash_attention", 0) == int(taken)
+        assert counts.get("attend.dense", 0) == 1 + int(not taken)
+        for route in ("attend.kernel_fallback", "attend.flash_decode",
+                      "attend.chunked"):
+            assert route not in counts
+    assert torch.equal(outs["kernel"], outs["dense"])
 
 
 def _moe(seed=0, **kw):

@@ -29,6 +29,7 @@ MB = 2.0 ** 20
 KERNEL_COUNTERS = ("fusion_eval.launches", "flash_attention.launches",
                    "flash_attention.tensor_core",
                    "flash_attention.tensor_core_tf32x3",
+                   "flash_attention.tensor_core_192_128",
                    "flash_decode.launches", "wkv6.launches")
 
 
